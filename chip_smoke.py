@@ -8,17 +8,24 @@
    gpu/csrc`` (one ``nvcc`` per source, all started together) and times it.
 3. Kernel vs plain version on the card, exact equality: ``bmm_or`` at the
    ancestry and forkseen shapes plus a ragged one, ``ssm_block`` on the sees
-   slab of the BASELINE config-4 DAG at the column-add shapes.  Each is timed
-   (median of CUDA-event timings after a warm-up) beside its plain version,
-   its least time on the card (bound) and, for ``bmm_or``, one library call.
-4. Main path, BASELINE config 3 (64 members, 10 000 events, uniform stake):
-   the port's gossip DAG + ``run_consensus(device="cuda")`` twice (the first
-   warms up); events/s and per-stage seconds of the second run, kernel launch
-   counts of that run (each must be > 0), and SHA-256 digests of the order,
-   rounds, fame and round-received held against golden digests computed from
-   the JAX reference on the same DAG.
-5. Main path, BASELINE config 4: the same with 21 forkers.
-6. A ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the last line.
+   slab of the BASELINE config-4 DAG at the column-add shapes, ``ssm_matrix``
+   on the full config-4 slab (non-uniform stake), the full config-3 slab, a
+   ragged N and small random shapes.  Each is timed (median of CUDA-event
+   timings after a warm-up) beside its plain version, its least time on the
+   card (bound) and, for ``bmm_or``, one library call.  A bound counts the
+   work this run's data needs: member-table slots that are -1 and padded
+   columns need none.
+4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
+   0 and 21 forkers): the port's gossip DAG through ``run_consensus(
+   device="cuda")`` with the default column-restricted strongly-sees
+   (a warm-up run, then a measured one), with ``ssm_mode="full"`` (a warm-up,
+   then a measured one) and with ``use_pallas_ssm=True`` (measured).  For
+   each measured run: events/s, per-stage seconds and calls, and the kernel
+   launch counts of that run (every kernel of the path > 0, the other
+   strongly-sees kernel 0); the SHA-256 digests of its order, rounds, fame
+   and round-received are held against golden digests computed from the JAX
+   reference on the same DAG.
+5. A ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -46,6 +53,13 @@ N_MEMBERS = 64
 N_EVENTS = 10_000
 SEED = 1
 CONFIGS = {"config3": 0, "config4": 21}      # name -> forkers
+# path -> (run_consensus kwargs, warm-up run first, kernels it must launch,
+#          kernels it must not launch)
+PATHS = {
+    "columns": ({}, True, ("bmm_or", "ssm_block"), ("ssm_matrix",)),
+    "full": ({"ssm_mode": "full"}, True, ("bmm_or", "ssm_matrix"), ("ssm_block",)),
+    "pallas": ({"use_pallas_ssm": True}, False, ("bmm_or", "ssm_matrix"), ("ssm_block",)),
+}
 
 # Digests of the JAX reference (tpu_swirld.tpu.pipeline.run_consensus on the
 # CPU, sim signer, s_max=65 grown by its overflow self-heal) on
@@ -77,7 +91,12 @@ KERNEL_INFO = {
         "source": "tpu_swirld_torch/gpu/csrc/ssm_block.cu",
         "replaces": "tpu_swirld/tpu/pallas_kernels.py:206",
     },
+    "ssm_matrix": {
+        "source": "tpu_swirld_torch/gpu/csrc/ssm_matrix.cu",
+        "replaces": "tpu_swirld/tpu/pallas_kernels.py:106",
+    },
 }
+KERNELS = {name: getattr(kernels, name) for name in KERNEL_INFO}
 
 
 def result_digests(packed, result) -> dict:
@@ -163,8 +182,9 @@ def check_bmm_or(gen, failures):
     return rows
 
 
-def check_ssm_block(failures):
-    packed = make_packed(CONFIGS["config4"])
+def sees_slab(packed):
+    """The sees slab of a packed DAG on the card, padded to the main path's
+    block of 128 events."""
     n = packed.n
     n_pad = ((n + 127) // 128) * 128
     parents = np.full((n_pad, 2), -1, np.int32)
@@ -177,6 +197,13 @@ def check_ssm_block(failures):
         torch.as_tensor(packed.fork_pairs, device=dev),
         n_members=N_MEMBERS, block=128,
     )
+    return sees
+
+
+def check_ssm_block(packed, sees, failures):
+    n = packed.n
+    n_pad = sees.shape[0]
+    dev = sees.device
     rng = np.random.default_rng(SEED)
     mt = torch.as_tensor(packed.member_table, device=dev)
     stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)   # non-uniform
@@ -215,55 +242,118 @@ def check_ssm_block(failures):
         # each needed sees byte read once (a side: rows x valid member slots,
         # b side: valid slots x valid columns), the indices, the bool output
         nbytes = rows * valid + valid * c_valid + 4 * (n_members * k + c + n_members) + rows * c
-        bnd, by = bound_ms(nbytes, rows * c * n_members * k)
+        ops = rows * c_valid * valid
+        bnd, by = bound_ms(nbytes, ops)
         row = {"case": label, "row0": row0, "rows": rows, "C": c,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by,
-               "ops_bound_ms": rows * c * n_members * k / INT8_OPS_PER_S * 1e3,
+               "ops_bound_ms": ops / INT8_OPS_PER_S * 1e3,
                "set_frac": float(want.float().mean())}
         print("ssm_block", json.dumps(row), flush=True)
         rows_out.append(row)
     return rows_out
 
 
-def run_main_path(name: str, n_forkers: int, failures):
-    t0 = time.perf_counter()
-    packed = make_packed(n_forkers)
-    print(f"{name}: generated and packed {packed.n} events, "
-          f"{len(packed.fork_pairs)} fork pairs, member table "
-          f"{packed.member_table.shape} in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+def check_ssm_matrix(packs, slabs, failures):
+    """``ssm_matrix`` against its plain version on the full config-4 slab
+    with non-uniform stake, the full config-3 slab with its own (uniform)
+    stake, and the first 1000 rows and columns of the config-3 slab (a
+    ragged N; member-table indices past it are clipped, as the reference
+    clips them)."""
+    rng = np.random.default_rng(SEED)
+    stake4 = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
+    cases = [
+        ("config4 N=10112, stake 1-5", slabs["config4"], packs["config4"], stake4),
+        ("config3 N=10112", slabs["config3"], packs["config3"], packs["config3"].stake),
+        ("config3 ragged N=1000", slabs["config3"][:1000, :1000].contiguous(),
+         packs["config3"], packs["config3"].stake),
+    ]
+    rows_out = []
+    for label, sees, packed, stake_np in cases:
+        dev = sees.device
+        mt = torch.as_tensor(packed.member_table, device=dev)
+        stake = torch.as_tensor(stake_np, dtype=torch.int32, device=dev)
+        tot = int(stake_np.sum())
+        got = kernels.ssm_matrix(sees, mt, stake, tot_stake=tot)
+        want = kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want):
+            failures.append(f"ssm_matrix {label}: kernel != plain version")
+        ms = time_ms(lambda: kernels.ssm_matrix(sees, mt, stake, tot_stake=tot), 10)
+        plain_ms = time_ms(
+            lambda: kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot), 3, 1
+        )
+        n = sees.shape[0]
+        n_members, k = packed.member_table.shape
+        valid = int((packed.member_table >= 0).sum())
+        # each needed sees byte read once (a side: n x valid member slots, b
+        # side: valid slots x n), the indices and stake, the bool output;
+        # one AND-product per (row, column, valid slot)
+        nbytes = 2 * n * valid + 4 * (n_members * k + n_members) + n * n
+        bnd, by = bound_ms(nbytes, n * n * valid)
+        row = {"case": label, "N": n, "M": n_members, "K": k,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd, "bound_by": by,
+               "set_frac": float(want.float().mean())}
+        print("ssm_matrix", json.dumps(row), flush=True)
+        rows_out.append(row)
+    # small ragged shapes with random member tables: -1 slots and indices
+    # past N (clipped) mixed in; exact equality only, not timed
+    for n, m, k, dens in [(1, 1, 1, 0.5), (5, 3, 33, 0.5), (65, 4, 64, 0.3),
+                          (129, 7, 100, 0.2), (300, 64, 182, 0.05)]:
+        sees = torch.as_tensor(rng.random((n, n)) < dens, device="cuda")
+        mt = torch.as_tensor(rng.integers(-1, n + 3, (m, k)).astype(np.int32), device="cuda")
+        stake = torch.as_tensor(rng.integers(1, 6, m).astype(np.int32), device="cuda")
+        tot = int(stake.sum())
+        same = torch.equal(kernels.ssm_matrix(sees, mt, stake, tot_stake=tot),
+                           kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot))
+        print(f"ssm_matrix random N={n} M={m} K={k}: equal {same}", flush=True)
+        if not same:
+            failures.append(f"ssm_matrix random N={n} M={m} K={k}: kernel != plain version")
+    return rows_out
+
+
+def run_main_path(name, packed, path, failures):
+    """One measured ``run_consensus`` on the card through ``path`` (after a
+    warm-up where the path asks for one).  Returns the kernel launches of
+    the measured run."""
+    kw, warm, needs, never = PATHS[path]
+    label = f"{name} {path}"
     cfg = SwirldConfig(n_members=N_MEMBERS)
-    run_consensus(packed, cfg, device="cuda")           # warm-up
-    kernels.bmm_or.launches = 0
-    kernels.ssm_block.launches = 0
+    if warm:
+        run_consensus(packed, cfg, device="cuda", **kw)
+    for fn in KERNELS.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = run_consensus(packed, cfg, device="cuda")
+    result = run_consensus(packed, cfg, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"bmm_or": kernels.bmm_or.launches,
-                "ssm_block": kernels.ssm_block.launches}
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
     timings = dict(result.timings)
     stage_seconds = timings.pop("stage_seconds")
     stage_calls = timings.pop("stage_calls")
-    print(f"{name}: {packed.n / wall} events/s ({wall} s), ordered "
+    print(f"{label}: {packed.n / wall} events/s ({wall} s), ordered "
           f"{len(result.order)}, max_round {result.max_round}", flush=True)
-    print(f"{name}: timings {json.dumps(timings)}", flush=True)
-    print(f"{name}: stage seconds {json.dumps(stage_seconds)}", flush=True)
-    print(f"{name}: stage calls {json.dumps(stage_calls)}", flush=True)
-    print(f"{name}: launches {json.dumps(launches)}", flush=True)
-    for kname, count in launches.items():
-        if count <= 0:
-            failures.append(f"{name}: kernel {kname} was not launched on the main path")
+    print(f"{label}: timings {json.dumps(timings)}", flush=True)
+    print(f"{label}: stage seconds {json.dumps(stage_seconds)}", flush=True)
+    print(f"{label}: stage calls {json.dumps(stage_calls)}", flush=True)
+    print(f"{label}: launches {json.dumps(launches)}", flush=True)
+    for kname in needs:
+        if launches[kname] <= 0:
+            failures.append(f"{label}: kernel {kname} was not launched")
+    for kname in never:
+        if launches[kname] != 0:
+            failures.append(f"{label}: kernel {kname} launched {launches[kname]} times")
     digests = result_digests(packed, result)
-    print(f"{name}: digests {json.dumps(digests)}", flush=True)
+    print(f"{label}: digests {json.dumps(digests)}", flush=True)
     for key, want in GOLDEN[name].items():
         if digests[key] != want:
-            failures.append(f"{name}: {key} digest {digests[key]} != golden {want}")
+            failures.append(f"{label}: {key} digest {digests[key]} != golden {want}")
     if len(result.order) == 0:
-        failures.append(f"{name}: empty consensus order")
-    return launches, packed.n / wall
+        failures.append(f"{label}: empty consensus order")
+    return launches
 
 
 def main() -> int:
@@ -283,22 +373,40 @@ def main() -> int:
     built = build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s for {built}", flush=True)
 
+    packs = {}
+    for name, n_forkers in CONFIGS.items():
+        t0 = time.perf_counter()
+        packs[name] = packed = make_packed(n_forkers)
+        print(f"{name}: generated and packed {packed.n} events, "
+              f"{len(packed.fork_pairs)} fork pairs, member table "
+              f"{packed.member_table.shape} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     bmm_rows = check_bmm_or(gen, failures)
-    ssm_rows = check_ssm_block(failures)
+    slabs = {name: sees_slab(packed) for name, packed in packs.items()}
+    ssm_rows = check_ssm_block(packs["config4"], slabs["config4"], failures)
+    matrix_rows = check_ssm_matrix(packs, slabs, failures)
+    del slabs
+    torch.cuda.empty_cache()
 
-    main_launches = {}
-    for name, n_forkers in CONFIGS.items():
-        main_launches[name], _rate = run_main_path(name, n_forkers, failures)
+    # launches[path][config][kernel], from the measured runs
+    launches = {path: {} for path in PATHS}
+    for name, packed in packs.items():
+        for path in PATHS:
+            launches[path][name] = run_main_path(name, packed, path, failures)
 
     # one row per kernel at its hottest main-path shape: the ancestry
-    # propagation hop for bmm_or, the full-height column add for ssm_block
+    # propagation hop for bmm_or, the full-height column add for ssm_block,
+    # the config-4 matrix for ssm_matrix
     def entry(name, row, rows, library_ms):
+        by_path = {path: {cfg: counts[name] for cfg, counts in per.items()}
+                   for path, per in launches.items()}
         return {
             "name": name, "route": "cuda", **KERNEL_INFO[name],
-            "launches": main_launches["config3"][name],
-            "launches_config4": main_launches["config4"][name],
+            "launches": sum(sum(per.values()) for per in by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -308,6 +416,7 @@ def main() -> int:
     line = {"kernels": [
         entry("bmm_or", bmm_rows[1], bmm_rows, bmm_rows[1]["library_ms"]),
         entry("ssm_block", ssm_rows[0], ssm_rows, None),
+        entry("ssm_matrix", matrix_rows[0], matrix_rows, None),
     ]}
     if failures:
         for f in failures:

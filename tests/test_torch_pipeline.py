@@ -140,9 +140,8 @@ def test_visibility_matches_reference():
     assert np.array_equal(got_sees.numpy(), np.asarray(want_sees))
 
 
-@pytest.mark.parametrize("kw", [{"ssm_mode": "full"}, {"use_pallas_ssm": True}, {"mesh": object()}])
-def test_unported_modes_raise(kw):
+def test_mesh_still_raises():
     members, stake, events, _keys = generate_gossip_dag(4, 40, seed=1)
     packed = carry_across(pack_events(events, members, stake))
     with pytest.raises(NotImplementedError):
-        pipeline.run_consensus(packed, device="cpu", **kw)
+        pipeline.run_consensus(packed, device="cpu", mesh=object())

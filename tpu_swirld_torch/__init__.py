@@ -8,6 +8,13 @@ produces bit-identical consensus outputs on the same packed DAG.  It imports
 :mod:`tpu_swirld`; the host layers it needs (crypto, event, config, packing,
 sim) are its own copies.
 
+:func:`tpu_swirld_torch.gpu.pipeline.run_consensus` runs both batch paths
+of the reference: the column-restricted default (strongly-sees columns for
+witnesses only) and the full-matrix path (``ssm_mode="full"``, or
+``use_pallas_ssm=True``), whose stages ``rounds_body`` /
+``fame_order_body`` fuse into ``consensus_body``, the counterpart of the
+reference's ``consensus_arrays``.
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of

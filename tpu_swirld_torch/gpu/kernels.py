@@ -6,9 +6,12 @@
 - :func:`ssm_block` (``csrc/ssm_block.cu``) replaces ``pallas_kernels.py:
   ssm_block_pallas``: the member-hop strongly-sees block with an int32 stake
   tally and a strict-2/3 epilogue.
+- :func:`ssm_matrix` (``csrc/ssm_matrix.cu``) replaces ``pallas_kernels.py:
+  ssm_matrix_pallas``: the same rule over the full N x N matrix (every row
+  and every column an event).
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
-``ssm_block_reference``) only for tensors on the CPU.  For CUDA tensors it
+``ssm_block_reference``, ``ssm_matrix_reference``) only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
 counts the kernel launches (plain-version calls do not count), so a run can
 show that it went through the kernel.
@@ -30,6 +33,9 @@ _ARGTYPES = {
     "ssm_block_launch": [
         _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _INT,
         ctypes.c_longlong, _VP, _VP, _VP, _VP,
+    ],
+    "ssm_matrix_launch": [
+        _VP, _INT, _VP, _INT, _INT, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP,
     ],
 }
 
@@ -195,3 +201,62 @@ def ssm_block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
 
 
 ssm_block.launches = 0
+
+
+# -------------------------------------------------------------- ssm_matrix
+
+
+def ssm_matrix_reference(sees, member_table, stake, *, tot_stake):
+    """Plain version, as the reference's XLA ``pipeline.ssm_matrix``: per
+    member one (N, K) @ (K, N) float32 hop (TF32 off) thresholded at 0.5,
+    an int32 stake tally, the strict-2/3 test."""
+    n = sees.shape[0]
+    acc = torch.zeros((n, n), dtype=torch.int32, device=sees.device)
+    for m in range(member_table.shape[0]):
+        idx = member_table[m]
+        valid = idx >= 0
+        idxc = idx.clamp(0, n - 1)
+        a = (sees[:, idxc] & valid[None, :]).to(torch.float32)     # N,K
+        b = (sees[idxc, :] & valid[:, None]).to(torch.float32)     # K,N
+        acc += (torch.matmul(a, b) > 0.5).to(torch.int32) * stake[m]
+    return 3 * acc.to(torch.int64) > 2 * int(tot_stake)
+
+
+def ssm_matrix(sees, member_table, stake, *, tot_stake):
+    """Full strongly-sees matrix (the ``ssm_fn`` seam of ``rounds_body``):
+    ``out[x, y]`` is True when members holding a strict 2/3 of the stake
+    each have an event z with sees(x, z) and sees(z, y).  ``sees`` is bool
+    ``(n, n)``, ``member_table`` int32 ``(M, K)`` with -1 meaning empty,
+    ``stake`` int32 ``(M,)``.  Returns bool ``(n, n)``."""
+    _check(sees, "sees", torch.bool, 2)
+    _check(member_table, "member_table", torch.int32, 2)
+    _check(stake, "stake", torch.int32, 1)
+    n = sees.shape[0]
+    n_members, k = member_table.shape
+    if sees.shape[1] != n:
+        raise ValueError(f"ssm_matrix: sees must be square, got {tuple(sees.shape)}")
+    if stake.shape[0] != n_members:
+        raise ValueError("ssm_matrix: stake and member_table disagree on M")
+    if min(n, n_members, k) < 1:
+        raise ValueError("ssm_matrix: empty sees or member table")
+    if _on_cpu(sees, member_table, stake):
+        return ssm_matrix_reference(sees, member_table, stake, tot_stake=tot_stake)
+    launch = _c_function("ssm_matrix", "ssm_matrix_launch")
+    nq = n_members * ((k + 31) // 32)
+    dev = sees.device
+    with torch.cuda.device(dev):
+        a_bits = torch.empty((n, nq), dtype=torch.int32, device=dev)
+        b_t = torch.empty((nq, n), dtype=torch.int32, device=dev)
+        out = torch.empty((n, n), dtype=torch.bool, device=dev)
+        err = launch(
+            sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
+            stake.data_ptr(), int(tot_stake), a_bits.data_ptr(),
+            b_t.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, "ssm_matrix")
+    ssm_matrix.launches += 1
+    return out
+
+
+ssm_matrix.launches = 0

@@ -1,20 +1,30 @@
-"""The batch consensus pipeline, column-restricted form (PyTorch).
+"""The batch consensus pipeline (PyTorch): column-restricted and full-matrix.
 
-Counterpart of ``tpu_swirld/tpu/pipeline.py``'s default single-host path:
-``run_consensus`` -> ``_run_consensus_columns`` -> ``_columns_pass``, with
-the same function names and bit-identical ``round`` / ``is_witness`` /
+Counterpart of ``tpu_swirld/tpu/pipeline.py``'s single-host paths, with the
+same function names and bit-identical ``round`` / ``is_witness`` /
 ``famous`` / ``round_received`` / ``consensus_ts`` / order outputs on the
-same packed DAG.  The pass:
+same packed DAG.  :func:`run_consensus` picks the path as the reference
+does:
 
-1. host prep (:func:`prepare_inputs`);
-2. blockwise ancestry closure (:func:`ancestry`), and with forks the
-   forkseen hop and fork-aware sees (:func:`visibility_stage`); every
-   boolean hop runs through :func:`~tpu_swirld_torch.gpu.kernels.bmm_or`;
-3. strongly-sees blocks for witness columns only, as the chunked rounds
-   scan discovers them (``add_columns`` in :func:`_columns_pass`), through
-   :func:`~tpu_swirld_torch.gpu.kernels.ssm_block`;
-4. :func:`fame_scan` and :func:`order_scan`;
-5. host :func:`finalize_order`.
+- **columns** (the default): ``_run_consensus_columns`` ->
+  ``_columns_pass``.  Visibility, then strongly-sees blocks for witness
+  columns only, as the chunked rounds scan discovers them (``add_columns``
+  in :func:`_columns_pass`), through
+  :func:`~tpu_swirld_torch.gpu.kernels.ssm_block`; then fame and order.
+- **full** (``ssm_mode="full"``, or ``use_pallas_ssm=True``, whose
+  reference runs the Pallas ``ssm_matrix_pallas``): ``_run_consensus_full``
+  runs stage A, :func:`rounds_body` (visibility, the full N x N
+  strongly-sees matrix through :func:`~tpu_swirld_torch.gpu.kernels.
+  ssm_matrix`, :func:`rounds_scan`), inside the overflow self-heal loop,
+  then stage B, :func:`fame_order_body`, over a tight round window.
+  :func:`consensus_body` is the two fused, the counterpart of
+  ``consensus_arrays``.
+
+Both share host prep (:func:`prepare_inputs`), the blockwise ancestry
+closure (:func:`ancestry`) and with forks the forkseen hop and fork-aware
+sees (:func:`visibility_stage`), every boolean hop through
+:func:`~tpu_swirld_torch.gpu.kernels.bmm_or`, :func:`fame_scan`,
+:func:`order_scan` and host :func:`finalize_order`.
 
 JAX's scans become Python loops over tensor ops on the device, and the
 buffers JAX donated (the ancestry slab, the column store, the rounds carry)
@@ -52,6 +62,10 @@ OVF_SLOT = 2
 def _bucket(v: int, m: int) -> int:
     """Round up to a multiple of m."""
     return ((max(v, 1) + m - 1) // m) * m
+
+
+def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -122,6 +136,31 @@ def visibility_stage(parents, creator, fork_pairs, *, n_members, block):
     return anc, sees_matrix(anc, fseen, creator)
 
 
+def _visibility(stages, parents, creator, fork_pairs, *, n_members, block):
+    """``(anc, sees)`` as the ``pipeline.visibility_stage`` stage.  With no
+    fork pair packed, forkseen is all-false and ``sees`` is ``anc`` itself
+    (an alias, not a copy)."""
+    if fork_pairs.shape[0]:
+        return stages.stage_call(
+            "pipeline.visibility_stage", visibility_stage,
+            parents, creator, fork_pairs, n_members=n_members, block=block,
+        )
+    anc = stages.stage_call(
+        "pipeline.visibility_stage", ancestry, parents, block=block,
+    )
+    return anc, anc
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def ssm_matrix(sees, member_table, stake, tot_stake):
+    """Strongly-sees matrix (the exists-z rule): bool[N, N], through the
+    ``ssm_matrix`` kernel (its plain version for CPU tensors).  The default
+    ``ssm_fn`` of :func:`rounds_body`."""
+    return kernels.ssm_matrix(sees, member_table, stake, tot_stake=tot_stake)
+
+
 # --------------------------------------------------------------- phase 4
 
 
@@ -143,6 +182,9 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
     ``(rnd[N], wits[N], wit_table, wit_count, overflow[1])``, updated in
     place.  Parents are host data, so genesis and padding are decided on
     the host; everything that depends on earlier rounds stays on the device.
+    With ``col_pos=None`` ``ssm_c`` is the full (N, N) matrix; otherwise it
+    is the column store and ``col_pos`` maps an event to its column (-1 =
+    absent).
 
     The batch path's window starts at round 0 and rounds are never
     negative, so the reference's ``r - r_base < 0`` tests are always false
@@ -167,12 +209,15 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
             widx = tab.index_select(0, r0.clamp(max=r_max - 1))[0]   # S
             wvalid = (widx >= 0) & (r0 < r_max)
             widxc = widx.clamp(0, n - 1)
-            wpos = col_pos.index_select(0, widxc)                    # S (-1 = absent)
-            ss = (
-                ssm_c[i].index_select(0, wpos.clamp(0, n_cols - 1))
-                & (wpos >= 0)
-                & wvalid
-            )
+            if col_pos is None:
+                ss = ssm_c[i].index_select(0, widxc) & wvalid        # S
+            else:
+                wpos = col_pos.index_select(0, widxc)                # S (-1 = absent)
+                ss = (
+                    ssm_c[i].index_select(0, wpos.clamp(0, n_cols - 1))
+                    & (wpos >= 0)
+                    & wvalid
+                )
             wcre = creator.index_select(0, widxc)
             if has_forks:
                 contrib = ((wcre[:, None] == marange[None, :]) & ss[:, None]).any(0)
@@ -197,6 +242,31 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
     return step
 
 
+def rounds_scan(parents, ssm, creator, stake, tot_stake, n_valid, *, r_max,
+                s_max, has_forks):
+    """Round assignment + witness registration over the full strongly-sees
+    matrix, every event in topological order.  Returns ``(round int32[N],
+    is_witness bool[N], wit_table int32[r_max, s_max], wit_count
+    int32[r_max], overflow int32[1])``, ``overflow`` an OVF_ROUND |
+    OVF_SLOT bitmask.  Slot order within a round is registration order."""
+    n = parents.shape[0]
+    dev = ssm.device
+    carry = (
+        torch.zeros((n,), dtype=torch.int32, device=dev),
+        torch.zeros((n,), dtype=torch.bool, device=dev),
+        torch.full((r_max, s_max), -1, dtype=torch.int32, device=dev),
+        torch.zeros((r_max,), dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+    )
+    step = _make_rounds_step(
+        to_host(parents), ssm, None, creator, stake, tot_stake, int(n_valid),
+        r_max=r_max, s_max=s_max, has_forks=has_forks,
+    )
+    for i in range(n):
+        step(carry, i)
+    return carry
+
+
 def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
                        rnd, wits, tab, cnt, overflow, start, *, tot_stake,
                        r_max, s_max, has_forks, chunk):
@@ -218,11 +288,12 @@ def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
 
 
 def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
-              coin_period, *, has_forks, col_pos):
-    """Virtual fame voting over the column-restricted strongly-sees store.
-    Returns ``(famous, decided_at)``: famous int8[r_max*s_max] over witness
-    slots (1 famous, 0 not, -1 undecided) and the round whose tally first
-    decided each slot (-1 undecided)."""
+              coin_period, *, has_forks, col_pos=None):
+    """Virtual fame voting.  Returns ``(famous, decided_at)``: famous
+    int8[r_max*s_max] over witness slots (1 famous, 0 not, -1 undecided) and
+    the round whose tally first decided each slot (-1 undecided).  With
+    ``col_pos``, ``ssm`` is the column-restricted store and ``col_pos`` maps
+    each witness to its column; without, ``ssm`` is the full matrix."""
     r_max, s_max = wit_table.shape
     n = sees.shape[0]
     n_members = stake.shape[0]
@@ -252,8 +323,11 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
         p_idx = wit_table[ry - 1]
         p_valid = p_idx >= 0
         pe = p_idx.clamp(0, n - 1)
-        ppos = col_pos[pe]
-        ssy = ssm[ye][:, ppos.clamp(0, ssm.shape[1] - 1)] & (ppos >= 0)[None, :]
+        if col_pos is None:
+            ssy = ssm[ye][:, pe]                        # S,S
+        else:
+            ppos = col_pos[pe]
+            ssy = ssm[ye][:, ppos.clamp(0, ssm.shape[1] - 1)] & (ppos >= 0)[None, :]
         ssy = ssy & y_valid[:, None] & p_valid[None, :]
         pcre = creator[pe]                              # S
         pstake = torch.where(p_valid, stake[pcre], 0)
@@ -386,6 +460,93 @@ def fame_order_cols_stage(anc, sees, ssm_c, col_pos, wit_table, wit_count,
     }
 
 
+# ------------------------------------------------------ full-matrix stages
+
+
+def rounds_body(parents, creator, stake, fork_pairs, member_table, n_valid, *,
+                tot_stake, block, r_max, s_max, has_forks, ssm_fn=None,
+                stages=None):
+    """Stage A: ancestry -> sees -> strongly-sees -> rounds/witness scan.
+
+    ``n_valid`` is the number of real (unpadded) events.  ``ssm_fn``
+    overrides the strongly-sees stage (signature of :func:`ssm_matrix`; the
+    mesh path passes a sharded version).  Each phase runs as one stage of
+    ``stages`` (a :class:`StageClock`; a fresh one when None)."""
+    stages = stages or StageClock(parents.device)
+    ssm_fn = ssm_fn or ssm_matrix
+    anc, sees = _visibility(
+        stages, parents, creator, fork_pairs, n_members=stake.shape[0],
+        block=block,
+    )
+    ssm = stages.stage_call(
+        "pipeline.ssm_matrix_stage", ssm_fn, sees, member_table, stake,
+        tot_stake,
+    )
+    rnd, wits, tab, cnt, overflow = stages.stage_call(
+        "pipeline.rounds_scan_stage", rounds_scan, parents, ssm, creator,
+        stake, tot_stake, n_valid, r_max=r_max, s_max=s_max,
+        has_forks=has_forks,
+    )
+    ev_valid = torch.arange(rnd.shape[0], device=rnd.device) < int(n_valid)
+    return {
+        "anc": anc, "sees": sees, "ssm": ssm, "round": rnd,
+        "is_witness": wits, "wit_table": tab, "wit_count": cnt,
+        "overflow": overflow, "max_round": torch.where(ev_valid, rnd, 0).max(),
+    }
+
+
+def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
+                    stake, self_parent, t_rank, max_round, n_valid, *,
+                    tot_stake, coin_period, r_max, s_max, chain, has_forks):
+    """Stage B: fame fixed point + order extraction over rounds [0, r_max).
+
+    Slots fill in order, so every slot at or past the fullest round's count
+    is empty in every round; fame and order ignore empty slots, so they run
+    over the used slots only and the ``famous`` / ``fame_decided_at`` grids
+    are padded back to ``s_max`` slots with -1 (what an empty slot holds).
+    Exact, and it keeps the (slots x members x slots) fame tally small where
+    forks make the slot capacity large (BASELINE config 4: 2019 slots)."""
+    cnt = wit_count[:r_max]
+    s_used = max(int(to_host(cnt).max(initial=0)), 1)
+    out = fame_order_cols_stage(
+        anc, sees, ssm, None, wit_table[:r_max, :s_used].contiguous(), cnt,
+        creator, coin, stake, self_parent, t_rank, max_round, n_valid,
+        tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
+        s_max=s_used, chain=chain, has_forks=has_forks,
+    )
+    for key in ("famous", "fame_decided_at"):
+        grid = torch.full(
+            (r_max, s_max), -1, dtype=out[key].dtype, device=out[key].device
+        )
+        grid[:, :s_used] = out[key].reshape(r_max, s_used)
+        out[key] = grid.reshape(-1)
+    return out
+
+
+def consensus_body(parents, creator, t_rank, coin, stake, fork_pairs,
+                   member_table, n_valid, *, tot_stake, coin_period, block,
+                   r_max, s_max, chain, has_forks, ssm_fn=None):
+    """End-to-end device consensus: packed arrays -> all consensus outputs.
+    :func:`rounds_body` + :func:`fame_order_body` over one round window, the
+    counterpart of the reference's fused ``consensus_arrays``.
+    :func:`run_consensus` instead runs the two stages apart so the second
+    can take a tight ``r_max``."""
+    a = rounds_body(
+        parents, creator, stake, fork_pairs, member_table, n_valid,
+        tot_stake=tot_stake, block=block, r_max=r_max, s_max=s_max,
+        has_forks=has_forks, ssm_fn=ssm_fn,
+    )
+    b = fame_order_body(
+        a["anc"], a["sees"], a["ssm"], a["wit_table"], a["wit_count"],
+        creator, coin, stake, parents[:, 0], t_rank, a["max_round"], n_valid,
+        tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
+        s_max=s_max, chain=chain, has_forks=has_forks,
+    )
+    keys = ("round", "is_witness", "wit_table", "wit_count", "overflow",
+            "max_round")
+    return {**{k: a[k] for k in keys}, **b}
+
+
 # ------------------------------------------------------- host orchestration
 
 
@@ -512,15 +673,19 @@ def run_consensus(
     ssm_mode: Optional[str] = None,
     device="cuda",
 ) -> ConsensusResult:
-    """Run the column-restricted pipeline on a packed DAG and extract the
-    final order.  The device computes everything except the tiebreak hash;
-    the host applies the oracle's sort key (round received, consensus ts,
-    BLAKE2b(whiten || id)).
+    """Run the pipeline on a packed DAG and extract the final order.  The
+    device computes everything except the tiebreak hash; the host applies
+    the oracle's sort key (round received, consensus ts, BLAKE2b(whiten ||
+    id)).
 
-    ``device`` defaults to ``"cuda"`` and raises when no GPU is present;
-    pass ``device="cpu"`` for the plain PyTorch versions on the CPU.  The
-    full-matrix mode, the Pallas full-matrix kernel and the mesh path are
-    not ported yet and raise ``NotImplementedError``.
+    ``ssm_mode`` picks the strongly-sees form: ``"columns"`` (witness
+    columns only, the default) or ``"full"`` (the N x N matrix).
+    ``use_pallas_ssm=True`` is the reference's switch to its Pallas
+    full-matrix kernel: it implies ``"full"``, and on a CUDA device both
+    full forms launch the hand-written ``ssm_matrix`` kernel.  ``device``
+    defaults to ``"cuda"`` and raises when no GPU is present; pass
+    ``device="cpu"`` for the plain PyTorch versions on the CPU.  The mesh
+    path is not ported yet and raises ``NotImplementedError``.
     """
     if ssm_mode not in (None, "columns", "full"):
         raise ValueError(f"unknown ssm_mode {ssm_mode!r}")
@@ -528,12 +693,13 @@ def run_consensus(
         raise NotImplementedError(
             "the mesh path is not ported yet (ROADMAP A8, mesh drivers)"
         )
-    if ssm_mode == "full" or use_pallas_ssm:
+    if ssm_mode == "columns" and use_pallas_ssm:
         raise NotImplementedError(
-            "the full-matrix strongly-sees mode and ssm_matrix_pallas are "
-            "not ported yet (ROADMAP A2 and B3); the port runs "
-            "ssm_mode='columns'"
+            "ssm_mode='columns' is not routed through the pallas path; "
+            "use_pallas_ssm runs the full-matrix kernel"
         )
+    if ssm_mode is None:
+        ssm_mode = "full" if use_pallas_ssm else "columns"
     dev = resolve_device(device)
     arrays, statics, ts_unique = prepare_inputs(
         packed, config, block=block, r_max=r_max, s_max=s_max,
@@ -546,7 +712,8 @@ def run_consensus(
     # r_max or s_max grows instead of fail-stopping
     r_rounds = min(r_max, _bucket(chain + 1, 32))
     r_cap = max(int(config.max_rounds), r_max)
-    return _run_consensus_columns(
+    run = _run_consensus_columns if ssm_mode == "columns" else _run_consensus_full
+    return run(
         packed, config, arrays["parents"], arrays["creator"],
         arrays["t_rank"], arrays["coin"], arrays["stake"],
         arrays["member_table"], ts_unique, n=packed.n,
@@ -567,19 +734,82 @@ def _run_consensus_columns(
         n=n, tot=tot, block=block, r_rounds=r_rounds, r_cap=r_cap,
         s_max=s_max, chain=chain, device=device, stages=stages,
     )
+    return _finalize_timed(
+        packed, out, ts_unique, stages, t_dev0, ssm_columns=aux["n_cols"],
+        ssm_col_iterations=aux["n_scans"],
+        overflow_retries=aux["overflow_retries"],
+    )
+
+
+def _finalize_timed(packed, out, ts_unique, stages, t_dev0, **counters):
+    """:func:`finalize_order` plus the run's timings: seconds on the device
+    and in dispatch since ``t_dev0``, seconds in finalize, the pass's
+    counters, and the per-stage seconds and calls of ``stages``."""
     t_device = time.perf_counter() - t_dev0
     t_fin0 = time.perf_counter()
     result = finalize_order(packed, out, ts_unique)
     result.timings = {
         "device_and_dispatch": t_device,
         "finalize_host": time.perf_counter() - t_fin0,
-        "ssm_columns": aux["n_cols"],
-        "ssm_col_iterations": aux["n_scans"],
-        "overflow_retries": aux["overflow_retries"],
+        **counters,
         "stage_seconds": dict(stages.seconds),
         "stage_calls": dict(stages.calls),
     }
     return result
+
+
+def _run_consensus_full(
+    packed, config, parents, creator, t_rank, coin, stake, member_table,
+    ts_unique, *, n, tot, block, r_rounds, r_cap, s_max, chain, device,
+):
+    """Full-matrix execution: stage A (:func:`rounds_body`) inside the
+    overflow self-heal loop (a retry re-runs stage A whole with the flagged
+    capacity grown), then stage B (:func:`fame_order_body`) over the tight
+    round window, then host order extraction and timings."""
+    stages = StageClock(device)
+    t_dev0 = time.perf_counter()
+    has_forks = bool(len(packed.fork_pairs))
+    parents_d = _to_device(parents, device)
+    creator_d = _to_device(creator, device)
+    stake_d = _to_device(stake, device, torch.int32)
+    mt_d = _to_device(member_table, device, torch.int32)
+    fork_pairs_d = _to_device(packed.fork_pairs, device)
+    retries = 0
+    while True:
+        stage_a = rounds_body(
+            parents_d, creator_d, stake_d, fork_pairs_d, mt_d, n,
+            tot_stake=tot, block=block, r_max=r_rounds, s_max=s_max,
+            has_forks=has_forks, stages=stages,
+        )
+        ovf = int(stage_a["overflow"])
+        if not ovf:
+            break
+        r_rounds, s_max = _healed_capacities(
+            ovf, r_eff=r_rounds, r_cap=r_cap, s_eff=s_max,
+            s_cap=parents.shape[0],
+        )
+        retries += 1
+    max_round = int(stage_a["max_round"])
+    r_tight = min(r_rounds, _bucket(max_round + 3, 8))
+    stage_b = stages.stage_call(
+        "pipeline.fame_order_stage", fame_order_body,
+        stage_a["anc"], stage_a["sees"], stage_a["ssm"], stage_a["wit_table"],
+        stage_a["wit_count"], creator_d, _to_device(coin, device), stake_d,
+        _to_device(parents[:, 0], device), _to_device(t_rank, device),
+        max_round, n, tot_stake=tot, coin_period=config.coin_period,
+        r_max=r_tight, s_max=s_max, chain=chain, has_forks=has_forks,
+    )
+    out = {
+        "round": to_host(stage_a["round"]),
+        "is_witness": to_host(stage_a["is_witness"]),
+        "wit_table": to_host(stage_a["wit_table"][:r_tight]),
+        "wit_count": to_host(stage_a["wit_count"][:r_tight]),
+        "max_round": max_round,
+        **{k: to_host(v) for k, v in stage_b.items()},
+    }
+    return _finalize_timed(
+        packed, out, ts_unique, stages, t_dev0, overflow_retries=retries
+    )
 
 
 def _columns_pass(
@@ -609,30 +839,20 @@ def _columns_pass(
     if ssm_block_fn is None:
         ssm_block_fn = kernels.ssm_block
 
-    def dev_tensor(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-
-    parents_d = dev_tensor(parents)
-    creator_d = dev_tensor(creator)
-    stake_d = dev_tensor(stake, torch.int32)
-    mt_d = dev_tensor(member_table, torch.int32)
-    if has_forks:
-        anc, sees = stages.stage_call(
-            "pipeline.visibility_stage", visibility_stage,
-            parents_d, creator_d, dev_tensor(packed.fork_pairs),
-            n_members=int(stake.shape[0]), block=block,
-        )
-    else:
-        anc = stages.stage_call(
-            "pipeline.visibility_stage", ancestry, parents_d, block=block,
-        )
-        sees = anc          # alias: no fork pair packed -> sees == anc
+    parents_d = _to_device(parents, device)
+    creator_d = _to_device(creator, device)
+    stake_d = _to_device(stake, device, torch.int32)
+    mt_d = _to_device(member_table, device, torch.int32)
+    anc, sees = _visibility(
+        stages, parents_d, creator_d, _to_device(packed.fork_pairs, device),
+        n_members=int(stake.shape[0]), block=block,
+    )
 
     # incremental column store: a preallocated (N, W_CAP) buffer written in
     # place (JAX donated it), positions tracked host-side.  Every column is
     # exact regardless of round state.
     col_pos = np.full((n_pad,), -1, dtype=np.int32)
-    col_pos_d = dev_tensor(col_pos)
+    col_pos_d = _to_device(col_pos, device)
     n_cols = 0
     w_cap = min(_bucket(max(s_max * 8, 256), 256), n_pad)
     ssm_c = torch.zeros((n_pad, w_cap), dtype=torch.bool, device=device)
@@ -651,12 +871,12 @@ def _columns_pass(
         row0, rows_eff = _suffix_rows(n_pad, min(events), n_pad)
         part = stages.stage_call(
             "pipeline.ssm_block_stage", ssm_block_fn,
-            sees, mt_d, stake_d, dev_tensor(cols_arr), row0,
+            sees, mt_d, stake_d, _to_device(cols_arr, device), row0,
             rows=rows_eff, tot_stake=tot,
         )
         for j, e in enumerate(events):
             col_pos[e] = n_cols + j
-        col_pos_d = dev_tensor(col_pos)
+        col_pos_d = _to_device(col_pos, device)
         ssm_c[row0 : row0 + rows_eff, n_cols : n_cols + batch] = part
         n_cols += len(events)
 
@@ -745,8 +965,8 @@ def _columns_pass(
     stage_b = stages.stage_call(
         "pipeline.fame_order_cols_stage", fame_order_cols_stage,
         anc, sees, ssm_c, col_pos_d, tab_b, cnt_a, creator_d,
-        dev_tensor(coin), stake_d, dev_tensor(parents[:, 0]),
-        dev_tensor(t_rank), max_round, n,
+        _to_device(coin, device), stake_d, _to_device(parents[:, 0], device),
+        _to_device(t_rank, device), max_round, n,
         tot_stake=tot, coin_period=config.coin_period, r_max=r_tight,
         s_max=s_used, chain=chain, has_forks=has_forks,
     )
