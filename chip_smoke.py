@@ -7,10 +7,14 @@
 2. Build: compiles every CUDA kernel of the main path from ``tpu_swirld_torch/
    gpu/csrc`` (one ``nvcc`` per source, all started together) and times it.
 3. Kernel vs plain version on the card, exact equality: ``bmm_or`` at the
-   ancestry and forkseen shapes plus a ragged one, ``ssm_block`` on the sees
-   slab of the BASELINE config-4 DAG at the column-add shapes, ``ssm_matrix``
-   on the full config-4 slab (non-uniform stake), the full config-3 slab, a
-   ragged N and small random shapes.  Each is timed (median of CUDA-event
+   ancestry and forkseen shapes, the incremental forked-extension hop (1024 x
+   G_cap @ G_cap x 64) and a ragged one, ``ssm_block`` (non-uniform stake)
+   on the sees slabs of the BASELINE config-4 and config-3 DAGs at the
+   column-add shapes and the incremental extension block (1024 rows
+   mid-window x 256 and 1024 columns), ``ssm_matrix`` on the full config-4
+   slab (non-uniform stake), the full config-3 slab, a ragged N and small
+   random shapes.  A timed case whose plain output is all False or all True
+   fails: it could not tell a wrong kernel.  Each is timed (median of CUDA-event
    timings after a warm-up) beside its plain version, its least time on the
    card (bound) and, for ``bmm_or``, one library call.  A bound counts the
    work this run's data needs: member-table slots that are -1 and padded
@@ -25,7 +29,18 @@
    strongly-sees kernel 0); the SHA-256 digests of its order, rounds, fame
    and round-received are held against golden digests computed from the JAX
    reference on the same DAG.
-5. A ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the last line.
+5. The incremental driver on configs 3 and 4: ``IncrementalConsensus(device=
+   "cuda")`` with the reference defaults (block 128, chunk 256, window bucket
+   1024, ``fuse_chunks`` 8) ingests the DAG in 10 chunks of 1000 events, and
+   config 3 once more with ``fuse_chunks=1`` (the per-chunk rounds loop).
+   Per pass: seconds, rebased, window, pruned prefix, rounds-scan probes and
+   steps, stage seconds and calls, kernel launches.  Each run's ``result()``
+   digests must be golden, its per-pass ``ordered`` lists must concatenate to
+   its order, at least one pass must not rebase, and over the non-rebase
+   passes ``bmm_or`` and ``ssm_block`` must launch and ``ssm_matrix`` not.
+   Steady events/s over the back half of the passes (as ``bench.py``
+   computes it) beside the same call's warm columns pass.
+6. A ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -43,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from tpu_swirld_torch import IncrementalConsensus
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
@@ -53,6 +69,13 @@ N_MEMBERS = 64
 N_EVENTS = 10_000
 SEED = 1
 CONFIGS = {"config3": 0, "config4": 21}      # name -> forkers
+INC_CHUNK = 1000                             # bench.py's BENCH_INC_CHUNK
+# incremental run label -> (config, fuse_chunks; None = the default, 8)
+INC_RUNS = {
+    "config3": ("config3", None),
+    "config4": ("config4", None),
+    "config3 fuse_chunks=1": ("config3", 1),
+}
 # path -> (run_consensus kwargs, warm-up run first, kernels it must launch,
 #          kernels it must not launch)
 PATHS = {
@@ -118,11 +141,12 @@ def result_digests(packed, result) -> dict:
     }
 
 
-def make_packed(n_forkers: int):
+def make_dag(n_forkers: int):
+    """``(members, stake, events, packed)`` of one configuration."""
     members, stake, events, _keys = generate_gossip_dag(
         N_MEMBERS, N_EVENTS, seed=SEED, n_forkers=n_forkers
     )
-    return pack_events(events, members, stake)
+    return members, stake, events, pack_events(events, members, stake)
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -152,9 +176,12 @@ def random_bool(shape, density, gen):
     return torch.rand(shape, generator=gen, device="cuda") < density
 
 
-def check_bmm_or(gen, failures):
+def check_bmm_or(gen, g_cap, failures):
+    """``g_cap``: config 4's fork pairs padded to the incremental driver's
+    bucket of 8, the contraction of its forked-extension hop."""
     rows = []
-    shapes = [(128, 128, 128), (128, 128, 10112), (10112, 4517, 64), (100, 37, 70)]
+    shapes = [(128, 128, 128), (128, 128, 10112), (10112, 4517, 64),
+              (1024, g_cap, 64), (100, 37, 70)]
     for p, q, r in shapes:
         # densities that leave about half of the outputs set
         dens = float(np.sqrt(0.69 / q))
@@ -178,6 +205,7 @@ def check_bmm_or(gen, failures):
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd,
                "bound_by": by, "set_frac": float(want.float().mean())}
         print("bmm_or", json.dumps(row), flush=True)
+        check_degenerate("bmm_or", f"{p}x{q}x{r}", row["set_frac"], failures)
         rows.append(row)
     return rows
 
@@ -200,31 +228,47 @@ def sees_slab(packed):
     return sees
 
 
-def check_ssm_block(packed, sees, failures):
-    n = packed.n
-    n_pad = sees.shape[0]
-    dev = sees.device
-    rng = np.random.default_rng(SEED)
-    mt = torch.as_tensor(packed.member_table, device=dev)
-    stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)   # non-uniform
-    stake = torch.as_tensor(stake_np, device=dev)
-    tot = int(stake_np.sum())
+def check_degenerate(kernel, label, set_frac, failures):
+    """A compared output that is all False or all True cannot tell a wrong
+    kernel (one that writes zeros, say) from a right one."""
+    if set_frac in (0.0, 1.0):
+        failures.append(f"{kernel} {label}: set fraction {set_frac}, the check cannot fail")
 
-    def pick(lo, hi):       # 64 column events, a few rounds below the rows
-        return np.sort(rng.choice(np.arange(lo, hi), 64, replace=False)).astype(np.int32)
+
+def check_ssm_block(packs, slabs, failures):
+    """``ssm_block`` against its plain version with non-uniform stake.
+    Config 4's forkseen slab gives few strongly-seen pairs outside its
+    early rounds, so the cases in the late window run on config 3's."""
+    rng = np.random.default_rng(SEED)
+    stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)   # non-uniform
+    tot = int(stake_np.sum())
+    n = N_EVENTS
+    n_pad = slabs["config3"].shape[0]
+
+    def pick(lo, hi, c=64):     # c column events drawn from [lo, hi)
+        return np.sort(rng.choice(np.arange(lo, hi), c, replace=False)).astype(np.int32)
 
     one = np.full(64, -1, np.int32)
     one[0] = n - 2000
     cases = [
-        ("rows=10112,C=64", 0, n_pad, pick(0, n)),
-        ("rows=256,C=64", n_pad - 256, 256, pick(n - 2000, n - 1000)),
-        ("row0=4033,rows=96", 4033, 96, pick(2000, 3000)),
-        ("one column padded to 64", n_pad - 512, 512, one),
+        ("rows=10112,C=64", "config4", 0, n_pad, pick(0, n)),
+        ("rows=256,C=64", "config3", n_pad - 256, 256, pick(n - 2000, n - 1000)),
+        ("row0=4033,rows=96", "config4", 4033, 96, pick(2000, 3000)),
+        ("one column padded to 64", "config3", n_pad - 512, 512, one),
+        # the incremental extension block: one pass's 1024 new rows in the
+        # middle of a window x the live witness columns, from the rounds
+        # below the rows up into them
+        ("extension rows=1024,C=256", "config3", 4096, 1024, pick(2048, 5120, 256)),
+        ("extension rows=1024,C=1024", "config3", 4096, 1024, pick(1024, 5120, 1024)),
     ]
-    valid = int((packed.member_table >= 0).sum())
-    n_members, k = packed.member_table.shape
     rows_out = []
-    for label, row0, rows, cols_np in cases:
+    for label, name, row0, rows, cols_np in cases:
+        packed, sees = packs[name], slabs[name]
+        dev = sees.device
+        mt = torch.as_tensor(packed.member_table, device=dev)
+        stake = torch.as_tensor(stake_np, device=dev)
+        valid = int((packed.member_table >= 0).sum())
+        n_members, k = packed.member_table.shape
         cols = torch.as_tensor(cols_np, device=dev)
         kw = dict(rows=rows, tot_stake=tot)
         got = kernels.ssm_block(sees, mt, stake, cols, row0, **kw)
@@ -244,12 +288,13 @@ def check_ssm_block(packed, sees, failures):
         nbytes = rows * valid + valid * c_valid + 4 * (n_members * k + c + n_members) + rows * c
         ops = rows * c_valid * valid
         bnd, by = bound_ms(nbytes, ops)
-        row = {"case": label, "row0": row0, "rows": rows, "C": c,
+        row = {"case": label, "slab": name, "row0": row0, "rows": rows, "C": c,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by,
                "ops_bound_ms": ops / INT8_OPS_PER_S * 1e3,
                "set_frac": float(want.float().mean())}
         print("ssm_block", json.dumps(row), flush=True)
+        check_degenerate("ssm_block", label, row["set_frac"], failures)
         rows_out.append(row)
     return rows_out
 
@@ -297,6 +342,7 @@ def check_ssm_matrix(packs, slabs, failures):
                "bound_ms": bnd, "bound_by": by,
                "set_frac": float(want.float().mean())}
         print("ssm_matrix", json.dumps(row), flush=True)
+        check_degenerate("ssm_matrix", label, row["set_frac"], failures)
         rows_out.append(row)
     # small ragged shapes with random member tables: -1 slots and indices
     # past N (clipped) mixed in; exact equality only, not timed
@@ -316,8 +362,8 @@ def check_ssm_matrix(packs, slabs, failures):
 
 def run_main_path(name, packed, path, failures):
     """One measured ``run_consensus`` on the card through ``path`` (after a
-    warm-up where the path asks for one).  Returns the kernel launches of
-    the measured run."""
+    warm-up where the path asks for one).  Returns the kernel launches and
+    the events/s of the measured run."""
     kw, warm, needs, never = PATHS[path]
     label = f"{name} {path}"
     cfg = SwirldConfig(n_members=N_MEMBERS)
@@ -353,6 +399,80 @@ def run_main_path(name, packed, path, failures):
             failures.append(f"{label}: {key} digest {digests[key]} != golden {want}")
     if len(result.order) == 0:
         failures.append(f"{label}: empty consensus order")
+    return launches, packed.n / wall
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def run_incremental(label, dag, fuse, columns_evps, failures):
+    """The incremental driver over one configuration in chunks of
+    ``INC_CHUNK`` events, with the checks of the module docstring.  Returns
+    the run's kernel launches."""
+    members, stake, events, packed = dag
+    name = INC_RUNS[label][0]
+    kw = {} if fuse is None else {"fuse_chunks": fuse}
+    inc = IncrementalConsensus(
+        members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda", **kw
+    )
+    for fn in KERNELS.values():
+        fn.launches = 0
+    ordered, passes = [], []
+    for i in range(0, len(events), INC_CHUNK):
+        launches0 = {k: fn.launches for k, fn in KERNELS.items()}
+        seconds0, calls0 = dict(inc.stages.seconds), dict(inc.stages.calls)
+        steps0 = inc.scan_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = inc.ingest(events[i : i + INC_CHUNK])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        calls = _delta(inc.stages.calls, calls0)
+        row = {
+            "pass": len(passes), "new_events": st["new_events"], "seconds": dt,
+            "rebased": st["rebased"], "storm_mode": st["storm_mode"],
+            "window_size": st["window_size"], "pruned_prefix": st["pruned_prefix"],
+            "ordered": len(st["ordered"]),
+            "probes": calls.get("pipeline.rounds_span_stage", 0),
+            "chunk_scans": calls.get("pipeline.rounds_chunk_stage", 0),
+            "scan_steps": inc.scan_steps - steps0,
+            "launches": _delta({k: fn.launches for k, fn in KERNELS.items()}, launches0),
+            "stage_seconds": _delta(inc.stages.seconds, seconds0),
+            "stage_calls": calls,
+        }
+        print(f"incremental {label}: {json.dumps(row)}", flush=True)
+        passes.append(row)
+        ordered.extend(st["ordered"])
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    result = inc.result()
+    timings = {k: v for k, v in result.timings.items() if not k.startswith("stage_")}
+    print(f"incremental {label}: counters {json.dumps(timings)}", flush=True)
+    print(f"incremental {label}: launches {json.dumps(launches)}", flush=True)
+    # steady = the back half of the passes, as bench.py computes it
+    steady = passes[len(passes) // 2 :]
+    warmed_up = len(steady) >= 2 and not any(r["rebased"] for r in steady)
+    t_steady = sum(r["seconds"] for r in steady)
+    steady_evps = sum(r["new_events"] for r in steady) / t_steady if warmed_up else 0.0
+    print(f"incremental {label}: steady {steady_evps} events/s over passes "
+          f"{steady[0]['pass']}-{steady[-1]['pass']} (warmed up: {warmed_up}); "
+          f"the same call's warm columns pass {columns_evps} events/s, ratio "
+          f"{steady_evps / columns_evps}", flush=True)
+    digests = result_digests(packed, result)
+    print(f"incremental {label}: digests {json.dumps(digests)}", flush=True)
+    for key, want in GOLDEN[name].items():
+        if digests[key] != want:
+            failures.append(f"incremental {label}: {key} digest {digests[key]} != golden {want}")
+    if ordered != result.order:
+        failures.append(f"incremental {label}: per-pass ordered lists != result().order")
+    clean = [r for r in passes if not r["rebased"]]
+    if not clean:
+        failures.append(f"incremental {label}: every pass rebased")
+    for kname in ("bmm_or", "ssm_block"):
+        if sum(r["launches"].get(kname, 0) for r in clean) <= 0:
+            failures.append(f"incremental {label}: no non-rebase pass launched {kname}")
+    if launches["ssm_matrix"] != 0:
+        failures.append(f"incremental {label}: ssm_matrix launched {launches['ssm_matrix']} times")
     return launches
 
 
@@ -368,15 +488,17 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     failures = []
+    t_script = time.perf_counter()
 
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s for {built}", flush=True)
 
-    packs = {}
+    dags, packs = {}, {}
     for name, n_forkers in CONFIGS.items():
         t0 = time.perf_counter()
-        packs[name] = packed = make_packed(n_forkers)
+        dags[name] = make_dag(n_forkers)
+        packs[name] = packed = dags[name][3]
         print(f"{name}: generated and packed {packed.n} events, "
               f"{len(packed.fork_pairs)} fork pairs, member table "
               f"{packed.member_table.shape} in {time.perf_counter() - t0:.3f} s",
@@ -384,18 +506,27 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    bmm_rows = check_bmm_or(gen, failures)
+    g_cap = ((len(packs["config4"].fork_pairs) + 7) // 8) * 8
+    bmm_rows = check_bmm_or(gen, g_cap, failures)
     slabs = {name: sees_slab(packed) for name, packed in packs.items()}
-    ssm_rows = check_ssm_block(packs["config4"], slabs["config4"], failures)
+    ssm_rows = check_ssm_block(packs, slabs, failures)
     matrix_rows = check_ssm_matrix(packs, slabs, failures)
     del slabs
     torch.cuda.empty_cache()
 
     # launches[path][config][kernel], from the measured runs
     launches = {path: {} for path in PATHS}
+    columns_evps = {}
     for name, packed in packs.items():
         for path in PATHS:
-            launches[path][name] = run_main_path(name, packed, path, failures)
+            launches[path][name], evps = run_main_path(name, packed, path, failures)
+            if path == "columns":
+                columns_evps[name] = evps
+    launches["incremental"] = {}
+    for label, (name, fuse) in INC_RUNS.items():
+        launches["incremental"][label] = run_incremental(
+            label, dags[name], fuse, columns_evps[name], failures
+        )
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,
@@ -422,6 +553,8 @@ def main() -> int:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
         return 1
+    print(f"chip_smoke: {time.perf_counter() - t_script} s from the build to "
+          "the last check", flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from tpu_swirld_torch import IncrementalConsensus
 from tpu_swirld_torch.gpu import pipeline
 from tpu_swirld_torch.packing import pack_events
 from tpu_swirld_torch.sim import generate_gossip_dag
@@ -61,6 +62,14 @@ def test_run_consensus_without_device_raises_without_gpu():
     packed = pack_events(events, members, stake)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.run_consensus(packed)
+
+
+def test_incremental_without_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    members, _stake, _events, _keys = generate_gossip_dag(4, 40, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IncrementalConsensus(members)
 
 
 def _chip_smoke(cwd):

@@ -39,6 +39,7 @@ def port_config(cfg: RefConfig) -> SwirldConfig:
     return SwirldConfig(
         n_members=cfg.n_members, coin_period=cfg.coin_period,
         max_rounds=cfg.max_rounds, stake=cfg.stake, seed=cfg.seed,
+        fuse_chunks=cfg.fuse_chunks,
     )
 
 

@@ -15,9 +15,19 @@ witnesses only) and the full-matrix path (``ssm_mode="full"``, or
 ``fame_order_body`` fuse into ``consensus_body``, the counterpart of the
 reference's ``consensus_arrays``.
 
+:class:`IncrementalConsensus` (``tpu_swirld_torch.gpu.incremental``) is the
+steady-state driver: it ingests gossip deltas, carries the visibility slabs
+and the strongly-sees column store on the device between passes, prunes the
+decided prefix, and keeps its cumulative result bit-identical to a batch
+``run_consensus`` over the same DAG.
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of
 :mod:`tpu_swirld_torch.gpu.kernels`; on the CPU the same wrappers take their
 plain PyTorch versions.
 """
+
+from tpu_swirld_torch.gpu.incremental import IncrementalConsensus  # noqa: E402
+
+__all__ = ["IncrementalConsensus"]

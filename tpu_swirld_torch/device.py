@@ -61,6 +61,10 @@ class StageClock:
         return out
 
 
-def to_host(x: torch.Tensor) -> np.ndarray:
-    """Pull a tensor to host numpy (blocks on the device)."""
-    return x.cpu().numpy()
+def to_host(x: torch.Tensor, copy: bool = False) -> np.ndarray:
+    """Pull a tensor to host numpy (blocks on the device).  A CPU tensor's
+    array shares its memory; ``copy=True`` returns an owned array, which a
+    caller that mutates it, or keeps it while the tensor is updated in
+    place, needs."""
+    a = x.cpu().numpy()
+    return a.copy() if copy else a

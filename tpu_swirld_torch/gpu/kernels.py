@@ -10,6 +10,9 @@
   ssm_matrix_pallas``: the same rule over the full N x N matrix (every row
   and every column an event).
 
+:func:`make_extension_kernels` bundles ``bmm_or`` and ``ssm_block`` for the
+incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does.
+
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
 ``ssm_block_reference``, ``ssm_matrix_reference``) only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
@@ -120,16 +123,17 @@ bmm_or.launches = 0
 # --------------------------------------------------------------- ssm_block
 
 
-def _block_row0(row0: int, rows: int, n: int) -> int:
-    """The block's first row as ``lax.dynamic_slice`` takes a start: a
-    negative start counts from the end, then the start is clamped so the
-    slice fits."""
-    if not 1 <= rows <= n:
-        raise ValueError(f"ssm_block: rows={rows} outside [1, {n}]")
-    row0 = int(row0)
-    if row0 < 0:
-        row0 += n
-    return min(max(row0, 0), n - rows)
+def slice_start(start: int, size: int, n: int) -> int:
+    """The start of a ``size``-long slice of an ``n``-long axis as
+    ``lax.dynamic_slice`` / ``dynamic_update_slice`` take it: a negative
+    start counts from the end, then the start is clamped so the slice
+    fits."""
+    if not 1 <= size <= n:
+        raise ValueError(f"a slice of {size} outside [1, {n}]")
+    start = int(start)
+    if start < 0:
+        start += n
+    return min(max(start, 0), n - size)
 
 
 def ssm_block_reference(sees, member_table, stake, cols, row0, *, rows,
@@ -138,7 +142,7 @@ def ssm_block_reference(sees, member_table, stake, cols, row0, *, rows,
     off) thresholded at 0.5, an int32 stake tally, the strict-2/3 test."""
     n = sees.shape[0]
     n_members, k = member_table.shape
-    row0 = _block_row0(row0, rows, n)
+    row0 = slice_start(row0, rows, n)
     idx = member_table.reshape(-1)
     valid = idx >= 0
     idxc = idx.clamp(0, n - 1)
@@ -176,7 +180,7 @@ def ssm_block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
         raise ValueError("ssm_block: stake and member_table disagree on M")
     if min(n_members, k, c) < 1:
         raise ValueError("ssm_block: empty member table or column batch")
-    row0 = _block_row0(row0, rows, n)
+    row0 = slice_start(row0, rows, n)
     if _on_cpu(sees, member_table, stake, cols):
         return ssm_block_reference(
             sees, member_table, stake, cols, row0, rows=rows,
@@ -260,3 +264,20 @@ def ssm_matrix(sees, member_table, stake, *, tot_stake):
 
 
 ssm_matrix.launches = 0
+
+
+# ------------------------------------------------------- extension bundle
+
+
+def make_extension_kernels():
+    """The :class:`~tpu_swirld_torch.gpu.incremental.ExtensionKernels`
+    bundle of the window-extension hot path (``pallas_kernels.py:
+    make_extension_kernels``): :func:`bmm_or` as the ancestry and forkseen
+    hop and :func:`ssm_block` as the strongly-sees block, so on a CUDA
+    device every extension hop launches the hand-written kernels.  The
+    reference's adapters drop a matmul dtype; these kernels are exact and
+    take none, so the wrappers are the seam as they are.  The
+    incremental driver's default."""
+    from tpu_swirld_torch.gpu.incremental import ExtensionKernels
+
+    return ExtensionKernels(name="cuda", bmm=bmm_or, ssm_block_fn=ssm_block)

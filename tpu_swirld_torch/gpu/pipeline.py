@@ -177,7 +177,7 @@ def _suffix_rows(row_hi: int, row_lo: int, cap: int):
 
 
 def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
-                      n_valid, *, r_max, s_max, has_forks):
+                      n_valid, *, r_max, s_max, has_forks, r_base=0):
     """The per-event body of the rounds scan over the carry
     ``(rnd[N], wits[N], wit_table, wit_count, overflow[1])``, updated in
     place.  Parents are host data, so genesis and padding are decided on
@@ -186,9 +186,10 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
     is the column store and ``col_pos`` maps an event to its column (-1 =
     absent).
 
-    The batch path's window starts at round 0 and rounds are never
-    negative, so the reference's ``r - r_base < 0`` tests are always false
-    and are dropped here.
+    ``rnd`` holds global rounds; witness-table row ``k`` is round ``r_base +
+    k`` (``r_base`` is 0 on the batch path, the incremental driver's window
+    base otherwise).  A witness landing outside the window, a straggler
+    below ``r_base`` included, sets OVF_ROUND; a full slot row OVF_SLOT.
     """
     n = ssm_c.shape[0]
     n_cols = ssm_c.shape[1]
@@ -199,15 +200,19 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
 
     def step(carry, i: int):
         rnd, wits, tab, cnt, overflow = carry
-        if i >= n_valid:
-            return          # padding: round 0, not a witness (the carry's init)
+        if i >= n_valid:    # padding: round 0, never a witness
+            rnd[i] = 0
+            wits[i] = False
+            return
         p1, p2 = int(parents_np[i, 0]), max(int(parents_np[i, 1]), 0)
         if p1 < 0:          # genesis: round 0 and a witness
             r, is_wit = round0, witness
         else:
             r0 = torch.maximum(rnd[p1 : p1 + 1], rnd[p2 : p2 + 1])
-            widx = tab.index_select(0, r0.clamp(max=r_max - 1))[0]   # S
-            wvalid = (widx >= 0) & (r0 < r_max)
+            r0w = r0 - r_base if r_base else r0                    # window row
+            r0c = r0w.clamp(0, r_max - 1)
+            widx = tab.index_select(0, r0c)[0]                     # S
+            wvalid = (widx >= 0) & (r0c == r0w)                    # row in window
             widxc = widx.clamp(0, n - 1)
             if col_pos is None:
                 ss = ssm_c[i].index_select(0, widxc) & wvalid        # S
@@ -227,11 +232,13 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
                 amount = (stake.index_select(0, wcre) * ss).sum()
             r = r0 + (3 * amount > 2 * tot_stake)
             is_wit = r > rnd[p1 : p1 + 1]
-        rc = r.clamp(max=r_max - 1)
+        rw = r - r_base if r_base else r
+        rc = rw.clamp(0, r_max - 1)
+        in_window = rc == rw                                       # 0 <= rw < r_max
         slot = cnt.index_select(0, rc)
-        overflow |= torch.where(is_wit & (r >= r_max), OVF_ROUND, 0).to(torch.int32)
+        overflow |= torch.where(is_wit & ~in_window, OVF_ROUND, 0).to(torch.int32)
         overflow |= torch.where(is_wit & (slot >= s_max), OVF_SLOT, 0).to(torch.int32)
-        do = is_wit & (slot < s_max) & (r < r_max)
+        do = is_wit & (slot < s_max) & in_window
         flat = rc * s_max + slot.clamp(0, s_max - 1)
         tab_flat = tab.view(-1)
         tab_flat.index_put_((flat,), torch.where(do, i, tab_flat.index_select(0, flat)))
@@ -268,16 +275,17 @@ def rounds_scan(parents, ssm, creator, stake, tot_stake, n_valid, *, r_max,
 
 
 def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
-                       rnd, wits, tab, cnt, overflow, start, *, tot_stake,
-                       r_max, s_max, has_forks, chunk):
+                       rnd, wits, tab, cnt, overflow, start, r_base=0, *,
+                       tot_stake, r_max, s_max, has_forks, chunk):
     """One chunk of the rounds scan: events [start, start+chunk) resume from
-    the carried (rnd, wits, tab, cnt, overflow) state.  The carry is copied
-    first and the copy updated in place, so the caller can re-run the chunk
-    from the same state."""
+    the carried (rnd, wits, tab, cnt, overflow) state.  ``r_base`` maps
+    global rounds to witness-table rows (0 on the batch path).  The carry is
+    copied first and the copy updated in place, so the caller can re-run the
+    chunk from the same state."""
     carry = tuple(x.clone() for x in (rnd, wits, tab, cnt, overflow))
     step = _make_rounds_step(
         parents_np, ssm_c, col_pos, creator, stake, tot_stake, n_valid,
-        r_max=r_max, s_max=s_max, has_forks=has_forks,
+        r_max=r_max, s_max=s_max, has_forks=has_forks, r_base=r_base,
     )
     for i in range(start, start + chunk):
         step(carry, i)
@@ -378,10 +386,16 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
 
 
 def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
-               t_rank, max_round: int, n_valid: int, *, chain: int):
+               t_rank, max_round: int, n_valid: int, *, chain: int,
+               received0: Optional[torch.Tensor] = None):
     """Round-received + consensus timestamp ranks over the maximal
     fame-complete prefix of rounds.  Returns (round_received int32[N] (-1 =
     not received), ts_rank int32[N], received bool[N]).
+
+    ``received0`` carries already-received flags from earlier incremental
+    passes (those events are skipped; round indices are then relative to
+    the carried window's ``r_base``); ``max_round`` is in the witness
+    table's round frame.
 
     Which rounds can receive anything (inside the prefix, with a unique
     famous witness) is computed for all rounds at once and pulled to the
@@ -411,7 +425,10 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     nv_all = to_host(ufw.sum(dim=1))
 
     ev_valid = torch.arange(n, device=dev) < n_valid
-    received = torch.zeros((n,), dtype=torch.bool, device=dev)
+    received = (
+        received0.clone() if received0 is not None
+        else torch.zeros((n,), dtype=torch.bool, device=dev)
+    )
     rr_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
     ts_out = torch.zeros((n,), dtype=torch.int32, device=dev)
     for r in range(r_max):
@@ -463,6 +480,25 @@ def fame_order_cols_stage(anc, sees, ssm_c, col_pos, wit_table, wit_count,
 # ------------------------------------------------------ full-matrix stages
 
 
+# the flat (round, slot) grids of fame_order_cols_stage's outputs
+_SLOT_GRIDS = ("famous", "fame_decided_at")
+
+
+def _pad_slots(flat: torch.Tensor, r_max: int, s_used: int,
+               s_max: int) -> torch.Tensor:
+    """A flat (r_max * s_used) slot grid, computed on the used slots only,
+    padded back to (r_max * s_max) with -1, what an empty slot holds.
+
+    Slots fill in order, so every slot at or past the fullest round's count
+    is empty in every round; fame and order ignore empty slots, so running
+    them on the used slots is exact.  It keeps the (slots x members x slots)
+    fame tally small where forks make the slot capacity large (BASELINE
+    config 4: 2019 slots)."""
+    grid = torch.full((r_max, s_max), -1, dtype=flat.dtype, device=flat.device)
+    grid[:, :s_used] = flat.reshape(r_max, s_used)
+    return grid.reshape(-1)
+
+
 def rounds_body(parents, creator, stake, fork_pairs, member_table, n_valid, *,
                 tot_stake, block, r_max, s_max, has_forks, ssm_fn=None,
                 stages=None):
@@ -498,14 +534,8 @@ def rounds_body(parents, creator, stake, fork_pairs, member_table, n_valid, *,
 def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
                     stake, self_parent, t_rank, max_round, n_valid, *,
                     tot_stake, coin_period, r_max, s_max, chain, has_forks):
-    """Stage B: fame fixed point + order extraction over rounds [0, r_max).
-
-    Slots fill in order, so every slot at or past the fullest round's count
-    is empty in every round; fame and order ignore empty slots, so they run
-    over the used slots only and the ``famous`` / ``fame_decided_at`` grids
-    are padded back to ``s_max`` slots with -1 (what an empty slot holds).
-    Exact, and it keeps the (slots x members x slots) fame tally small where
-    forks make the slot capacity large (BASELINE config 4: 2019 slots)."""
+    """Stage B: fame fixed point + order extraction over rounds [0, r_max),
+    on the used witness slots only (:func:`_pad_slots`)."""
     cnt = wit_count[:r_max]
     s_used = max(int(to_host(cnt).max(initial=0)), 1)
     out = fame_order_cols_stage(
@@ -514,12 +544,8 @@ def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
         tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
         s_max=s_used, chain=chain, has_forks=has_forks,
     )
-    for key in ("famous", "fame_decided_at"):
-        grid = torch.full(
-            (r_max, s_max), -1, dtype=out[key].dtype, device=out[key].device
-        )
-        grid[:, :s_used] = out[key].reshape(r_max, s_used)
-        out[key] = grid.reshape(-1)
+    for key in _SLOT_GRIDS:
+        out[key] = _pad_slots(out[key], r_max, s_used, s_max)
     return out
 
 
@@ -814,8 +840,8 @@ def _run_consensus_full(
 
 def _columns_pass(
     packed, config, parents, creator, t_rank, coin, stake, member_table,
-    *, n, tot, block, r_rounds, r_cap, s_max, chain, device, stages,
-    ssm_block_fn=None,
+    *, n, tot, block, r_rounds, s_max, chain, device, stages,
+    r_cap=None, ssm_block_fn=None,
 ):
     """Column-restricted strongly-sees execution core.
 
@@ -830,14 +856,22 @@ def _columns_pass(
 
     ``ssm_block_fn`` is the strongly-sees block seam (signature of
     :func:`~tpu_swirld_torch.gpu.kernels.ssm_block`, the default and the
-    counterpart of the reference's ``ssm_block_stage``).  Returns
-    ``(out, aux)``: the numpy outputs for :func:`finalize_order` and the
-    pass's counters.
+    counterpart of the reference's ``ssm_block_stage``).  ``r_cap`` bounds
+    the round-window heal (default: the larger of ``config.max_rounds`` and
+    ``r_rounds``).  Returns ``(out, aux)`` in the reference's shapes:
+    ``out`` the numpy outputs for :func:`finalize_order` (witness table and
+    fame grids ``r_tight`` x ``s_max``), ``aux`` the device slabs ``anc``,
+    ``sees`` (``anc`` itself when fork-free) and ``ssm_c``, the host
+    ``col_pos`` and the pass's capacities and counters, which
+    :class:`~tpu_swirld_torch.gpu.incremental.IncrementalConsensus` lifts
+    into its window on a rebase.
     """
     n_pad = parents.shape[0]
     has_forks = bool(len(packed.fork_pairs))
     if ssm_block_fn is None:
         ssm_block_fn = kernels.ssm_block
+    if r_cap is None:
+        r_cap = max(int(config.max_rounds), r_rounds)
 
     parents_d = _to_device(parents, device)
     creator_d = _to_device(creator, device)
@@ -955,11 +989,7 @@ def _columns_pass(
     rnd_h = to_host(rnd_a)
     max_round = int(rnd_h[:n].max(initial=0))
     r_tight = min(r_rounds, _bucket(max_round + 3, 8))
-    # Slots fill in order, so every slot at or past the fullest round's
-    # count is empty in every round; fame and order ignore empty slots, so
-    # cutting them is exact.  It keeps the (slots x members x slots) fame
-    # tally small where forks make the default capacity large (BASELINE
-    # config 4: 2019 slots, of which a few hundred are ever used).
+    # fame and order on the used slots only (_pad_slots)
     s_used = max(int(to_host(cnt_a[:r_tight]).max(initial=0)), 1)
     tab_b = tab_a[:r_tight, :s_used].contiguous()
     stage_b = stages.stage_call(
@@ -970,16 +1000,20 @@ def _columns_pass(
         tot_stake=tot, coin_period=config.coin_period, r_max=r_tight,
         s_max=s_used, chain=chain, has_forks=has_forks,
     )
+    for key in _SLOT_GRIDS:
+        stage_b[key] = _pad_slots(stage_b[key], r_tight, s_used, s_max)
     out = {
         "round": rnd_h,
         "is_witness": to_host(wits_a),
-        "wit_table": to_host(tab_b),
+        "wit_table": to_host(tab_a[:r_tight]),
         "wit_count": to_host(cnt_a[:r_tight]),
         "max_round": max_round,
         **{k: to_host(v) for k, v in stage_b.items()},
     }
     aux = {
-        "n_cols": n_cols, "n_scans": n_scans,
+        "anc": anc, "sees": sees, "ssm_c": ssm_c,
+        "col_pos": col_pos, "n_cols": n_cols, "w_cap": w_cap,
+        "n_scans": n_scans, "r_rounds": r_rounds, "s_max": s_max,
         "overflow_retries": overflow_retries,
     }
     return out, aux

@@ -41,7 +41,8 @@ class PackedDAG:
 
 class Packer:
     """Append-only packer: :meth:`append` events in topo order, then
-    :meth:`pack` a snapshot."""
+    :meth:`pack` a snapshot, or read a delta through the read-only views
+    (:meth:`window_view`, :meth:`fork_pairs_view`)."""
 
     def __init__(self, members: Sequence[bytes], stake: Sequence[int]):
         if len(members) != len(stake):
@@ -98,6 +99,36 @@ class Packer:
     def extend(self, events: Sequence[Event]) -> List[int]:
         return [self.append(ev) for ev in events]
 
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    # ---- bounded read-only views (the incremental driver's surface)
+
+    def window_view(self, start: int, stop: Optional[int] = None):
+        """Read-only ``(parents, creator, coin, t)`` arrays for the packed
+        events [start, stop): an ingest delta."""
+        stop = len(self._ids) if stop is None else stop
+        return (
+            _ro(np.asarray(self._parents[start:stop], dtype=np.int32).reshape(-1, 2)),
+            _ro(np.asarray(self._creator[start:stop], dtype=np.int32)),
+            _ro(np.asarray(self._coin[start:stop], dtype=np.uint8)),
+            _ro(np.asarray(self._t[start:stop], dtype=np.int64)),
+        )
+
+    @property
+    def n_fork_pairs(self) -> int:
+        return len(self._fork_pairs)
+
+    def fork_pairs_view(self, start: int = 0) -> np.ndarray:
+        """Read-only fork-pair rows [start, n_fork_pairs)."""
+        return _ro(np.asarray(self._fork_pairs[start:], dtype=np.int32).reshape(-1, 3))
+
+    def sig(self, i: int) -> bytes:
+        return self._sigs[i]
+
+    def event_id(self, i: int) -> bytes:
+        return self._ids[i]
+
     def pack(self) -> PackedDAG:
         n = len(self._ids)
         m = len(self.members)
@@ -119,6 +150,11 @@ class Packer:
             ids=list(self._ids),
             sigs=list(self._sigs),
         )
+
+
+def _ro(a: np.ndarray) -> np.ndarray:
+    a.flags.writeable = False
+    return a
 
 
 def pack_events(
