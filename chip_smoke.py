@@ -40,7 +40,32 @@
    passes ``bmm_or`` and ``ssm_block`` must launch and ``ssm_matrix`` not.
    Steady events/s over the back half of the passes (as ``bench.py``
    computes it) beside the same call's warm columns pass.
-6. A ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` as the last line.
+6. The streaming driver on configs 3 and 4: ``StreamingConsensus(device=
+   "cuda")`` with the reference defaults (``ingest_chunk`` 1024, tile 256, no
+   budget) over the same 10 chunks.  Per pass as in 5, plus the archived
+   rows, resident bytes, overlap ratio and widen / full rebases.  Digests
+   golden, per-pass ``ordered`` lists concatenating to the order, ``bmm_or``
+   and ``ssm_block`` launched on the non-rebase passes, ``ssm_matrix`` not.
+7. Widening on config 3: after 6, the stale-view event of
+   ``tests/test_store.py`` (member 3's head with other-parent
+   ``events[100]``, long pruned) must be answered by a widening rebase
+   (``widen_rebases`` + 1, ``full_rebases`` unchanged, archived rows
+   fetched), with ``result()`` digests equal to ``run_consensus(device=
+   "cuda")`` over the same history.  Prints the widen's seconds.
+8. The row-sharded mesh driver on configs 3 and 4:
+   ``MeshStreamingConsensus(make_mesh(2), pallas=True, device="cuda")`` (2
+   row shards on one card) over the same chunks.  Digests golden; the
+   archive's digest equal to the streaming driver's (6 and 8 print the
+   store's stats after draining its pack worker); ``ssm_block`` 0 launches;
+   ``bmm_or`` and the mesh block launched on the non-rebase passes.
+9. ``make_mesh_row_block_fn`` at 2 and 4 shards on the config-3 slab, at the
+   extension shape (1024 rows at row 4096 x 256 columns) and the column-add
+   shape (full height x 64), exact against ``ssm_block`` and its plain
+   version and non-degenerate, timed beside ``ssm_block``; its member hop
+   ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
+10. A ``{"kernels": [...]}`` line (every kernel's launches by path: batch
+   paths, incremental, streaming, mesh), the card's name and power limit,
+   then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -58,8 +83,11 @@ import time
 import numpy as np
 import torch
 
-from tpu_swirld_torch import IncrementalConsensus
+from tpu_swirld_torch import (
+    IncrementalConsensus, MeshStreamingConsensus, StreamingConsensus, make_mesh,
+)
 from tpu_swirld_torch.config import SwirldConfig
+from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
 from tpu_swirld_torch.packing import pack_events
@@ -118,7 +146,15 @@ KERNEL_INFO = {
         "source": "tpu_swirld_torch/gpu/csrc/ssm_matrix.cu",
         "replaces": "tpu_swirld/tpu/pallas_kernels.py:106",
     },
+    # the row-sharded block over the bmm_or kernel; its launches count
+    # blocks, each M x D bmm_or launches
+    "make_mesh_row_block_fn": {
+        "source": "tpu_swirld_torch/gpu/kernels.py",
+        "replaces": "tpu_swirld/tpu/pallas_kernels.py:368",
+    },
 }
+MESH_SHARDS = 2
+STALE_OTHER_PARENT = 100        # tests/test_store.py's long-pruned events[100]
 KERNELS = {name: getattr(kernels, name) for name in KERNEL_INFO}
 
 
@@ -142,11 +178,11 @@ def result_digests(packed, result) -> dict:
 
 
 def make_dag(n_forkers: int):
-    """``(members, stake, events, packed)`` of one configuration."""
-    members, stake, events, _keys = generate_gossip_dag(
+    """``(members, stake, events, packed, keys)`` of one configuration."""
+    members, stake, events, keys = generate_gossip_dag(
         N_MEMBERS, N_EVENTS, seed=SEED, n_forkers=n_forkers
     )
-    return members, stake, events, pack_events(events, members, stake)
+    return members, stake, events, pack_events(events, members, stake), keys
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -406,16 +442,16 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
-def run_incremental(label, dag, fuse, columns_evps, failures):
-    """The incremental driver over one configuration in chunks of
-    ``INC_CHUNK`` events, with the checks of the module docstring.  Returns
-    the run's kernel launches."""
-    members, stake, events, packed = dag
-    name = INC_RUNS[label][0]
-    kw = {} if fuse is None else {"fuse_chunks": fuse}
-    inc = IncrementalConsensus(
-        members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda", **kw
-    )
+def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or", "ssm_block"),
+                 never=("ssm_matrix",)):
+    """One driver (``inc``) over one configuration in chunks of ``INC_CHUNK``
+    events, with the checks of the module docstring: golden digests, the
+    per-pass ``ordered`` lists concatenating to the order, a non-rebase
+    pass, every kernel of ``needs`` launched on the non-rebase passes and
+    none of ``never`` launched at all.  Returns the run's kernel launches."""
+    _members, _stake, events, packed, _keys = dag
+    name = label.split()[0]
+    tag = f"{kind} {label}"
     for fn in KERNELS.values():
         fn.launches = 0
     ordered, passes = [], []
@@ -437,43 +473,224 @@ def run_incremental(label, dag, fuse, columns_evps, failures):
             "probes": calls.get("pipeline.rounds_span_stage", 0),
             "chunk_scans": calls.get("pipeline.rounds_chunk_stage", 0),
             "scan_steps": inc.scan_steps - steps0,
-            "launches": _delta({k: fn.launches for k, fn in KERNELS.items()}, launches0),
-            "stage_seconds": _delta(inc.stages.seconds, seconds0),
-            "stage_calls": calls,
         }
-        print(f"incremental {label}: {json.dumps(row)}", flush=True)
+        if isinstance(inc, StreamingConsensus):
+            row.update({k: st[k] for k in ("archived_rows", "resident_bytes", "overlap_ratio")})
+            row.update(widen_rebases=inc.widen_rebases, full_rebases=inc.full_rebases)
+        row.update(
+            launches=_delta({k: fn.launches for k, fn in KERNELS.items()}, launches0),
+            stage_seconds=_delta(inc.stages.seconds, seconds0), stage_calls=calls,
+        )
+        print(f"{tag}: {json.dumps(row)}", flush=True)
         passes.append(row)
         ordered.extend(st["ordered"])
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     result = inc.result()
     timings = {k: v for k, v in result.timings.items() if not k.startswith("stage_")}
-    print(f"incremental {label}: counters {json.dumps(timings)}", flush=True)
-    print(f"incremental {label}: launches {json.dumps(launches)}", flush=True)
+    print(f"{tag}: counters {json.dumps(timings)}", flush=True)
+    if isinstance(inc, StreamingConsensus):
+        # the digest drains the pack worker first, so the byte counts are final
+        archive = inc.store.archive.digest()
+        print(f"{tag}: store {json.dumps(inc.store.stats())}, archive digest {archive}",
+              flush=True)
+    print(f"{tag}: launches {json.dumps(launches)}", flush=True)
     # steady = the back half of the passes, as bench.py computes it
     steady = passes[len(passes) // 2 :]
     warmed_up = len(steady) >= 2 and not any(r["rebased"] for r in steady)
     t_steady = sum(r["seconds"] for r in steady)
     steady_evps = sum(r["new_events"] for r in steady) / t_steady if warmed_up else 0.0
-    print(f"incremental {label}: steady {steady_evps} events/s over passes "
+    print(f"{tag}: steady {steady_evps} events/s over passes "
           f"{steady[0]['pass']}-{steady[-1]['pass']} (warmed up: {warmed_up}); "
           f"the same call's warm columns pass {columns_evps} events/s, ratio "
           f"{steady_evps / columns_evps}", flush=True)
     digests = result_digests(packed, result)
-    print(f"incremental {label}: digests {json.dumps(digests)}", flush=True)
+    print(f"{tag}: digests {json.dumps(digests)}", flush=True)
     for key, want in GOLDEN[name].items():
         if digests[key] != want:
-            failures.append(f"incremental {label}: {key} digest {digests[key]} != golden {want}")
+            failures.append(f"{tag}: {key} digest {digests[key]} != golden {want}")
     if ordered != result.order:
-        failures.append(f"incremental {label}: per-pass ordered lists != result().order")
+        failures.append(f"{tag}: per-pass ordered lists != result().order")
     clean = [r for r in passes if not r["rebased"]]
     if not clean:
-        failures.append(f"incremental {label}: every pass rebased")
-    for kname in ("bmm_or", "ssm_block"):
+        failures.append(f"{tag}: every pass rebased")
+    for kname in needs:
         if sum(r["launches"].get(kname, 0) for r in clean) <= 0:
-            failures.append(f"incremental {label}: no non-rebase pass launched {kname}")
-    if launches["ssm_matrix"] != 0:
-        failures.append(f"incremental {label}: ssm_matrix launched {launches['ssm_matrix']} times")
+            failures.append(f"{tag}: no non-rebase pass launched {kname}")
+    for kname in never:
+        if launches[kname] != 0:
+            failures.append(f"{tag}: {kname} launched {launches[kname]} times")
     return launches
+
+
+def run_incremental(label, dag, fuse, columns_evps, failures):
+    """Phase 5: the incremental driver at ``fuse_chunks`` ``fuse``."""
+    members, stake = dag[:2]
+    kw = {} if fuse is None else {"fuse_chunks": fuse}
+    inc = IncrementalConsensus(
+        members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda", **kw
+    )
+    return drive_passes("incremental", label, inc, dag, columns_evps, failures)
+
+
+def run_streaming(name, dag, columns_evps, failures):
+    """Phase 6: the streaming driver with the reference defaults.  Returns
+    its launches, the driver (phase 7 continues it) and its archive digest
+    (phase 8 holds the mesh driver's archive to it)."""
+    members, stake = dag[:2]
+    inc = StreamingConsensus(
+        members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda"
+    )
+    launches = drive_passes("streaming", name, inc, dag, columns_evps, failures)
+    return launches, inc, inc.store.archive.digest()
+
+
+def run_widen(inc, dag, failures):
+    """Phase 7: the stale-view sync of tests/test_store.py through the
+    streaming driver that phase 6 left at the end of ``dag``.  Returns the
+    widening pass's kernel launches."""
+    members, stake, events, _packed, keys = dag
+    tag = "widen config3"
+    if inc.pruned_prefix <= STALE_OTHER_PARENT:
+        failures.append(f"{tag}: events[{STALE_OTHER_PARENT}] was never pruned")
+    pk, sk = keys[3]
+    head = [ev for ev in events if ev.c == pk][-1]
+    strag = Event(
+        d=b"stale-sync", p=(head.id, events[STALE_OTHER_PARENT].id),
+        t=events[-1].t + 1, c=pk,
+    ).signed(sk)
+    widen0, full0 = inc.widen_rebases, inc.full_rebases
+    fetched0 = inc.store.archive.fetched_rows
+    lo0 = inc.pruned_prefix
+    seconds0 = dict(inc.stages.seconds)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = inc.ingest([strag])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    row = {
+        "seconds": dt, "rebased": st["rebased"], "pruned_prefix_before": lo0,
+        "pruned_prefix": st["pruned_prefix"], "window_size": st["window_size"],
+        "widen_rebases": inc.widen_rebases - widen0,
+        "full_rebases": inc.full_rebases - full0,
+        "fetched_rows": inc.store.archive.fetched_rows - fetched0,
+        "ordered": len(st["ordered"]), "launches": launches,
+        "stage_seconds": _delta(inc.stages.seconds, seconds0),
+    }
+    print(f"{tag}: {json.dumps(row)}", flush=True)
+    if row["widen_rebases"] != 1 or row["full_rebases"] != 0:
+        failures.append(f"{tag}: widen {row['widen_rebases']}, full {row['full_rebases']}")
+    if row["fetched_rows"] <= 0:
+        failures.append(f"{tag}: no archived row was fetched")
+    packed = pack_events(events + [strag], members, stake)
+    batch = run_consensus(packed, SwirldConfig(n_members=N_MEMBERS), device="cuda")
+    got, want = result_digests(packed, inc.result()), result_digests(packed, batch)
+    print(f"{tag}: digests {json.dumps(got)}, batch run_consensus {json.dumps(want)}",
+          flush=True)
+    if got != want:
+        failures.append(f"{tag}: result digests != run_consensus over the same history")
+    return launches
+
+
+def run_mesh(name, dag, columns_evps, streaming_archive, failures):
+    """Phase 8: the row-sharded mesh driver, ``MESH_SHARDS`` shards on one
+    card, the ``pallas=True`` route.  Its archive must equal the streaming
+    driver's (``streaming_archive``, its digest) row for row."""
+    members, stake = dag[:2]
+    mesh = make_mesh(MESH_SHARDS)
+    print(f"mesh {name}: {mesh.size} shards on one card ({mesh.device})", flush=True)
+    inc = MeshStreamingConsensus(
+        mesh, members, stake, SwirldConfig(n_members=N_MEMBERS), pallas=True,
+        device="cuda",
+    )
+    launches = drive_passes(
+        "mesh", name, inc, dag, columns_evps, failures,
+        needs=("bmm_or", "make_mesh_row_block_fn"), never=("ssm_matrix", "ssm_block"),
+    )
+    if inc.store.archive.digest() != streaming_archive:
+        failures.append(f"mesh {name}: archive digest != the streaming driver's")
+    inc.store.close()
+    return launches
+
+
+def check_mesh_block(packed, failures):
+    """Phase 9: ``make_mesh_row_block_fn`` against ``ssm_block`` and
+    ``ssm_block_reference`` on the config-3 slab, non-uniform stake, and
+    its member hop ``bmm_or`` beside ``torch.matmul``."""
+    sees = sees_slab(packed)
+    dev = sees.device
+    rng = np.random.default_rng(SEED)
+    stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
+    tot = int(stake_np.sum())
+    mt = torch.as_tensor(packed.member_table, device=dev)
+    stake = torch.as_tensor(stake_np, device=dev)
+    n_pad = sees.shape[0]
+    n_members, k = packed.member_table.shape
+    valid = int((packed.member_table >= 0).sum())
+
+    def pick(lo, hi, c):
+        return np.sort(rng.choice(np.arange(lo, hi), c, replace=False)).astype(np.int32)
+
+    cases = [("extension rows=1024,C=256", 4096, 1024, pick(2048, 5120, 256)),
+             ("column add rows=10112,C=64", 0, n_pad, pick(0, N_EVENTS, 64))]
+    rows_out = []
+    for d in (2, 4):
+        fn = kernels.make_mesh_row_block_fn(make_mesh(d))
+        for label, row0, rows, cols_np in cases:
+            cols = torch.as_tensor(cols_np, device=dev)
+            kw = dict(rows=rows, tot_stake=tot)
+            got = fn(sees, mt, stake, cols, row0, **kw)
+            single = kernels.ssm_block(sees, mt, stake, cols, row0, **kw)
+            want = kernels.ssm_block_reference(sees, mt, stake, cols, row0, **kw)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            if not torch.equal(got, want) or not torch.equal(got, single):
+                failures.append(f"make_mesh_row_block_fn D={d} {label}: "
+                                "!= ssm_block / plain version")
+            ms = time_ms(lambda: fn(sees, mt, stake, cols, row0, **kw), 10)
+            single_ms = time_ms(lambda: kernels.ssm_block(sees, mt, stake, cols, row0, **kw), 20)
+            plain_ms = time_ms(
+                lambda: kernels.ssm_block_reference(sees, mt, stake, cols, row0, **kw), 3, 1
+            )
+            c = len(cols_np)
+            # as ssm_block's bound: the work of one block, without the D-fold
+            # a side that the masked rows of the other shards add
+            nbytes = rows * valid + valid * c + 4 * (n_members * k + c + n_members) + rows * c
+            bnd, by = bound_ms(nbytes, rows * c * valid)
+            row = {"case": label, "shards": d, "row0": row0, "rows": rows, "C": c,
+                   "max_abs_err": err, "ms": ms, "ssm_block_ms": single_ms,
+                   "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                   "bmm_or_launches_per_block": n_members * d,
+                   "set_frac": float(want.float().mean())}
+            print("make_mesh_row_block_fn", json.dumps(row), flush=True)
+            check_degenerate("make_mesh_row_block_fn", f"D={d} {label}", row["set_frac"],
+                             failures)
+            rows_out.append(row)
+    # the member hop of the extension block, member 0, as one shard runs it
+    idx = mt[0]
+    ok = idx >= 0
+    idxc = idx.clamp(0, n_pad - 1)
+    cols = torch.as_tensor(cases[0][3], device=dev)
+    a = (sees[4096:5120][:, idxc] & ok[None, :]).contiguous()
+    b = (sees[idxc][:, cols] & ok[:, None]).contiguous()
+    got, want = kernels.bmm_or(a, b), kernels.bmm_or_reference(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        failures.append(f"bmm_or mesh hop 1024x{k}x256: kernel != plain version")
+    p, q, r = a.shape[0], k, b.shape[1]
+    bnd, by = bound_ms(p * q + q * r + p * r, p * q * r)
+    hop = {"shape": [p, q, r], "case": "mesh member hop (config-3 slab, member 0)",
+           "max_abs_err": int((got.to(torch.int32) - want.to(torch.int32)).abs().max()),
+           "ms": time_ms(lambda: kernels.bmm_or(a, b), 50),
+           "plain_ms": time_ms(lambda: kernels.bmm_or_reference(a, b), 50),
+           "library_ms": time_ms(
+               lambda: torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16)) > 0.5, 50),
+           "bound_ms": bnd, "bound_by": by, "set_frac": float(want.float().mean())}
+    print("bmm_or", json.dumps(hop), flush=True)
+    check_degenerate("bmm_or", "mesh hop", hop["set_frac"], failures)
+    return rows_out, hop
 
 
 def main() -> int:
@@ -527,10 +744,27 @@ def main() -> int:
         launches["incremental"][label] = run_incremental(
             label, dags[name], fuse, columns_evps[name], failures
         )
+    launches["streaming"], archives = {}, {}
+    for name in CONFIGS:
+        launches["streaming"][name], inc, archives[name] = run_streaming(
+            name, dags[name], columns_evps[name], failures
+        )
+        if name == "config3":
+            launches["widen"] = {name: run_widen(inc, dags[name], failures)}
+        inc.store.close()
+        del inc
+    launches["mesh"] = {}
+    for name in CONFIGS:
+        launches["mesh"][name] = run_mesh(
+            name, dags[name], columns_evps[name], archives[name], failures
+        )
+    torch.cuda.empty_cache()
+    mesh_rows, hop_row = check_mesh_block(packs["config3"], failures)
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,
-    # the config-4 matrix for ssm_matrix
+    # the config-4 matrix for ssm_matrix, the 2-shard extension block for
+    # make_mesh_row_block_fn (library: the torch.matmul of its member hop)
     def entry(name, row, rows, library_ms):
         by_path = {path: {cfg: counts[name] for cfg, counts in per.items()}
                    for path, per in launches.items()}
@@ -545,9 +779,10 @@ def main() -> int:
         }
 
     line = {"kernels": [
-        entry("bmm_or", bmm_rows[1], bmm_rows, bmm_rows[1]["library_ms"]),
+        entry("bmm_or", bmm_rows[1], bmm_rows + [hop_row], bmm_rows[1]["library_ms"]),
         entry("ssm_block", ssm_rows[0], ssm_rows, None),
         entry("ssm_matrix", matrix_rows[0], matrix_rows, None),
+        entry("make_mesh_row_block_fn", mesh_rows[0], mesh_rows, hop_row["library_ms"]),
     ]}
     if failures:
         for f in failures:

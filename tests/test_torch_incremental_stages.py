@@ -370,8 +370,12 @@ def test_packer_views_match_reference():
 
 def test_resolve_stream_settings_precedence(monkeypatch):
     monkeypatch.delenv("SWIRLD_FUSE_CHUNKS", raising=False)
-    assert resolve_stream_settings(SwirldConfig()) == {"fuse_chunks": 8}
-    assert resolve_stream_settings()["fuse_chunks"] == ref_resolve()["fuse_chunks"]
+    monkeypatch.delenv("SWIRLD_DECODE_OVERLAP", raising=False)
+    monkeypatch.delenv("SWIRLD_DECODE_QUEUE_DEPTH", raising=False)
+    assert resolve_stream_settings(SwirldConfig()) == {
+        "fuse_chunks": 8, "decode_overlap": True, "decode_queue_depth": 2,
+    }
+    assert resolve_stream_settings() == ref_resolve()
     monkeypatch.setenv("SWIRLD_FUSE_CHUNKS", "3")
     assert resolve_stream_settings(SwirldConfig())["fuse_chunks"] == 3
     cfg = SwirldConfig(n_members=4, fuse_chunks=5)

@@ -12,7 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from tpu_swirld_torch import IncrementalConsensus
+from tpu_swirld_torch import (
+    IncrementalConsensus, MeshStreamingConsensus, StreamingConsensus, make_mesh,
+)
 from tpu_swirld_torch.gpu import pipeline
 from tpu_swirld_torch.packing import pack_events
 from tpu_swirld_torch.sim import generate_gossip_dag
@@ -70,6 +72,18 @@ def test_incremental_without_device_raises_without_gpu():
     members, _stake, _events, _keys = generate_gossip_dag(4, 40, seed=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IncrementalConsensus(members)
+
+
+def test_streaming_without_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    members, _stake, _events, _keys = generate_gossip_dag(4, 40, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingConsensus(members)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshStreamingConsensus(make_mesh(2, device="cpu"), members)
 
 
 def _chip_smoke(cwd):

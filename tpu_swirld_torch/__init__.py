@@ -21,6 +21,13 @@ and the strongly-sees column store on the device between passes, prunes the
 decided prefix, and keeps its cumulative result bit-identical to a batch
 ``run_consensus`` over the same DAG.
 
+:class:`StreamingConsensus` (``tpu_swirld_torch.store``) bounds that
+driver's device memory by the undecided window: decided rows retire into a
+compressed host archive, and a delta naming pruned history widens the
+window back by re-fetching archived rows.  :class:`MeshStreamingConsensus`
+(``tpu_swirld_torch.parallel``) row-shards that window over a mesh of
+shards on one device.
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of
@@ -29,5 +36,27 @@ plain PyTorch versions.
 """
 
 from tpu_swirld_torch.gpu.incremental import IncrementalConsensus  # noqa: E402
+from tpu_swirld_torch.parallel import (  # noqa: E402
+    Mesh,
+    MeshStreamingConsensus,
+    make_mesh,
+    streaming_consensus_for_mesh,
+)
+from tpu_swirld_torch.store import (  # noqa: E402
+    SlabArchive,
+    SlabStore,
+    StreamingConsensus,
+    TileBudgetExceeded,
+)
 
-__all__ = ["IncrementalConsensus"]
+__all__ = [
+    "IncrementalConsensus",
+    "Mesh",
+    "MeshStreamingConsensus",
+    "SlabArchive",
+    "SlabStore",
+    "StreamingConsensus",
+    "TileBudgetExceeded",
+    "make_mesh",
+    "streaming_consensus_for_mesh",
+]

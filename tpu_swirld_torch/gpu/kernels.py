@@ -11,7 +11,9 @@
   and every column an event).
 
 :func:`make_extension_kernels` bundles ``bmm_or`` and ``ssm_block`` for the
-incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does.
+incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does;
+:func:`make_mesh_row_block_fn` puts ``bmm_or`` into the row-sharded
+strongly-sees block, as ``pallas_kernels.py:make_mesh_row_block_fn`` does.
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
 ``ssm_block_reference``, ``ssm_matrix_reference``) only for tensors on the CPU.  For CUDA tensors it
@@ -281,3 +283,32 @@ def make_extension_kernels():
     from tpu_swirld_torch.gpu.incremental import ExtensionKernels
 
     return ExtensionKernels(name="cuda", bmm=bmm_or, ssm_block_fn=ssm_block)
+
+
+def make_mesh_row_block_fn(mesh):
+    """The row-sharded strongly-sees block of
+    :func:`tpu_swirld_torch.parallel.make_row_sharded_block_fn` with
+    :func:`bmm_or` as the shard-local member hop (``pallas_kernels.py:
+    make_mesh_row_block_fn``): on the card every member hop of every shard
+    launches the CUDA kernel, ``M * D`` launches a block.  The int32 tally
+    is summed over the shards before the threshold, so ``ssm_block``, whose
+    epilogue thresholds inside the kernel, cannot stand in for the member
+    loop.  ``MeshStreamingConsensus(pallas=True)`` builds it.
+    ``make_mesh_row_block_fn.launches`` counts the blocks run on a CUDA
+    device (each one ``M * D`` ``bmm_or`` launches)."""
+    from tpu_swirld_torch.parallel import make_row_sharded_block_fn
+
+    block = make_row_sharded_block_fn(mesh, bmm=bmm_or)
+
+    def mesh_row_block(sees, member_table, stake, cols, row0, *, rows,
+                       tot_stake):
+        out = block(sees, member_table, stake, cols, row0, rows=rows,
+                    tot_stake=tot_stake)
+        if sees.device.type == "cuda":
+            make_mesh_row_block_fn.launches += 1
+        return out
+
+    return mesh_row_block
+
+
+make_mesh_row_block_fn.launches = 0

@@ -1,5 +1,6 @@
 """Dense packing: hash-addressed event DAG -> index arrays for the device
-(copy of the reference's ``tpu_swirld/packing.py`` batch surface).
+(copy of the reference's ``tpu_swirld/packing.py`` batch and streaming
+surface).
 
 Events are packed in topological (insertion) order into a ``(N, 2)`` int32
 parent-index array plus creator / seq / timestamp / coin-bit vectors.  Every
@@ -14,7 +15,7 @@ into the port's: the DAG and the stake are this system's state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,7 +65,13 @@ class Packer:
 
     def append(self, ev: Event) -> int:
         """Pack one event (parents must already be packed).  Idempotent."""
-        eid = ev.id
+        return self.append_prepared(ev, ev.id)
+
+    def append_prepared(self, ev: Event, eid: bytes) -> int:
+        """:meth:`append` with the event id already computed (the streaming
+        driver's decode worker hashes ids off-thread with
+        :func:`prepare_events`); all packer mutation stays on the calling
+        thread."""
         existing = self.idx.get(eid)
         if existing is not None:
             return existing
@@ -98,6 +105,11 @@ class Packer:
 
     def extend(self, events: Sequence[Event]) -> List[int]:
         return [self.append(ev) for ev in events]
+
+    def extend_prepared(self, pairs: Sequence[Tuple[Event, bytes]]) -> List[int]:
+        """Pack a pre-decoded delta: ``pairs`` as :func:`prepare_events`
+        returns them."""
+        return [self.append_prepared(ev, eid) for ev, eid in pairs]
 
     def __len__(self) -> int:
         return len(self._ids)
@@ -155,6 +167,24 @@ class Packer:
 def _ro(a: np.ndarray) -> np.ndarray:
     a.flags.writeable = False
     return a
+
+
+def chunk_slices(n: int, chunk: int) -> List[Tuple[int, int]]:
+    """Chunk-aligned ``[start, stop)`` slices covering ``[0, n)``: every
+    piece but the last is exactly ``chunk`` long.  Any split of a
+    topologically ordered stream is itself topologically valid, so the
+    slices can be ingested independently."""
+    if chunk <= 0:
+        raise ValueError("chunk must be positive")
+    return [(s, min(n, s + chunk)) for s in range(0, n, chunk)]
+
+
+def prepare_events(events: Sequence[Event]) -> List[Tuple[Event, bytes]]:
+    """Gossip decode of a delta: each event with its id (a content hash,
+    the dominant host cost of packing), touching no shared state, so it can
+    run on a worker thread; :meth:`Packer.extend_prepared` packs the
+    result."""
+    return [(ev, ev.id) for ev in events]
 
 
 def pack_events(
