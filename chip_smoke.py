@@ -16,9 +16,12 @@
    random shapes.  A timed case whose plain output is all False or all True
    fails: it could not tell a wrong kernel.  Each is timed (median of CUDA-event
    timings after a warm-up) beside its plain version, its least time on the
-   card (bound) and, for ``bmm_or``, one library call.  A bound counts the
-   work this run's data needs: member-table slots that are -1 and padded
-   columns need none.
+   card (bound) and, for ``bmm_or``, one library call, ``host_us`` (the host
+   microseconds a call over 200 calls enqueued with no synchronize: the
+   wrapper's cost) and ``card_ms`` (a CUDA-graph replay of one call: the
+   card's time alone; ``ms`` brackets one call and holds both).  A bound
+   counts the work this run's data needs: member-table slots that are -1 and
+   padded columns need none.
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
@@ -56,16 +59,23 @@
    ``MeshStreamingConsensus(make_mesh(2), pallas=True, device="cuda")`` (2
    row shards on one card) over the same chunks.  Digests golden; the
    archive's digest equal to the streaming driver's (6 and 8 print the
-   store's stats after draining its pack worker); ``ssm_block`` 0 launches;
-   ``bmm_or`` and the mesh block launched on the non-rebase passes.
+   store's stats after draining its pack worker); ``ssm_block`` and
+   ``ssm_matrix`` 0 launches; ``bmm_or``, the mesh block and ``ssm_tally``
+   launched on the non-rebase passes; ``bmm_or`` launched exactly as often
+   as in the streaming run of 6 (the blocks run no member hop), and
+   ``ssm_tally`` at most ``MESH_SHARDS`` times a mesh block.
 9. ``make_mesh_row_block_fn`` at 2 and 4 shards on the config-3 slab, at the
    extension shape (1024 rows at row 4096 x 256 columns) and the column-add
    shape (full height x 64), exact against ``ssm_block`` and its plain
-   version and non-degenerate, timed beside ``ssm_block``; its member hop
-   ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
-10. A ``{"kernels": [...]}`` line (every kernel's launches by path: batch
-   paths, incremental, streaming, mesh), the card's name and power limit,
-   then ``{"ok": true, ...}`` as the last line.
+   version and non-degenerate, timed beside ``ssm_block``; ``ssm_tally``
+   alone at one shard's extension shape (shard 0 of 2, which owns 960 of
+   the 1024 rows), exact against ``ssm_tally_reference``, the two shards'
+   summed threshold non-degenerate and equal to ``ssm_block``'s, with
+   ``host_us`` and ``card_ms`` as for ``bmm_or``; a member
+   hop ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
+10. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+   by path: batch paths, incremental, streaming, widen, mesh), the card's
+   name and power limit, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -146,11 +156,16 @@ KERNEL_INFO = {
         "source": "tpu_swirld_torch/gpu/csrc/ssm_matrix.cu",
         "replaces": "tpu_swirld/tpu/pallas_kernels.py:106",
     },
-    # the row-sharded block over the bmm_or kernel; its launches count
-    # blocks, each M x D bmm_or launches
+    # the row-sharded block over the ssm_tally kernel; its launches count
+    # blocks, each at most D ssm_tally launches
     "make_mesh_row_block_fn": {
         "source": "tpu_swirld_torch/gpu/kernels.py",
         "replaces": "tpu_swirld/tpu/pallas_kernels.py:368",
+    },
+    # one shard's tally: the member hops (bmm_or_pallas) of the route above
+    "ssm_tally": {
+        "source": "tpu_swirld_torch/gpu/csrc/ssm_tally.cu",
+        "replaces": "tpu_swirld/tpu/pallas_kernels.py:380",
     },
 }
 MESH_SHARDS = 2
@@ -202,6 +217,43 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls enqueued with
+    no synchronize between them (then one synchronize, not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def card_ms(fn, reps: int = 50) -> float:
+    """Milliseconds of ``fn`` on the card alone: one call captured into a
+    CUDA graph, the graph replayed ``reps`` times between two events, so no
+    host work lies between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_OPS_PER_S * 1e3
@@ -231,13 +283,16 @@ def check_bmm_or(gen, g_cap, failures):
             failures.append(f"bmm_or {p}x{q}x{r}: kernel != plain version")
         reps = 10 if p * q * r > 1e9 else 50
         ms = time_ms(lambda: kernels.bmm_or(a, b), reps)
+        us = host_us(lambda: kernels.bmm_or(a, b))
+        card = card_ms(lambda: kernels.bmm_or(a, b), reps)
         plain_ms = time_ms(lambda: kernels.bmm_or_reference(a, b), reps)
         lib_ms = time_ms(
             lambda: torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16)) > 0.5,
             reps,
         )
         bnd, by = bound_ms(p * q + q * r + p * r, p * q * r)
-        row = {"shape": [p, q, r], "max_abs_err": err, "ms": ms,
+        row = {"shape": [p, q, r], "max_abs_err": err, "ms": ms, "host_us": us,
+               "card_ms": card,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bnd,
                "bound_by": by, "set_frac": float(want.float().mean())}
         print("bmm_or", json.dumps(row), flush=True)
@@ -594,10 +649,12 @@ def run_widen(inc, dag, failures):
     return launches
 
 
-def run_mesh(name, dag, columns_evps, streaming_archive, failures):
+def run_mesh(name, dag, columns_evps, streaming, failures):
     """Phase 8: the row-sharded mesh driver, ``MESH_SHARDS`` shards on one
-    card, the ``pallas=True`` route.  Its archive must equal the streaming
-    driver's (``streaming_archive``, its digest) row for row."""
+    card, the ``pallas=True`` route.  ``streaming`` is phase 6's ``(launches,
+    archive digest)`` on the same configuration: the mesh run's archive must
+    equal it row for row and its ``bmm_or`` launches must equal it (the
+    blocks run no member hop)."""
     members, stake = dag[:2]
     mesh = make_mesh(MESH_SHARDS)
     print(f"mesh {name}: {mesh.size} shards on one card ({mesh.device})", flush=True)
@@ -607,18 +664,28 @@ def run_mesh(name, dag, columns_evps, streaming_archive, failures):
     )
     launches = drive_passes(
         "mesh", name, inc, dag, columns_evps, failures,
-        needs=("bmm_or", "make_mesh_row_block_fn"), never=("ssm_matrix", "ssm_block"),
+        needs=("bmm_or", "make_mesh_row_block_fn", "ssm_tally"),
+        never=("ssm_matrix", "ssm_block"),
     )
+    streaming_launches, streaming_archive = streaming
     if inc.store.archive.digest() != streaming_archive:
         failures.append(f"mesh {name}: archive digest != the streaming driver's")
+    if launches["bmm_or"] != streaming_launches["bmm_or"]:
+        failures.append(f"mesh {name}: {launches['bmm_or']} bmm_or launches, the "
+                        f"streaming run {streaming_launches['bmm_or']}")
+    blocks, tallies = launches["make_mesh_row_block_fn"], launches["ssm_tally"]
+    if not 0 < tallies <= MESH_SHARDS * blocks:
+        failures.append(f"mesh {name}: {tallies} ssm_tally launches for {blocks} blocks "
+                        f"of {MESH_SHARDS} shards")
     inc.store.close()
     return launches
 
 
 def check_mesh_block(packed, failures):
     """Phase 9: ``make_mesh_row_block_fn`` against ``ssm_block`` and
-    ``ssm_block_reference`` on the config-3 slab, non-uniform stake, and
-    its member hop ``bmm_or`` beside ``torch.matmul``."""
+    ``ssm_block_reference`` on the config-3 slab, non-uniform stake;
+    ``ssm_tally`` alone against ``ssm_tally_reference``; a member hop
+    ``bmm_or`` beside ``torch.matmul``."""
     sees = sees_slab(packed)
     dev = sees.device
     rng = np.random.default_rng(SEED)
@@ -641,7 +708,10 @@ def check_mesh_block(packed, failures):
         for label, row0, rows, cols_np in cases:
             cols = torch.as_tensor(cols_np, device=dev)
             kw = dict(rows=rows, tot_stake=tot)
+            tally0, bmm0 = kernels.ssm_tally.launches, kernels.bmm_or.launches
             got = fn(sees, mt, stake, cols, row0, **kw)
+            per_block = {"ssm_tally": kernels.ssm_tally.launches - tally0,
+                         "bmm_or": kernels.bmm_or.launches - bmm0}
             single = kernels.ssm_block(sees, mt, stake, cols, row0, **kw)
             want = kernels.ssm_block_reference(sees, mt, stake, cols, row0, **kw)
             torch.cuda.synchronize()
@@ -649,6 +719,9 @@ def check_mesh_block(packed, failures):
             if not torch.equal(got, want) or not torch.equal(got, single):
                 failures.append(f"make_mesh_row_block_fn D={d} {label}: "
                                 "!= ssm_block / plain version")
+            if per_block["bmm_or"] != 0 or not 0 < per_block["ssm_tally"] <= d:
+                failures.append(f"make_mesh_row_block_fn D={d} {label}: launches "
+                                f"{per_block} a block")
             ms = time_ms(lambda: fn(sees, mt, stake, cols, row0, **kw), 10)
             single_ms = time_ms(lambda: kernels.ssm_block(sees, mt, stake, cols, row0, **kw), 20)
             plain_ms = time_ms(
@@ -656,41 +729,81 @@ def check_mesh_block(packed, failures):
             )
             c = len(cols_np)
             # as ssm_block's bound: the work of one block, without the D-fold
-            # a side that the masked rows of the other shards add
+            # b side that the halo sum adds
             nbytes = rows * valid + valid * c + 4 * (n_members * k + c + n_members) + rows * c
             bnd, by = bound_ms(nbytes, rows * c * valid)
             row = {"case": label, "shards": d, "row0": row0, "rows": rows, "C": c,
-                   "max_abs_err": err, "ms": ms, "ssm_block_ms": single_ms,
-                   "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                   "bmm_or_launches_per_block": n_members * d,
+                   "max_abs_err": err, "ms": ms, "host_us": host_us(
+                       lambda: fn(sees, mt, stake, cols, row0, **kw), 50),
+                   "ssm_block_ms": single_ms, "plain_ms": plain_ms,
+                   "bound_ms": bnd, "bound_by": by, "launches_per_block": per_block,
                    "set_frac": float(want.float().mean())}
             print("make_mesh_row_block_fn", json.dumps(row), flush=True)
             check_degenerate("make_mesh_row_block_fn", f"D={d} {label}", row["set_frac"],
                              failures)
             rows_out.append(row)
-    # the member hop of the extension block, member 0, as one shard runs it
-    idx = mt[0]
+
+    # ssm_tally alone: the extension block's shard 0 of 2 (rows 4096-5055
+    # of the 1024 from 4096), on the halo-assembled b the block builds
+    _label, row0, rows, cols_np = cases[0]
+    cols = torch.as_tensor(cols_np, device=dev)
+    idx = mt.reshape(-1)
     ok = idx >= 0
-    idxc = idx.clamp(0, n_pad - 1)
-    cols = torch.as_tensor(cases[0][3], device=dev)
-    a = (sees[4096:5120][:, idxc] & ok[None, :]).contiguous()
-    b = (sees[idxc][:, cols] & ok[:, None]).contiguous()
-    got, want = kernels.bmm_or(a, b), kernels.bmm_or_reference(a, b)
+    b = sees[idx.clamp(0, n_pad - 1)[:, None], cols.clamp(0, n_pad - 1)[None, :]]
+    b = (b & ok[:, None] & (cols >= 0)[None, :]).contiguous()
+    n_loc = n_pad // 2
+    shards = [sees[:n_loc], sees[n_loc:]]
+    args = (shards[0], mt, stake, b, row0)
+    got = kernels.ssm_tally(*args, rows=rows)
+    want = kernels.ssm_tally_reference(*args, rows=rows)
+    summed = got + kernels.ssm_tally(shards[1], mt, stake, b, row0 - n_loc, rows=rows)
+    hit = (3 * summed.to(torch.int64) > 2 * tot) & (cols >= 0)[None, :]
+    single = kernels.ssm_block(sees, mt, stake, cols, row0, rows=rows, tot_stake=tot)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        failures.append("ssm_tally extension shard 0: kernel != plain version")
+    if not torch.equal(hit, single):
+        failures.append("ssm_tally extension: summed threshold != ssm_block")
+    owned = n_loc - row0
+    c = len(cols_np)
+    # as ssm_block's bound: the owned rows' gathered sees bytes, the valid
+    # rows of b, the indices and stake, the int32 output
+    nbytes = owned * valid + valid * c + 4 * (n_members * k + n_members) + 4 * rows * c
+    bnd, by = bound_ms(nbytes, owned * c * valid)
+    tally_row = {
+        "case": "extension shard 0 of 2: rows=1024 (960 owned),C=256",
+        "max_abs_err": int((got - want).abs().max()),
+        "ms": time_ms(lambda: kernels.ssm_tally(*args, rows=rows), 50),
+        "host_us": host_us(lambda: kernels.ssm_tally(*args, rows=rows)),
+        "card_ms": card_ms(lambda: kernels.ssm_tally(*args, rows=rows)),
+        "plain_ms": time_ms(lambda: kernels.ssm_tally_reference(*args, rows=rows), 5),
+        "bound_ms": bnd, "bound_by": by, "set_frac": float(hit.float().mean()),
+    }
+    print("ssm_tally", json.dumps(tally_row), flush=True)
+    check_degenerate("ssm_tally", "extension summed threshold", tally_row["set_frac"],
+                     failures)
+
+    # a member hop of the extension block, member 0, as the bmm route runs it
+    a = (sees[4096:5120][:, idx[:k].clamp(0, n_pad - 1)] & ok[None, :k]).contiguous()
+    b0 = b[:k].contiguous()
+    got, want = kernels.bmm_or(a, b0), kernels.bmm_or_reference(a, b0)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         failures.append(f"bmm_or mesh hop 1024x{k}x256: kernel != plain version")
-    p, q, r = a.shape[0], k, b.shape[1]
+    p, q, r = a.shape[0], k, b0.shape[1]
     bnd, by = bound_ms(p * q + q * r + p * r, p * q * r)
     hop = {"shape": [p, q, r], "case": "mesh member hop (config-3 slab, member 0)",
            "max_abs_err": int((got.to(torch.int32) - want.to(torch.int32)).abs().max()),
-           "ms": time_ms(lambda: kernels.bmm_or(a, b), 50),
-           "plain_ms": time_ms(lambda: kernels.bmm_or_reference(a, b), 50),
+           "ms": time_ms(lambda: kernels.bmm_or(a, b0), 50),
+           "host_us": host_us(lambda: kernels.bmm_or(a, b0)),
+           "card_ms": card_ms(lambda: kernels.bmm_or(a, b0)),
+           "plain_ms": time_ms(lambda: kernels.bmm_or_reference(a, b0), 50),
            "library_ms": time_ms(
-               lambda: torch.matmul(a.to(torch.bfloat16), b.to(torch.bfloat16)) > 0.5, 50),
+               lambda: torch.matmul(a.to(torch.bfloat16), b0.to(torch.bfloat16)) > 0.5, 50),
            "bound_ms": bnd, "bound_by": by, "set_frac": float(want.float().mean())}
     print("bmm_or", json.dumps(hop), flush=True)
     check_degenerate("bmm_or", "mesh hop", hop["set_frac"], failures)
-    return rows_out, hop
+    return rows_out, tally_row, hop
 
 
 def main() -> int:
@@ -756,15 +869,17 @@ def main() -> int:
     launches["mesh"] = {}
     for name in CONFIGS:
         launches["mesh"][name] = run_mesh(
-            name, dags[name], columns_evps[name], archives[name], failures
+            name, dags[name], columns_evps[name],
+            (launches["streaming"][name], archives[name]), failures,
         )
     torch.cuda.empty_cache()
-    mesh_rows, hop_row = check_mesh_block(packs["config3"], failures)
+    mesh_rows, tally_row, hop_row = check_mesh_block(packs["config3"], failures)
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,
     # the config-4 matrix for ssm_matrix, the 2-shard extension block for
-    # make_mesh_row_block_fn (library: the torch.matmul of its member hop)
+    # make_mesh_row_block_fn and one of its shards for ssm_tally (no single
+    # PyTorch call computes either)
     def entry(name, row, rows, library_ms):
         by_path = {path: {cfg: counts[name] for cfg, counts in per.items()}
                    for path, per in launches.items()}
@@ -782,7 +897,8 @@ def main() -> int:
         entry("bmm_or", bmm_rows[1], bmm_rows + [hop_row], bmm_rows[1]["library_ms"]),
         entry("ssm_block", ssm_rows[0], ssm_rows, None),
         entry("ssm_matrix", matrix_rows[0], matrix_rows, None),
-        entry("make_mesh_row_block_fn", mesh_rows[0], mesh_rows, hop_row["library_ms"]),
+        entry("make_mesh_row_block_fn", mesh_rows[0], mesh_rows, None),
+        entry("ssm_tally", tally_row, [tally_row], None),
     ]}
     if failures:
         for f in failures:

@@ -9,14 +9,19 @@
 - :func:`ssm_matrix` (``csrc/ssm_matrix.cu``) replaces ``pallas_kernels.py:
   ssm_matrix_pallas``: the same rule over the full N x N matrix (every row
   and every column an event).
+- :func:`ssm_tally` (``csrc/ssm_tally.cu``) replaces the member hops of
+  ``pallas_kernels.py:make_mesh_row_block_fn``: one row shard's int32 stake
+  tally of the row-sharded block, not thresholded.
 
 :func:`make_extension_kernels` bundles ``bmm_or`` and ``ssm_block`` for the
 incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does;
-:func:`make_mesh_row_block_fn` puts ``bmm_or`` into the row-sharded
-strongly-sees block, as ``pallas_kernels.py:make_mesh_row_block_fn`` does.
+:func:`make_mesh_row_block_fn` puts ``ssm_tally`` into the row-sharded
+strongly-sees block, where ``pallas_kernels.py:make_mesh_row_block_fn`` puts
+``bmm_or_pallas``.
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
-``ssm_block_reference``, ``ssm_matrix_reference``) only for tensors on the CPU.  For CUDA tensors it
+``ssm_block_reference``, ``ssm_matrix_reference``, ``ssm_tally_reference``)
+only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
 counts the kernel launches (plain-version calls do not count), so a run can
 show that it went through the kernel.
@@ -34,7 +39,11 @@ from tpu_swirld_torch.gpu import build
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = {
-    "bmm_or_launch": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "bmm_or_launch": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "ssm_tally_launch": [
+        _VP, _INT, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _INT,
+        _VP, _VP, _VP, _VP,
+    ],
     "ssm_block_launch": [
         _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _INT,
         ctypes.c_longlong, _VP, _VP, _VP, _VP,
@@ -82,6 +91,15 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+def _launch(dev: torch.device, launch, *args) -> int:
+    """``launch(*args, stream)`` on ``dev``'s current stream; a device
+    context is entered only when ``dev`` is not the current device."""
+    if dev.index == torch.cuda.current_device():
+        return launch(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        return launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 # ------------------------------------------------------------------ bmm_or
 
 
@@ -92,7 +110,8 @@ def bmm_or_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def bmm_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``out[p, r] = OR_q a[p, q] & b[q, r]`` for bool ``a[P, Q]``,
-    ``b[Q, R]``, any ``P, Q, R >= 1``."""
+    ``b[Q, R]``, any ``P, Q, R >= 1``.  On the card: one kernel launch and
+    one allocation (the output)."""
     _check(a, "a", torch.bool, 2)
     _check(b, "b", torch.bool, 2)
     p, q = a.shape
@@ -103,17 +122,11 @@ def bmm_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bmm_or: empty shape {tuple(a.shape)} @ {tuple(b.shape)}")
     if _on_cpu(a, b):
         return bmm_or_reference(a, b)
-    launch = _c_function("bmm_or", "bmm_or_launch")
-    nw = (q + 31) // 32
-    with torch.cuda.device(a.device):
-        a_bits = torch.empty((p, nw), dtype=torch.int32, device=a.device)
-        b_bits = torch.empty((r, nw), dtype=torch.int32, device=a.device)
-        out = torch.empty((p, r), dtype=torch.bool, device=a.device)
-        err = launch(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), a_bits.data_ptr(),
-            b_bits.data_ptr(), p, q, r,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+    out = torch.empty((p, r), dtype=torch.bool, device=a.device)
+    err = _launch(
+        a.device, _c_function("bmm_or", "bmm_or_launch"),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), p, q, r,
+    )
     _raise_on(err, "bmm_or")
     bmm_or.launches += 1
     return out
@@ -188,19 +201,17 @@ def ssm_block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
             sees, member_table, stake, cols, row0, rows=rows,
             tot_stake=tot_stake,
         )
-    launch = _c_function("ssm_block", "ssm_block_launch")
     nw = (k + 31) // 32
     dev = sees.device
-    with torch.cuda.device(dev):
-        a_bits = torch.empty((rows, n_members, nw), dtype=torch.int32, device=dev)
-        b_bits = torch.empty((c, n_members, nw), dtype=torch.int32, device=dev)
-        out = torch.empty((rows, c), dtype=torch.bool, device=dev)
-        err = launch(
-            sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
-            stake.data_ptr(), cols.data_ptr(), c, row0, rows, int(tot_stake),
-            a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    a_bits = torch.empty((rows, n_members, nw), dtype=torch.int32, device=dev)
+    b_bits = torch.empty((c, n_members, nw), dtype=torch.int32, device=dev)
+    out = torch.empty((rows, c), dtype=torch.bool, device=dev)
+    err = _launch(
+        dev, _c_function("ssm_block", "ssm_block_launch"),
+        sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
+        stake.data_ptr(), cols.data_ptr(), c, row0, rows, int(tot_stake),
+        a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(),
+    )
     _raise_on(err, "ssm_block")
     ssm_block.launches += 1
     return out
@@ -247,25 +258,101 @@ def ssm_matrix(sees, member_table, stake, *, tot_stake):
         raise ValueError("ssm_matrix: empty sees or member table")
     if _on_cpu(sees, member_table, stake):
         return ssm_matrix_reference(sees, member_table, stake, tot_stake=tot_stake)
-    launch = _c_function("ssm_matrix", "ssm_matrix_launch")
     nq = n_members * ((k + 31) // 32)
     dev = sees.device
-    with torch.cuda.device(dev):
-        a_bits = torch.empty((n, nq), dtype=torch.int32, device=dev)
-        b_t = torch.empty((nq, n), dtype=torch.int32, device=dev)
-        out = torch.empty((n, n), dtype=torch.bool, device=dev)
-        err = launch(
-            sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
-            stake.data_ptr(), int(tot_stake), a_bits.data_ptr(),
-            b_t.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    a_bits = torch.empty((n, nq), dtype=torch.int32, device=dev)
+    b_t = torch.empty((nq, n), dtype=torch.int32, device=dev)
+    out = torch.empty((n, n), dtype=torch.bool, device=dev)
+    err = _launch(
+        dev, _c_function("ssm_matrix", "ssm_matrix_launch"),
+        sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
+        stake.data_ptr(), int(tot_stake), a_bits.data_ptr(),
+        b_t.data_ptr(), out.data_ptr(),
+    )
     _raise_on(err, "ssm_matrix")
     ssm_matrix.launches += 1
     return out
 
 
 ssm_matrix.launches = 0
+
+
+# --------------------------------------------------------------- ssm_tally
+
+
+def ssm_tally_reference(sees_shard, member_table, stake, b, row_lo, *, rows,
+                        bmm=bmm_or_reference):
+    """Plain version: per member one (rows, K) @ (K, C) hop through ``bmm``
+    (the row-sharded block's member loop), times ``stake[m]``, summed into
+    an int32 tally.  Block rows outside the shard gather zeros."""
+    n_loc, n = sees_shard.shape
+    n_members, k = member_table.shape
+    idx = member_table.reshape(-1)
+    valid = idx >= 0
+    ridx = int(row_lo) + torch.arange(rows, device=sees_shard.device)
+    rown = (ridx >= 0) & (ridx < n_loc)
+    a = (
+        sees_shard[ridx.clamp(0, n_loc - 1)[:, None], idx.clamp(0, n - 1)[None, :]]
+        & valid[None, :] & rown[:, None]
+    )
+    # (M, rows, K), contiguous once a shard: the kernels take contiguous
+    # operands only
+    a_r3 = a.reshape(rows, n_members, k).transpose(0, 1).contiguous()
+    b_r3 = b.reshape(n_members, k, b.shape[1])
+    acc = torch.zeros((rows, b.shape[1]), dtype=torch.int32, device=sees_shard.device)
+    for m in range(n_members):
+        acc += bmm(a_r3[m], b_r3[m]).to(torch.int32) * stake[m]
+    return acc
+
+
+def ssm_tally(sees_shard, member_table, stake, b, row_lo, *, rows):
+    """One row shard's int32 stake tally of the row-sharded strongly-sees
+    block, before the sum over shards and the threshold::
+
+        out[i, j] = sum_m stake[m] * OR_k (mt[m, k] >= 0
+                    and 0 <= row_lo + i < n_loc
+                    and sees_shard[row_lo + i, clip(mt[m, k], 0, n - 1)]
+                    and b[m * K + k, j])
+
+    ``sees_shard`` is bool ``(n_loc, n)`` (the shard's rows of the slab),
+    ``member_table`` int32 ``(M, K)`` with -1 meaning empty, ``stake`` int32
+    ``(M,)``, ``b`` bool ``(M * K, C)`` (the halo-assembled operand).
+    Returns int32 ``(rows, C)``; on the card two launches whatever ``M``
+    is."""
+    _check(sees_shard, "sees_shard", torch.bool, 2)
+    _check(member_table, "member_table", torch.int32, 2)
+    _check(stake, "stake", torch.int32, 1)
+    _check(b, "b", torch.bool, 2)
+    n_loc, n = sees_shard.shape
+    n_members, k = member_table.shape
+    c = b.shape[1]
+    if stake.shape[0] != n_members:
+        raise ValueError("ssm_tally: stake and member_table disagree on M")
+    if b.shape[0] != n_members * k:
+        raise ValueError(f"ssm_tally: b has {b.shape[0]} rows, not M * K = {n_members * k}")
+    if min(n_loc, n_members, k, c, rows) < 1:
+        raise ValueError("ssm_tally: empty shard, member table, columns or rows")
+    row_lo = int(row_lo)
+    if _on_cpu(sees_shard, member_table, stake, b):
+        return ssm_tally_reference(sees_shard, member_table, stake, b, row_lo, rows=rows)
+    owned = max(0, min(rows, n_loc - row_lo) - max(0, -row_lo))
+    nq = n_members * ((k + 31) // 32)
+    dev = sees_shard.device
+    # one scratch buffer: the packed a words (owned, nq), then b's (nq, C)
+    bits = torch.empty((owned + c) * nq, dtype=torch.int32, device=dev)
+    out = torch.empty((rows, c), dtype=torch.int32, device=dev)
+    err = _launch(
+        dev, _c_function("ssm_tally", "ssm_tally_launch"),
+        sees_shard.data_ptr(), n_loc, n, member_table.data_ptr(), n_members,
+        k, stake.data_ptr(), b.data_ptr(), c, row_lo, rows,
+        bits.data_ptr(), bits.data_ptr() + 4 * owned * nq, out.data_ptr(),
+    )
+    _raise_on(err, "ssm_tally")
+    ssm_tally.launches += 1
+    return out
+
+
+ssm_tally.launches = 0
 
 
 # ------------------------------------------------------- extension bundle
@@ -288,17 +375,18 @@ def make_extension_kernels():
 def make_mesh_row_block_fn(mesh):
     """The row-sharded strongly-sees block of
     :func:`tpu_swirld_torch.parallel.make_row_sharded_block_fn` with
-    :func:`bmm_or` as the shard-local member hop (``pallas_kernels.py:
-    make_mesh_row_block_fn``): on the card every member hop of every shard
-    launches the CUDA kernel, ``M * D`` launches a block.  The int32 tally
-    is summed over the shards before the threshold, so ``ssm_block``, whose
-    epilogue thresholds inside the kernel, cannot stand in for the member
-    loop.  ``MeshStreamingConsensus(pallas=True)`` builds it.
+    :func:`ssm_tally` as the shard-local step (the route of
+    ``pallas_kernels.py:make_mesh_row_block_fn``): on the card each shard
+    that owns a row of the block launches the CUDA tally once, whatever
+    ``M`` is, and no ``bmm_or``.  The int32 tallies are summed over the
+    shards before the threshold, which is why ``ssm_block``, whose epilogue
+    thresholds inside the kernel, cannot stand in.
+    ``MeshStreamingConsensus(pallas=True)`` builds it.
     ``make_mesh_row_block_fn.launches`` counts the blocks run on a CUDA
-    device (each one ``M * D`` ``bmm_or`` launches)."""
-    from tpu_swirld_torch.parallel import make_row_sharded_block_fn
+    device (each one at most ``D`` ``ssm_tally`` launches)."""
+    from tpu_swirld_torch.parallel import _row_sharded_block_fn
 
-    block = make_row_sharded_block_fn(mesh, bmm=bmm_or)
+    block = _row_sharded_block_fn(mesh, ssm_tally, every_shard=False)
 
     def mesh_row_block(sees, member_table, stake, cols, row0, *, rows,
                        tot_stake):

@@ -10,10 +10,12 @@ strongly-sees block with one halo exchange, exactly as the reference's
 - b side (the halo): of the ``M * K`` gathered member rows each lies in one
   shard; every shard gathers the rows it owns (others zero) and one int8
   sum over the shards assembles the full ``(M * K, C)`` operand;
-- a side: each shard gathers the extension rows it owns, unowned rows zero;
-- per member, one boolean hop times ``stake[m]`` into an int32 partial
-  tally per shard; the tallies are summed over the shards and the strict-2/3
-  test runs once.
+- a side: each shard gathers the extension rows it owns, unowned rows zero,
+  and its shard-tally step sums ``stake[m]`` times each member's boolean hop
+  into an int32 partial tally (``M`` hops through ``bmm``, or one
+  :func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` launch on the
+  ``pallas=True`` route); the tallies are summed over the shards and the
+  strict-2/3 test runs once.
 
 JAX's mesh is single-controller (one driver, arrays carrying a sharding).
 The port keeps that shape in one process, and this slice builds meshes
@@ -137,6 +139,54 @@ def _psum(parts):
     return functools.reduce(torch.add, parts)
 
 
+def _row_sharded_block_fn(mesh: Mesh, shard_tally, *, every_shard: bool):
+    """The row-sharded block over ``shard_tally(sees_shard, member_table,
+    stake, b, row_lo, *, rows) -> int32 (rows, C)``, one shard's partial
+    tally (:func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` and its plain
+    version).  The int8 halo sum, the sum of the tallies and the strict-2/3
+    test run here, through :func:`_psum`.  ``every_shard=False`` skips the
+    shards that own no row of the block (their tally is zero)."""
+    d = mesh.size
+
+    def block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
+        n = sees.shape[0]
+        if _canonical(sees.device) != mesh.device:
+            raise ValueError(
+                f"sees on {sees.device}, the mesh's shards on {mesh.device}"
+            )
+        if n % d:
+            raise ValueError(
+                f"a slab of {n} rows does not split into {d} row shards"
+            )
+        if not 1 <= rows <= n:
+            raise ValueError(f"a block of {rows} rows outside [1, {n}]")
+        n_loc = n // d
+        idx = member_table.reshape(-1)
+        valid = idx >= 0
+        idxc = idx.clamp(0, n - 1)
+        cv = cols >= 0
+        row0c = min(max(int(row0), 0), n - rows)
+        shards = [sees[s * n_loc : (s + 1) * n_loc] for s in range(d)]
+        # ---- b-side halo: each gathered member row lies in one shard, which
+        # contributes it; the others contribute zeros
+        owner, loc_b = idxc // n_loc, (idxc % n_loc)[:, None]
+        colsc = cols.clamp(0, n - 1)[None, :]
+        b_parts = [
+            (s_loc[loc_b, colsc] & (valid & (owner == s))[:, None]).to(torch.int8)
+            for s, s_loc in enumerate(shards)
+        ]
+        b = (_psum(b_parts) > 0) & cv[None, :]
+        # ---- a side: each shard's tally of the block rows it owns
+        acc = _psum([
+            shard_tally(s_loc, member_table, stake, b, row0c - s * n_loc, rows=rows)
+            for s, s_loc in enumerate(shards)
+            if every_shard or -rows < row0c - s * n_loc < n_loc
+        ])
+        return (3 * acc.to(torch.int64) > 2 * int(tot_stake)) & cv[None, :]
+
+    return block
+
+
 def make_row_sharded_block_fn(mesh: Mesh, *, bmm=None):
     """Window-row-sharded strongly-sees block with the ``ssm_block_fn``
     seam's signature (:func:`~tpu_swirld_torch.gpu.kernels.ssm_block`):
@@ -147,70 +197,17 @@ def make_row_sharded_block_fn(mesh: Mesh, *, bmm=None):
     must divide (raises otherwise: nothing is padded).  The start clamps
     as the reference's ``clip(row0, 0, n - rows)``: a negative start goes
     to 0 (unlike :func:`~tpu_swirld_torch.gpu.kernels.slice_start`).
-    ``bmm`` is the shard-local member hop ``(a, b) -> bool``; ``None`` is
-    :func:`~tpu_swirld_torch.gpu.kernels.bmm_or` (the port has no XLA hop),
-    which launches the CUDA kernel ``M * D`` times a block on the card.
+    ``bmm`` is the shard-local member hop ``(a, b) -> bool``, called ``M``
+    times by every shard, as in the reference; ``None`` is
+    :func:`~tpu_swirld_torch.gpu.kernels.bmm_or` (the port has no XLA hop).
     Functions with the default hop are cached per mesh."""
-    d = mesh.size
     local_bmm = bmm if bmm is not None else kernels.bmm_or
 
     def build():
-        def block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
-            n = sees.shape[0]
-            if _canonical(sees.device) != mesh.device:
-                raise ValueError(
-                    f"sees on {sees.device}, the mesh's shards on {mesh.device}"
-                )
-            if n % d:
-                raise ValueError(
-                    f"a slab of {n} rows does not split into {d} row shards"
-                )
-            if not 1 <= rows <= n:
-                raise ValueError(f"a block of {rows} rows outside [1, {n}]")
-            n_loc = n // d
-            ml, k = member_table.shape
-            c = cols.shape[0]
-            dev = sees.device
-            idx = member_table.reshape(-1)
-            valid = idx >= 0
-            idxc = idx.clamp(0, n - 1)
-            colsc = cols.clamp(0, n - 1)
-            cv = cols >= 0
-            row0c = min(max(int(row0), 0), n - rows)
-            ar = torch.arange(rows, device=dev)
-            shards = [sees[s * n_loc : (s + 1) * n_loc] for s in range(d)]
-            # ---- b-side halo: each gathered member row lies in one shard
-            b_parts = []
-            for s, s_loc in enumerate(shards):
-                loc_b = idxc - s * n_loc
-                own_b = (loc_b >= 0) & (loc_b < n_loc) & valid
-                b_loc = (
-                    s_loc[loc_b.clamp(0, n_loc - 1)][:, colsc]
-                    & own_b[:, None] & cv[None, :]
-                )
-                b_parts.append(b_loc.to(torch.int8))
-            b_r3 = (_psum(b_parts) > 0).reshape(ml, k, c)
-            # ---- a side: each shard's own rows, a per-member hop each
-            acc_parts = []
-            for s, s_loc in enumerate(shards):
-                ridx = row0c - s * n_loc + ar
-                rown = (ridx >= 0) & (ridx < n_loc)
-                a = (
-                    s_loc[ridx.clamp(0, n_loc - 1)][:, idxc]
-                    & valid[None, :] & rown[:, None]
-                )
-                # (M, rows, K), contiguous once a block: the kernels take
-                # contiguous operands only
-                a_r3 = a.reshape(rows, ml, k).transpose(0, 1).contiguous()
-                acc = torch.zeros((rows, c), dtype=torch.int32, device=dev)
-                for mm in range(ml):
-                    hit = local_bmm(a_r3[mm], b_r3[mm])
-                    acc += hit.to(torch.int32) * stake[mm]
-                acc_parts.append(acc)
-            acc = _psum(acc_parts)
-            return (3 * acc.to(torch.int64) > 2 * int(tot_stake)) & cv[None, :]
-
-        return block
+        return _row_sharded_block_fn(
+            mesh, functools.partial(kernels.ssm_tally_reference, bmm=local_bmm),
+            every_shard=True,
+        )
 
     if bmm is not None:
         return build()
@@ -223,9 +220,10 @@ class MeshStreamingConsensus(StreamingConsensus):
 
     - every strongly-sees block (extension, column adds and the batch
       rebase's ``_columns_pass``) goes through
-      :func:`make_row_sharded_block_fn` (``pallas=True``:
-      :func:`~tpu_swirld_torch.gpu.kernels.make_mesh_row_block_fn`; on the
-      card both run the CUDA ``bmm_or`` as the member hop);
+      :func:`make_row_sharded_block_fn` (the CUDA ``bmm_or`` as the member
+      hop on the card) or, with ``pallas=True``,
+      :func:`~tpu_swirld_torch.gpu.kernels.make_mesh_row_block_fn` (one CUDA
+      ``ssm_tally`` launch a shard);
     - the :class:`~tpu_swirld_torch.store.slab.SlabStore` accounts per-shard
       residency (``n_shards=D``) and ``device_tile_budget`` bounds the
       widest shard like the global budget;
