@@ -12,16 +12,26 @@
    on the sees slabs of the BASELINE config-4 and config-3 DAGs at the
    column-add shapes and the incremental extension block (1024 rows
    mid-window x 256 and 1024 columns), ``ssm_matrix`` on the full config-4
-   slab (non-uniform stake), the full config-3 slab, a ragged N and small
-   random shapes.  A timed case whose plain output is all False or all True
-   fails: it could not tell a wrong kernel.  Each is timed (median of CUDA-event
-   timings after a warm-up) beside its plain version, its least time on the
-   card (bound) and, for ``bmm_or``, one library call, ``host_us`` (the host
-   microseconds a call over 200 calls enqueued with no synchronize: the
-   wrapper's cost) and ``card_ms`` (a CUDA-graph replay of one call: the
-   card's time alone; ``ms`` brackets one call and holds both).  A bound
-   counts the work this run's data needs: member-table slots that are -1 and
-   padded columns need none.
+   slab (non-uniform stake), the full config-3 slab and a ragged N; both
+   strongly-sees kernels also at stakes summing to ``INT32_MAX // 3`` (the
+   envelope's edge) and on small random shapes (K past 256 and past the
+   k-steps a member that shared memory holds at once, member tables too
+   long for shared memory, ragged rows and columns, -1 slots, cols and
+   indices past n, clamped starts).  A compared
+   output that is all False or all True fails (a one-output case excepted):
+   it could not tell a wrong kernel.  Each fixed shape is timed (median of
+   CUDA-event timings after a warm-up) beside its plain version, its least
+   time on the card (bound) and, for ``bmm_or``, one library call, with
+   ``host_us`` (the host microseconds a call over 200 calls enqueued with no
+   synchronize: the wrapper's cost) and ``card_ms`` (a CUDA-graph replay of
+   one call: the card's time alone; ``ms`` brackets one call and holds
+   both).  A bound counts the work this run's data needs (member-table
+   slots that are -1 and padded columns need none): the larger of its
+   bytes over the memory rate and its AND-products over the card's peak for
+   1-bit products, the binary tensor cores' ``.b1`` AND-popc rate (an
+   AND-product two operations, ``B1_OPS_PER_S``); ``ssm_block`` and
+   ``ssm_matrix`` also print the operations bound at the data sheet's int8
+   rate (``ops_bound_int8_ms``).
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
@@ -142,7 +152,16 @@ GOLDEN = {
 }
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core peak, same source
+# dense int8 tensor-core peak, same source; it counts a multiply-add as two
+# operations, so one AND-product (a 0/1 multiply-add) costs two
+INT8_OPS_PER_S = 1979e12
+OPS_PER_AND = 2
+# The card's peak for 1-bit AND-products, which the data sheet does not
+# give: mma.sync m16n8k256 .b1 AND-popc from registers on every SM, two
+# operations an AND-product, measured by tpu_swirld_torch/dev/mma_rate.py
+# (the highest reading, NVIDIA H100 80GB HBM3 at a 700 W power limit; see
+# PERF.md).  The strongly-sees kernels run their products at this rate.
+B1_OPS_PER_S = 1.0035e16
 KERNEL_INFO = {
     "bmm_or": {
         "source": "tpu_swirld_torch/gpu/csrc/bmm_or.cu",
@@ -254,10 +273,17 @@ def card_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, and_products: float):
+    """The least time of a kernel that moves ``nbytes`` and does
+    ``and_products`` AND-products: bytes over the memory rate or operations
+    over the card's 1-bit peak, whichever is larger, and which one it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops_ms(and_products)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ops_ms(and_products: float, ops_per_s: float = B1_OPS_PER_S) -> float:
+    return OPS_PER_AND * and_products / ops_per_s * 1e3
 
 
 def random_bool(shape, density, gen):
@@ -368,7 +394,8 @@ def check_ssm_block(packs, slabs, failures):
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         if not torch.equal(got, want):
             failures.append(f"ssm_block {label}: kernel != plain version")
-        ms = time_ms(lambda: kernels.ssm_block(sees, mt, stake, cols, row0, **kw), 20)
+        call = lambda: kernels.ssm_block(sees, mt, stake, cols, row0, **kw)  # noqa: E731
+        ms = time_ms(call, 20)
         plain_ms = time_ms(
             lambda: kernels.ssm_block_reference(sees, mt, stake, cols, row0, **kw), 5
         )
@@ -377,17 +404,118 @@ def check_ssm_block(packs, slabs, failures):
         # each needed sees byte read once (a side: rows x valid member slots,
         # b side: valid slots x valid columns), the indices, the bool output
         nbytes = rows * valid + valid * c_valid + 4 * (n_members * k + c + n_members) + rows * c
-        ops = rows * c_valid * valid
-        bnd, by = bound_ms(nbytes, ops)
+        ands = rows * c_valid * valid
+        bnd, by = bound_ms(nbytes, ands)
         row = {"case": label, "slab": name, "row0": row0, "rows": rows, "C": c,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "ms": ms, "host_us": host_us(call),
+               "card_ms": card_ms(call), "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by,
-               "ops_bound_ms": ops / INT8_OPS_PER_S * 1e3,
+               "ops_bound_int8_ms": ops_ms(ands, INT8_OPS_PER_S),
                "set_frac": float(want.float().mean())}
         print("ssm_block", json.dumps(row), flush=True)
         check_degenerate("ssm_block", label, row["set_frac"], failures)
         rows_out.append(row)
+
+    # the envelope's edge: stakes summing to INT32_MAX // 3, so 3 * acc
+    # reaches 2^31 - 2 in the card's int32 tally
+    edge = edge_stake(rng, N_MEMBERS)
+    packed, sees = packs["config3"], slabs["config3"]
+    mt = torch.as_tensor(packed.member_table, device=sees.device)
+    cols = torch.as_tensor(pick(2048, 5120, 256), device=sees.device)
+    kw = dict(rows=1024, tot_stake=int(edge.sum()))
+    got = kernels.ssm_block(sees, mt, edge, cols, 4096, **kw)
+    want = kernels.ssm_block_reference(sees, mt, edge, cols, 4096, **kw)
+    compare("ssm_block", "envelope edge rows=1024,C=256", got, want, failures)
+
     return rows_out
+
+
+def sweep_ssm_block(failures):
+    """``ssm_block`` on small random shapes: K not a multiple of 32 and K >
+    256, rows below one tile, C not a multiple of 64, -1 slots and cols,
+    indices past n, clamped and negative row0, 8-row tiles (rows 1100 x C
+    40), a member table whose packed rows are too long to stage (256
+    members, K 300: the a side is gathered from device memory) and one too
+    long for even 4 rows of it in shared memory (64 members, K 7000: the
+    members in chunks).  Exact equality only, not timed."""
+    for n, m, k, rows, c, row0 in [(1, 1, 1, 1, 1, 0), (70, 3, 33, 5, 7, 68),
+                                   (200, 5, 100, 37, 65, -40), (300, 4, 300, 130, 100, 50),
+                                   (520, 64, 182, 17, 130, 400), (1000, 2, 600, 300, 1, 10**6),
+                                   (2000, 64, 178, 1000, 1024, 500), (1200, 64, 182, 1100, 40, 50),
+                                   (600, 256, 300, 40, 70, 100), (4000, 64, 7000, 40, 70, 100)]:
+        def case(seed):
+            g = np.random.default_rng(seed)
+            sees = torch.as_tensor(g.random((n, n)) < np.sqrt(1.1 / k), device="cuda")
+            mt = torch.as_tensor(g.integers(-1, n + 3, (m, k)).astype(np.int32), device="cuda")
+            stake = torch.as_tensor(g.integers(1, 6, m).astype(np.int32), device="cuda")
+            cols = torch.as_tensor(g.integers(-1, n + 3, c).astype(np.int32), device="cuda")
+            return sees, mt, stake, cols, row0
+
+        def plain(*args):
+            return kernels.ssm_block_reference(*args, rows=rows, tot_stake=int(args[2].sum()))
+
+        args = mixed_case(case, plain, rows * c)
+        tot = int(args[2].sum())
+        compare("ssm_block", f"random n={n} M={m} K={k} rows={rows} C={c} row0={row0}",
+                kernels.ssm_block(*args, rows=rows, tot_stake=tot), plain(*args), failures,
+                degenerate_ok=rows * c == 1)
+
+
+def sweep_ssm_matrix(failures):
+    """``ssm_matrix`` on small ragged shapes with random member tables: -1
+    slots and indices past N (clipped), K past 256 (several k-steps a
+    member) and past 1536 (a member staged in parts, its hits carried
+    across them: 2, 2 and 4 parts).  Exact equality only, not timed."""
+    for n, m, k in [(1, 1, 1), (5, 3, 33), (65, 4, 64), (129, 7, 100), (300, 64, 182),
+                    (200, 3, 300), (150, 2, 700), (200, 2, 1600), (3000, 2, 2600),
+                    (2500, 3, 5000)]:
+        def case(seed):
+            g = np.random.default_rng(seed)
+            sees = torch.as_tensor(g.random((n, n)) < np.sqrt(1.1 / k), device="cuda")
+            mt = torch.as_tensor(g.integers(-1, n + 3, (m, k)).astype(np.int32), device="cuda")
+            stake = torch.as_tensor(g.integers(1, 6, m).astype(np.int32), device="cuda")
+            return sees, mt, stake
+
+        def plain(*args):
+            return kernels.ssm_matrix_reference(*args, tot_stake=int(args[2].sum()))
+
+        args = mixed_case(case, plain, n * n)
+        compare("ssm_matrix", f"random N={n} M={m} K={k}",
+                kernels.ssm_matrix(*args, tot_stake=int(args[2].sum())), plain(*args),
+                failures, degenerate_ok=n == 1)
+
+
+def edge_stake(rng, m):
+    """``m`` positive int32 stakes on the card summing to ``INT32_MAX // 3``,
+    the largest total inside the envelope."""
+    tot = kernels.INT32_MAX // 3
+    w = rng.random(m) + 0.5
+    stake = np.floor(w / w.sum() * tot).astype(np.int64)
+    stake[0] += tot - stake.sum()
+    return torch.as_tensor(stake.astype(np.int32), device="cuda")
+
+
+def mixed_case(case, plain, outputs, tries=20):
+    """The first of ``case(seed)``'s argument tuples whose plain output is
+    neither all False nor all True (the first, when it has one output)."""
+    for seed in range(tries):
+        args = case(seed)
+        frac = float(plain(*args).float().mean())
+        if outputs == 1 or 0.0 < frac < 1.0:
+            break
+    return args
+
+
+def compare(kernel, label, got, want, failures, degenerate_ok=False):
+    """Exact equality of a kernel's output with its plain version's, and a
+    set fraction strictly between 0 and 1 unless ``degenerate_ok``."""
+    same = torch.equal(got, want)
+    frac = float(want.float().mean())
+    print(f"{kernel} {label}: equal {same}, set_frac {frac}", flush=True)
+    if not same:
+        failures.append(f"{kernel} {label}: kernel != plain version")
+    if not degenerate_ok:
+        check_degenerate(kernel, label, frac, failures)
 
 
 def check_ssm_matrix(packs, slabs, failures):
@@ -416,7 +544,8 @@ def check_ssm_matrix(packs, slabs, failures):
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         if not torch.equal(got, want):
             failures.append(f"ssm_matrix {label}: kernel != plain version")
-        ms = time_ms(lambda: kernels.ssm_matrix(sees, mt, stake, tot_stake=tot), 10)
+        call = lambda: kernels.ssm_matrix(sees, mt, stake, tot_stake=tot)  # noqa: E731
+        ms = time_ms(call, 10)
         plain_ms = time_ms(
             lambda: kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot), 3, 1
         )
@@ -429,25 +558,25 @@ def check_ssm_matrix(packs, slabs, failures):
         nbytes = 2 * n * valid + 4 * (n_members * k + n_members) + n * n
         bnd, by = bound_ms(nbytes, n * n * valid)
         row = {"case": label, "N": n, "M": n_members, "K": k,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "ms": ms, "host_us": host_us(call, 20),
+               "card_ms": card_ms(call, 10), "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by,
+               "ops_bound_int8_ms": ops_ms(n * n * valid, INT8_OPS_PER_S),
                "set_frac": float(want.float().mean())}
         print("ssm_matrix", json.dumps(row), flush=True)
         check_degenerate("ssm_matrix", label, row["set_frac"], failures)
         rows_out.append(row)
-    # small ragged shapes with random member tables: -1 slots and indices
-    # past N (clipped) mixed in; exact equality only, not timed
-    for n, m, k, dens in [(1, 1, 1, 0.5), (5, 3, 33, 0.5), (65, 4, 64, 0.3),
-                          (129, 7, 100, 0.2), (300, 64, 182, 0.05)]:
-        sees = torch.as_tensor(rng.random((n, n)) < dens, device="cuda")
-        mt = torch.as_tensor(rng.integers(-1, n + 3, (m, k)).astype(np.int32), device="cuda")
-        stake = torch.as_tensor(rng.integers(1, 6, m).astype(np.int32), device="cuda")
-        tot = int(stake.sum())
-        same = torch.equal(kernels.ssm_matrix(sees, mt, stake, tot_stake=tot),
-                           kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot))
-        print(f"ssm_matrix random N={n} M={m} K={k}: equal {same}", flush=True)
-        if not same:
-            failures.append(f"ssm_matrix random N={n} M={m} K={k}: kernel != plain version")
+
+    # the envelope's edge on the ragged slab: stakes summing to
+    # INT32_MAX // 3
+    edge = edge_stake(rng, N_MEMBERS)
+    sees = slabs["config3"][:1000, :1000].contiguous()
+    mt = torch.as_tensor(packs["config3"].member_table, device=sees.device)
+    tot = int(edge.sum())
+    compare("ssm_matrix", "envelope edge N=1000",
+            kernels.ssm_matrix(sees, mt, edge, tot_stake=tot),
+            kernels.ssm_matrix_reference(sees, mt, edge, tot_stake=tot), failures)
+
     return rows_out
 
 
@@ -840,7 +969,9 @@ def main() -> int:
     bmm_rows = check_bmm_or(gen, g_cap, failures)
     slabs = {name: sees_slab(packed) for name, packed in packs.items()}
     ssm_rows = check_ssm_block(packs, slabs, failures)
+    sweep_ssm_block(failures)
     matrix_rows = check_ssm_matrix(packs, slabs, failures)
+    sweep_ssm_matrix(failures)
     del slabs
     torch.cuda.empty_cache()
 
@@ -890,6 +1021,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            **({"ops_bound_int8_ms": row["ops_bound_int8_ms"]}
+               if "ops_bound_int8_ms" in row else {}),
             "library_ms": library_ms, "shapes": rows,
         }
 

@@ -172,3 +172,27 @@ def test_ssm_block_rejects_bad_inputs():
         kernels.ssm_block(sees, mt, stake[:1], cols, 0, rows=8, tot_stake=2)
     with pytest.raises(ValueError):
         kernels.ssm_block(sees, mt, stake, cols, 0, rows=9, tot_stake=2)
+
+
+@pytest.mark.parametrize("name", ["ssm_block", "ssm_matrix"])
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch, name):
+    """An edited shared header (``csrc/*.cuh``) changes every library's
+    build key, so no stale library is loaded after it."""
+    import shutil
+
+    from tpu_swirld_torch.gpu import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    if not headers:
+        headers = [csrc / "probe.cuh"]
+        headers[0].write_text("// probe\n")
+    before = build.library_path(name)
+    assert build.library_path(name) == before
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    edited = build.library_path(name)
+    assert edited != before
+    (csrc / "another.cuh").write_text("// a new header\n")
+    assert build.library_path(name) not in (before, edited)

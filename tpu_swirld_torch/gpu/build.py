@@ -2,9 +2,9 @@
 ``ctypes``.
 
 Each source is compiled on first use into a shared library with a plain C
-interface, in ``_build/`` beside this file, keyed by a hash of the source
-and the flags, so an edited kernel is rebuilt and an unchanged one is
-loaded as it is.  A failed build raises: nothing falls back to a plain
+interface, in ``_build/`` beside this file, keyed by a hash of the source,
+every shared header (``csrc/*.cuh``) and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is loaded as it is.  A failed build raises: nothing falls back to a plain
 version.  :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
@@ -39,9 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:

@@ -347,7 +347,7 @@ class IncrementalConsensus:
         )
         self.stages = StageClock(self.device)
         self._stake = np.asarray(stake, dtype=np.int32)
-        self._tot = int(self._stake.sum())
+        self._tot = kernels.check_stake_envelope(self._stake.sum())
         self._m = len(members)
 
         # global committed outputs (amortized-growth buffers)

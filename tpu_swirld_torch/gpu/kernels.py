@@ -24,7 +24,9 @@ Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
 only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
 counts the kernel launches (plain-version calls do not count), so a run can
-show that it went through the kernel.
+show that it went through the kernel.  The wrappers that take ``tot_stake``
+raise ``ValueError`` outside the int32 stake envelope
+(:func:`check_stake_envelope`), on either device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import torch
 
 from tpu_swirld_torch.gpu import build
 
+INT32_MAX = int(torch.iinfo(torch.int32).max)
+
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGTYPES = {
@@ -45,12 +49,10 @@ _ARGTYPES = {
         _VP, _VP, _VP, _VP,
     ],
     "ssm_block_launch": [
-        _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _INT,
-        ctypes.c_longlong, _VP, _VP, _VP, _VP,
+        _VP, _INT, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _INT, _INT, _VP,
+        _VP, _VP,
     ],
-    "ssm_matrix_launch": [
-        _VP, _INT, _VP, _INT, _INT, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP,
-    ],
+    "ssm_matrix_launch": [_VP, _INT, _VP, _INT, _INT, _VP, _INT, _VP, _VP, _VP, _VP],
 }
 
 
@@ -84,6 +86,21 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors only")
     return False
+
+
+def check_stake_envelope(tot_stake) -> int:
+    """``tot_stake`` as an int, once it lies inside the int32 envelope
+    ``3 * tot_stake <= INT32_MAX`` of the reference's scale audit.  Every
+    stake tally is at most the total, so inside it no int32 tally wraps and
+    ``3 * acc > 2 * tot`` is exact in int32, as the reference computes it.
+    Raises ``ValueError`` outside it."""
+    tot = int(tot_stake)
+    if 3 * tot > INT32_MAX:
+        raise ValueError(
+            f"total stake {tot} is outside the int32 stake envelope "
+            f"3 * tot_stake <= {INT32_MAX} (tot_stake <= {INT32_MAX // 3})"
+        )
+    return tot
 
 
 def _raise_on(err: int, what: str):
@@ -138,6 +155,13 @@ bmm_or.launches = 0
 # --------------------------------------------------------------- ssm_block
 
 
+def _packed_words(n_members: int, k: int) -> int:
+    """Packed words of one row or column of the strongly-sees kernels: each
+    member's K slots padded to whole 256-bit k-steps of the binary MMA,
+    ``M * 8 * ceil(K / 256)``."""
+    return n_members * 8 * ((k + 255) // 256)
+
+
 def slice_start(start: int, size: int, n: int) -> int:
     """The start of a ``size``-long slice of an ``n``-long axis as
     ``lax.dynamic_slice`` / ``dynamic_update_slice`` take it: a negative
@@ -180,8 +204,9 @@ def ssm_block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
     """Strongly-sees block for rows ``[row0, row0 + rows)`` x columns
     ``cols`` (the ``ssm_block_fn`` seam of ``_columns_pass``).  ``sees`` is
     bool ``(n, n)``, ``member_table`` int32 ``(M, K)`` and ``cols`` int32
-    ``(C,)`` with -1 meaning invalid, ``stake`` int32 ``(M,)``.  Returns bool
-    ``(rows, C)``."""
+    ``(C,)`` with -1 meaning invalid, ``stake`` int32 ``(M,)`` summing to
+    ``tot_stake``.  Returns bool ``(rows, C)``; on the card two launches and
+    one scratch allocation besides the output."""
     _check(sees, "sees", torch.bool, 2)
     _check(member_table, "member_table", torch.int32, 2)
     _check(stake, "stake", torch.int32, 1)
@@ -196,21 +221,21 @@ def ssm_block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
     if min(n_members, k, c) < 1:
         raise ValueError("ssm_block: empty member table or column batch")
     row0 = slice_start(row0, rows, n)
+    tot_stake = check_stake_envelope(tot_stake)
     if _on_cpu(sees, member_table, stake, cols):
         return ssm_block_reference(
             sees, member_table, stake, cols, row0, rows=rows,
             tot_stake=tot_stake,
         )
-    nw = (k + 31) // 32
     dev = sees.device
-    a_bits = torch.empty((rows, n_members, nw), dtype=torch.int32, device=dev)
-    b_bits = torch.empty((c, n_members, nw), dtype=torch.int32, device=dev)
+    # the one scratch buffer: the packed b words, one row a column
+    b_bits = torch.empty((c, _packed_words(n_members, k)), dtype=torch.int32, device=dev)
     out = torch.empty((rows, c), dtype=torch.bool, device=dev)
     err = _launch(
         dev, _c_function("ssm_block", "ssm_block_launch"),
         sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
-        stake.data_ptr(), cols.data_ptr(), c, row0, rows, int(tot_stake),
-        a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(),
+        stake.data_ptr(), cols.data_ptr(), c, row0, rows, tot_stake,
+        b_bits.data_ptr(), out.data_ptr(),
     )
     _raise_on(err, "ssm_block")
     ssm_block.launches += 1
@@ -244,7 +269,9 @@ def ssm_matrix(sees, member_table, stake, *, tot_stake):
     ``out[x, y]`` is True when members holding a strict 2/3 of the stake
     each have an event z with sees(x, z) and sees(z, y).  ``sees`` is bool
     ``(n, n)``, ``member_table`` int32 ``(M, K)`` with -1 meaning empty,
-    ``stake`` int32 ``(M,)``.  Returns bool ``(n, n)``."""
+    ``stake`` int32 ``(M,)`` summing to ``tot_stake``.  Returns bool ``(n,
+    n)``; on the card two launches (the pack, then a binary tensor-core
+    product) and one scratch allocation besides the output."""
     _check(sees, "sees", torch.bool, 2)
     _check(member_table, "member_table", torch.int32, 2)
     _check(stake, "stake", torch.int32, 1)
@@ -256,18 +283,18 @@ def ssm_matrix(sees, member_table, stake, *, tot_stake):
         raise ValueError("ssm_matrix: stake and member_table disagree on M")
     if min(n, n_members, k) < 1:
         raise ValueError("ssm_matrix: empty sees or member table")
+    tot_stake = check_stake_envelope(tot_stake)
     if _on_cpu(sees, member_table, stake):
         return ssm_matrix_reference(sees, member_table, stake, tot_stake=tot_stake)
-    nq = n_members * ((k + 31) // 32)
+    # the one scratch buffer: a_bits then b_bits, one row an event each
     dev = sees.device
-    a_bits = torch.empty((n, nq), dtype=torch.int32, device=dev)
-    b_t = torch.empty((nq, n), dtype=torch.int32, device=dev)
+    bits = torch.empty((2, n, _packed_words(n_members, k)), dtype=torch.int32, device=dev)
     out = torch.empty((n, n), dtype=torch.bool, device=dev)
     err = _launch(
         dev, _c_function("ssm_matrix", "ssm_matrix_launch"),
         sees.data_ptr(), n, member_table.data_ptr(), n_members, k,
-        stake.data_ptr(), int(tot_stake), a_bits.data_ptr(),
-        b_t.data_ptr(), out.data_ptr(),
+        stake.data_ptr(), tot_stake, bits[0].data_ptr(), bits[1].data_ptr(),
+        out.data_ptr(),
     )
     _raise_on(err, "ssm_matrix")
     ssm_matrix.launches += 1

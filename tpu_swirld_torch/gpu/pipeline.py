@@ -50,7 +50,7 @@ from tpu_swirld_torch.device import StageClock, resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
 from tpu_swirld_torch.packing import PackedDAG
 
-INT32_MAX = int(np.iinfo(np.int32).max)
+INT32_MAX = kernels.INT32_MAX
 
 # Witness-table overflow bitmask: a witness landed outside the retained
 # round window (OVF_ROUND) / a round's witness slots were exhausted
@@ -647,7 +647,7 @@ def prepare_inputs(
         "n_valid": np.int32(n),
     }
     statics = {
-        "tot_stake": int(packed.stake.sum()),
+        "tot_stake": kernels.check_stake_envelope(packed.stake.sum()),
         "coin_period": config.coin_period,
         "block": block,
         "r_max": r_max,

@@ -149,6 +149,7 @@ def _row_sharded_block_fn(mesh: Mesh, shard_tally, *, every_shard: bool):
     d = mesh.size
 
     def block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
+        tot_stake = kernels.check_stake_envelope(tot_stake)
         n = sees.shape[0]
         if _canonical(sees.device) != mesh.device:
             raise ValueError(
@@ -182,7 +183,7 @@ def _row_sharded_block_fn(mesh: Mesh, shard_tally, *, every_shard: bool):
             for s, s_loc in enumerate(shards)
             if every_shard or -rows < row0c - s * n_loc < n_loc
         ])
-        return (3 * acc.to(torch.int64) > 2 * int(tot_stake)) & cv[None, :]
+        return (3 * acc > 2 * tot_stake) & cv[None, :]
 
     return block
 
