@@ -83,9 +83,36 @@
    summed threshold non-degenerate and equal to ``ssm_block``'s, with
    ``host_us`` and ``card_ms`` as for ``bmm_or``; a member
    hop ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
-10. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
-   by path: batch paths, incremental, streaming, widen, mesh), the card's
-   name and power limit, then ``{"ok": true, ...}`` as the last line.
+10. The member-sharded batch path on configs 3 and 4: ``run_consensus(
+   mesh=make_mesh(MESH_SHARDS), device="cuda")`` (the strongly-sees matrix
+   split over the member axis, one ``ssm_tally`` launch a shard an attempt;
+   a warm-up run, then a measured one): digests golden, ``ssm_tally``
+   launched exactly ``MESH_SHARDS`` times an attempt, ``ssm_matrix`` and
+   ``ssm_block`` not, ``bmm_or`` launched; events/s and stage seconds.  Then
+   ``ssm_matrix_sharded`` alone at 2 and 4 shards on the config-4 slab with
+   non-uniform stake, exact against ``kernels.ssm_matrix`` and
+   ``ssm_matrix_reference`` and non-degenerate, timed beside
+   ``ssm_matrix``; ``ssm_tally`` alone at one member shard's N x N shape
+   (shard 0 of 2), exact against ``ssm_tally_reference``; and
+   ``make_ssm_block_fn_for_mesh(make_mesh(2))`` at the extension shape
+   (1024 rows at row 4096 x 256 columns, config-3 slab), exact against
+   ``ssm_block``.
+11. The live node: the port's ``make_simulation(64, seed=LIVE_SEED)`` under
+   the simulation signer.  Node 0 is ``backend="tpu"`` (the reference's
+   ``block_size``, ``tpu_min_batch`` ``LIVE_MIN_BATCH``), so its consensus
+   passes run ``run_consensus`` on the card through the ``TorchEngine`` its
+   first pass builds; the 63 peers gossip and run no pass (see
+   :func:`live_simulation`).  Gossip until node 0 holds 10 000 events
+   (``LIVE_NODES``), then ``flush()``: node 0's digests must be golden (the JAX
+   reference's ``run_consensus`` on the same node's DAG), its state must
+   equal the port's own ``run_consensus(pack_node(node), device="cuda")``,
+   ``bmm_or`` and ``ssm_block`` launched and ``ssm_matrix`` not.  Prints
+   every pass (events, seconds).  Then a ``mesh_shape={"members": 2}`` node
+   at 3 000 events: digests golden, ``ssm_tally`` launched.
+12. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+   by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
+   live node), the card's name and power limit, then ``{"ok": true, ...}``
+   as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -96,6 +123,7 @@ from __future__ import annotations
 import hashlib
 import json
 import struct
+import dataclasses
 import subprocess
 import sys
 import time
@@ -104,13 +132,14 @@ import numpy as np
 import torch
 
 from tpu_swirld_torch import (
-    IncrementalConsensus, MeshStreamingConsensus, StreamingConsensus, make_mesh,
+    IncrementalConsensus, MeshStreamingConsensus, StreamingConsensus, crypto,
+    make_mesh, make_simulation, make_ssm_block_fn_for_mesh, ssm_matrix_sharded,
 )
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
-from tpu_swirld_torch.packing import pack_events
+from tpu_swirld_torch.packing import pack_events, pack_node
 from tpu_swirld_torch.sim import generate_gossip_dag
 
 N_MEMBERS = 64
@@ -189,7 +218,46 @@ KERNEL_INFO = {
 }
 MESH_SHARDS = 2
 STALE_OTHER_PARENT = 100        # tests/test_store.py's long-pruned events[100]
+
+# The live node (phase 11): node 0 of a 64-member gossip simulation.
+LIVE_SEED = 1
+LIVE_MIN_BATCH = 2000           # node 0's tpu_min_batch: a pass per ~2000 events
+# live node label -> (events node 0 gossips up to, tpu_min_batch, mesh_shape)
+LIVE_NODES = {
+    "columns node": (10_000, LIVE_MIN_BATCH, None),
+    # the mesh node's depth is cut to 3 000 events: its full-matrix passes
+    # repeat the whole DAG's rounds scan, and phase 10 holds the same path
+    # at 10 000
+    "mesh_shape node": (3_000, 1000, {"members": MESH_SHARDS}),
+}
+# Digests of the JAX reference (tpu_swirld.tpu.pipeline.run_consensus(
+# pack_node(node 0)) on the CPU, sim signer) after the reference's
+# make_simulation(64, seed=LIVE_SEED) gossips, turn for turn as
+# gossip_until does, until node 0 holds the label's events; recomputed by
+# tests/test_torch_backend.py::test_live_golden_digests_match_reference.
+LIVE_GOLDEN = {
+    "columns node": {
+        "turns": 10269, "events": 10051,
+        "order": "4ac75e18e4fc2ecd3c974a2046b69c4d359b5abdece4cc570b81ef362f764db9",
+        "round": "7434358839f5e34c956f959811e2193704c34abd1d5ace197dde78fcc69a9a24",
+        "famous": "0ffadfb5e88a68be4961b39a083494dffcb8a699ebae2ae8173867606ac0707b",
+        "round_received": "319680840b6cc35e8893fc8506cc02f579a256112793d5e3de5e1cd98119bc91",
+    },
+    "mesh_shape node": {
+        "turns": 3215, "events": 3039,
+        "order": "82c2d6512fea210f35167ee20dbef6454abda8a200318240d5ecd8e052f03299",
+        "round": "72bacf3fd77c2acdb168897a19d0999c597903af2ab26755f3e4d928265ece7b",
+        "famous": "fa2a0450d345194afccae8cab68b896eebe4f73fd5d3ec1380061db9d8dc9d1e",
+        "round_received": "4684e12405d4479e21f2707d544c4c28a7cd8f1b542810e1abc320e23d468900",
+    },
+}
 KERNELS = {name: getattr(kernels, name) for name in KERNEL_INFO}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def result_digests(packed, result) -> dict:
@@ -589,8 +657,7 @@ def run_main_path(name, packed, path, failures):
     cfg = SwirldConfig(n_members=N_MEMBERS)
     if warm:
         run_consensus(packed, cfg, device="cuda", **kw)
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = run_consensus(packed, cfg, device="cuda", **kw)
@@ -636,8 +703,7 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
     _members, _stake, events, packed, _keys = dag
     name = label.split()[0]
     tag = f"{kind} {label}"
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     ordered, passes = [], []
     for i in range(0, len(events), INC_CHUNK):
         launches0 = {k: fn.launches for k, fn in KERNELS.items()}
@@ -746,8 +812,7 @@ def run_widen(inc, dag, failures):
     fetched0 = inc.store.archive.fetched_rows
     lo0 = inc.pruned_prefix
     seconds0 = dict(inc.stages.seconds)
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = inc.ingest([strag])
@@ -935,6 +1000,283 @@ def check_mesh_block(packed, failures):
     return rows_out, tally_row, hop
 
 
+def run_mesh_batch(name, packed, failures):
+    """Phase 10: the member-sharded batch path, ``MESH_SHARDS`` member
+    shards on one card.  Returns the measured run's kernel launches."""
+    label = f"mesh batch {name}"
+    cfg = SwirldConfig(n_members=N_MEMBERS)
+    mesh = make_mesh(MESH_SHARDS)
+    run_consensus(packed, cfg, mesh=mesh, device="cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = run_consensus(packed, cfg, mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    timings = dict(result.timings)
+    stage_seconds = timings.pop("stage_seconds")
+    stage_calls = timings.pop("stage_calls")
+    print(f"{label}: {packed.n / wall} events/s ({wall} s), ordered "
+          f"{len(result.order)}, max_round {result.max_round}", flush=True)
+    print(f"{label}: timings {json.dumps(timings)}", flush=True)
+    print(f"{label}: stage seconds {json.dumps(stage_seconds)}", flush=True)
+    print(f"{label}: stage calls {json.dumps(stage_calls)}", flush=True)
+    print(f"{label}: launches {json.dumps(launches)}", flush=True)
+    attempts = 1 + timings["overflow_retries"]
+    if launches["ssm_tally"] != MESH_SHARDS * attempts:
+        failures.append(f"{label}: {launches['ssm_tally']} ssm_tally launches for "
+                        f"{attempts} attempts of {MESH_SHARDS} shards")
+    if launches["bmm_or"] <= 0:
+        failures.append(f"{label}: bmm_or was not launched")
+    for kname in ("ssm_matrix", "ssm_block", "make_mesh_row_block_fn"):
+        if launches[kname] != 0:
+            failures.append(f"{label}: {kname} launched {launches[kname]} times")
+    digests = result_digests(packed, result)
+    print(f"{label}: digests {json.dumps(digests)}", flush=True)
+    for key, want in GOLDEN[name].items():
+        if digests[key] != want:
+            failures.append(f"{label}: {key} digest {digests[key]} != golden {want}")
+    return launches
+
+
+def check_member_sharded(packs, failures):
+    """Phase 10, the kernels alone: ``ssm_matrix_sharded`` at 2 and 4 member
+    shards on the config-4 slab (non-uniform stake) against ``ssm_matrix``
+    and ``ssm_matrix_reference``; ``ssm_tally`` at one member shard's N x N
+    shape; ``make_ssm_block_fn_for_mesh(make_mesh(2))`` at the extension
+    shape on the config-3 slab against ``ssm_block``.  Returns the rows."""
+    rng = np.random.default_rng(SEED)
+    stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
+    tot = int(stake_np.sum())
+    packed = packs["config4"]
+    sees = sees_slab(packed)
+    dev = sees.device
+    n = sees.shape[0]
+    mt = torch.as_tensor(packed.member_table, device=dev)
+    stake = torch.as_tensor(stake_np, device=dev)
+    n_members, k = packed.member_table.shape
+    valid = int((packed.member_table >= 0).sum())
+    want = kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot)
+    plain_ms = time_ms(lambda: kernels.ssm_matrix_reference(sees, mt, stake, tot_stake=tot), 3, 1)
+    matrix = lambda: kernels.ssm_matrix(sees, mt, stake, tot_stake=tot)  # noqa: E731
+    single = matrix()
+    matrix_ms = time_ms(matrix, 10)
+    if not torch.equal(single, want):
+        failures.append("ssm_matrix config4 N=10112: kernel != plain version")
+    rows = []
+    for d in (2, 4):
+        mesh = make_mesh(d)
+        call = lambda: ssm_matrix_sharded(sees, mt, stake, tot, mesh=mesh)  # noqa: E731
+        tally0 = kernels.ssm_tally.launches
+        got = call()
+        torch.cuda.synchronize()
+        per_call = kernels.ssm_tally.launches - tally0
+        label = f"ssm_matrix_sharded D={d} config4 N={n}, stake 1-5"
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if not torch.equal(got, want) or not torch.equal(got, single):
+            failures.append(f"{label}: != ssm_matrix / plain version")
+        if per_call != d:
+            failures.append(f"{label}: {per_call} ssm_tally launches a call")
+        # each needed sees byte read once (a side: n x valid slots; b side:
+        # the gathered valid slots x n), the indices and stake, D int32
+        # tallies written and read back by the sum, the bool output; one
+        # AND-product per (row, column, valid slot)
+        nbytes = 2 * n * valid + 4 * (n_members * k + n_members) + 2 * d * 4 * n * n + n * n
+        bnd, by = bound_ms(nbytes, n * n * valid)
+        row = {"case": label, "shards": d, "N": n, "M": n_members, "K": k,
+               "max_abs_err": err, "ms": time_ms(call, 5), "host_us": host_us(call, 10),
+               "card_ms": card_ms(call, 5), "ssm_matrix_ms": matrix_ms,
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "launches_per_call": per_call,
+               "set_frac": float(want.float().mean())}
+        print("ssm_matrix_sharded", json.dumps(row), flush=True)
+        check_degenerate("ssm_matrix_sharded", label, row["set_frac"], failures)
+        rows.append(row)
+    del want, single
+    torch.cuda.empty_cache()
+
+    # one member shard's tally alone: shard 0 of 2, all N rows x N columns
+    m_loc = n_members // 2
+    mt0, stake0 = mt[:m_loc].contiguous(), stake[:m_loc].contiguous()
+    idx = mt0.reshape(-1)
+    b = (sees[idx.clamp(0, n - 1)] & (idx >= 0)[:, None]).contiguous()
+    args = (sees, mt0, stake0, b, 0)
+    got = kernels.ssm_tally(*args, rows=n)
+    want = kernels.ssm_tally_reference(*args, rows=n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        failures.append("ssm_tally member shard 0 of 2, N x N: kernel != plain version")
+    valid0 = int((packed.member_table[:m_loc] >= 0).sum())
+    nbytes = 2 * n * valid0 + 4 * (m_loc * k + m_loc) + 4 * n * n
+    bnd, by = bound_ms(nbytes, n * n * valid0)
+    tally_row = {
+        "case": f"member shard 0 of 2: rows={n},C={n} (config4, {m_loc} members)",
+        "max_abs_err": int((got - want).abs().max()),
+        "ms": time_ms(lambda: kernels.ssm_tally(*args, rows=n), 5),
+        "host_us": host_us(lambda: kernels.ssm_tally(*args, rows=n), 10),
+        "card_ms": card_ms(lambda: kernels.ssm_tally(*args, rows=n), 5),
+        "plain_ms": time_ms(lambda: kernels.ssm_tally_reference(*args, rows=n), 3, 1),
+        "bound_ms": bnd, "bound_by": by,
+        "nonzero_frac": float((want != 0).float().mean()),
+    }
+    print("ssm_tally", json.dumps(tally_row), flush=True)
+    check_degenerate("ssm_tally", "member shard N x N", tally_row["nonzero_frac"], failures)
+    del got, want, b, sees
+    torch.cuda.empty_cache()
+
+    # the member-sharded block at the extension shape, config-3 slab
+    packed = packs["config3"]
+    sees = sees_slab(packed)
+    mt = torch.as_tensor(packed.member_table, device=dev)
+    cols_np = np.sort(rng.choice(np.arange(2048, 5120), 256, replace=False)).astype(np.int32)
+    cols = torch.as_tensor(cols_np, device=dev)
+    fn = make_ssm_block_fn_for_mesh(make_mesh(MESH_SHARDS))
+    kw = dict(rows=1024, tot_stake=tot)
+    tally0 = kernels.ssm_tally.launches
+    got = fn(sees, mt, stake, cols, 4096, **kw)
+    per_block = kernels.ssm_tally.launches - tally0
+    single = kernels.ssm_block(sees, mt, stake, cols, 4096, **kw)
+    torch.cuda.synchronize()
+    label = f"make_ssm_block_fn_for_mesh D={MESH_SHARDS} extension rows=1024,C=256"
+    if not torch.equal(got, single):
+        failures.append(f"{label}: != ssm_block")
+    if per_block != MESH_SHARDS:
+        failures.append(f"{label}: {per_block} ssm_tally launches a block")
+    valid = int((packed.member_table >= 0).sum())
+    n_members, k = packed.member_table.shape
+    # as ssm_block's bound: the work of one block
+    nbytes = 1024 * valid + valid * 256 + 4 * (n_members * k + 256 + n_members) + 1024 * 256
+    bnd, by = bound_ms(nbytes, 1024 * 256 * valid)
+    call = lambda: fn(sees, mt, stake, cols, 4096, **kw)  # noqa: E731
+    block_row = {
+        "case": label, "launches_per_block": per_block,
+        "max_abs_err": int((got.to(torch.int32) - single.to(torch.int32)).abs().max()),
+        "ms": time_ms(call, 20), "host_us": host_us(call, 50),
+        "ssm_block_ms": time_ms(lambda: kernels.ssm_block(sees, mt, stake, cols, 4096, **kw), 20),
+        "plain_ms": time_ms(
+            lambda: kernels.ssm_block_reference(sees, mt, stake, cols, 4096, **kw), 3, 1),
+        "bound_ms": bnd, "bound_by": by, "set_frac": float(single.float().mean()),
+    }
+    print("make_ssm_block_fn_for_mesh", json.dumps(block_row), flush=True)
+    check_degenerate("make_ssm_block_fn_for_mesh", label, block_row["set_frac"], failures)
+    return rows, tally_row, block_row
+
+
+def live_simulation(n_members, min_batch, mesh_shape):
+    """The port's gossip simulation of ``n_members`` nodes at ``LIVE_SEED``.
+    Node 0 runs ``backend="tpu"`` with ``tpu_min_batch`` ``min_batch`` (and
+    ``mesh_shape``), so its passes run on the card through the
+    ``TorchEngine`` its first pass builds.  The peers only gossip: they are
+    ``"tpu"`` nodes too, with a ``tpu_min_batch`` they never reach, so each
+    one's engine mirrors its store and never runs a pass.  The oracle's
+    Python passes on 63 peers would take the phase's whole time, and what a
+    peer serves depends on its store alone, not on its consensus state, so
+    the DAG is the one a population of oracle nodes gossips."""
+    sim = make_simulation(n_members, seed=LIVE_SEED)
+    base = sim.config
+    peers = dataclasses.replace(base, backend="tpu", tpu_min_batch=2**62)
+    for node in sim.nodes[1:]:
+        node.config = peers
+    sim.nodes[0].config = dataclasses.replace(
+        base, backend="tpu", tpu_min_batch=min_batch, mesh_shape=mesh_shape
+    )
+    return sim
+
+
+def gossip_until(sim, n_events, on_step=None):
+    """Gossip turns until node 0 holds ``n_events`` events; ``on_step(
+    seconds)`` after each turn.  Returns the turns."""
+    node, turns = sim.nodes[0], 0
+    while len(node.hg) < n_events:
+        t0 = time.perf_counter()
+        sim.step()
+        turns += 1
+        if on_step is not None:
+            on_step(time.perf_counter() - t0)
+    return turns
+
+
+def node_state_matches(node, packed, result) -> bool:
+    """Whether ``node``'s oracle-shaped state is ``result``'s on ``packed``."""
+    ids = packed.ids
+    return (
+        node.consensus == [ids[i] for i in result.order]
+        and node.round == {ids[i]: int(result.round[i]) for i in range(packed.n)}
+        and node.is_witness == {ids[i]: bool(result.is_witness[i]) for i in range(packed.n)}
+        and node.famous == {ids[i]: v for i, v in result.famous.items()}
+        and node.round_received == {ids[i]: int(result.round_received[i]) for i in result.order}
+        and node.consensus_ts == {ids[i]: int(result.consensus_ts[i]) for i in result.order}
+    )
+
+
+def run_live_node(label, failures):
+    """Phase 11: one live node (``LIVE_NODES[label]``).  Returns its kernel
+    launches over the gossip and the flush."""
+    n_events, min_batch, mesh_shape = LIVE_NODES[label]
+    tag = f"live {label}"
+    sim = live_simulation(N_MEMBERS, min_batch, mesh_shape)
+    node = sim.nodes[0]
+    passes = []
+
+    def on_step(seconds):
+        eng = node._tpu_engine
+        if eng is not None and eng.last_result is not None and (
+                not passes or passes[-1]["events"] != eng.last_result.n):
+            passes.append({"pass": len(passes), "events": eng.last_result.n,
+                           "new_events": eng.last_result.n - (passes[-1]["events"] if passes else 0),
+                           "step_seconds": seconds,
+                           "device_and_dispatch": eng.last_result.timings["device_and_dispatch"],
+                           "finalize_host": eng.last_result.timings["finalize_host"]})
+            print(f"{tag}: pass {json.dumps(passes[-1])}", flush=True)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    turns = gossip_until(sim, n_events, on_step)
+    t_gossip = time.perf_counter() - t0
+    eng = node._tpu_engine
+    t0 = time.perf_counter()
+    eng.flush()
+    torch.cuda.synchronize()
+    on_step(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    pass_seconds = sum(p["step_seconds"] for p in passes)
+    print(f"{tag}: {turns} turns, node 0 holds {len(node.hg)} events, "
+          f"{len(node.consensus)} ordered, {len(passes)} passes "
+          f"({pass_seconds} s in the steps that ran one; {t_gossip} s of gossip "
+          f"and passes); engine on {eng.device}, mesh {eng.mesh}", flush=True)
+    print(f"{tag}: launches {json.dumps(launches)}", flush=True)
+    golden = LIVE_GOLDEN[label]
+    if (turns, len(node.hg)) != (golden["turns"], golden["events"]):
+        failures.append(f"{tag}: {turns} turns / {len(node.hg)} events, golden "
+                        f"{golden['turns']} / {golden['events']}")
+    packed = eng.packer.pack()
+    digests = result_digests(packed, eng.last_result)
+    print(f"{tag}: digests {json.dumps(digests)}", flush=True)
+    for key, want in digests.items():
+        if want != golden[key]:
+            failures.append(f"{tag}: {key} digest {want} != golden {golden[key]}")
+    if not node_state_matches(node, packed, eng.last_result):
+        failures.append(f"{tag}: node state != its engine's last pass")
+    if len(node.consensus) == 0 or len(passes) < 2:
+        failures.append(f"{tag}: {len(node.consensus)} ordered in {len(passes)} passes")
+    if mesh_shape is None:
+        needs, never = ("bmm_or", "ssm_block"), ("ssm_matrix", "ssm_tally")
+        # the node's state against the port's own batch pass on its DAG
+        own = pack_node(node)
+        result = run_consensus(own, node.config, device="cuda")
+        if not node_state_matches(node, own, result):
+            failures.append(f"{tag}: node state != run_consensus(pack_node(node))")
+    else:
+        needs, never = ("bmm_or", "ssm_tally"), ("ssm_matrix", "ssm_block")
+    for kname in needs:
+        if launches[kname] <= 0:
+            failures.append(f"{tag}: kernel {kname} was not launched")
+    for kname in never:
+        if launches[kname] != 0:
+            failures.append(f"{tag}: kernel {kname} launched {launches[kname]} times")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -948,6 +1290,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     failures = []
     t_script = time.perf_counter()
+    # the golden digests were made under the simulation signer
+    crypto.set_backend("sim")
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -1005,12 +1349,20 @@ def main() -> int:
         )
     torch.cuda.empty_cache()
     mesh_rows, tally_row, hop_row = check_mesh_block(packs["config3"], failures)
+    torch.cuda.empty_cache()
+    launches["mesh_batch"] = {
+        name: run_mesh_batch(name, packed, failures) for name, packed in packs.items()
+    }
+    sharded_rows, member_tally_row, mesh_block_row = check_member_sharded(packs, failures)
+    torch.cuda.empty_cache()
+    launches["live_node"] = {label: run_live_node(label, failures) for label in LIVE_NODES}
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,
     # the config-4 matrix for ssm_matrix, the 2-shard extension block for
     # make_mesh_row_block_fn and one of its shards for ssm_tally (no single
-    # PyTorch call computes either)
+    # PyTorch call computes either); ssm_tally's shapes add one member
+    # shard's N x N tally and the two member-sharded routes over it
     def entry(name, row, rows, library_ms):
         by_path = {path: {cfg: counts[name] for cfg, counts in per.items()}
                    for path, per in launches.items()}
@@ -1031,7 +1383,8 @@ def main() -> int:
         entry("ssm_block", ssm_rows[0], ssm_rows, None),
         entry("ssm_matrix", matrix_rows[0], matrix_rows, None),
         entry("make_mesh_row_block_fn", mesh_rows[0], mesh_rows, None),
-        entry("ssm_tally", tally_row, [tally_row], None),
+        entry("ssm_tally", tally_row,
+              [tally_row, member_tally_row, *sharded_rows, mesh_block_row], None),
     ]}
     if failures:
         for f in failures:

@@ -18,6 +18,7 @@ from tpu_swirld.sim import generate_gossip_dag, make_simulation, run_with_forker
 from tpu_swirld.tpu import pipeline as ref
 from tpu_swirld.tpu.pallas_kernels import ssm_matrix_pallas
 from tpu_swirld_torch.gpu import kernels, pipeline
+from tpu_swirld_torch.parallel import make_mesh
 from tests.test_pipeline import assert_parity
 from tests.test_torch_kernels import _sees
 from tests.test_torch_pipeline import assert_same, carry_across, port_config, run_both
@@ -299,5 +300,10 @@ def test_mode_validation():
         pipeline.run_consensus(
             packed, ssm_mode="columns", use_pallas_ssm=True, device="cpu"
         )
+    mesh = make_mesh(2, device="cpu")
     with pytest.raises(NotImplementedError):
+        pipeline.run_consensus(packed, mesh=mesh, ssm_mode="columns", device="cpu")
+    with pytest.raises(NotImplementedError):
+        pipeline.run_consensus(packed, mesh=mesh, use_pallas_ssm=True, device="cpu")
+    with pytest.raises(ValueError):
         pipeline.run_consensus(packed, mesh=object(), ssm_mode="full", device="cpu")

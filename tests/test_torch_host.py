@@ -10,6 +10,7 @@ from tpu_swirld.config import SwirldConfig as RefConfig
 from tpu_swirld.packing import pack_events as ref_pack_events
 from tpu_swirld.sim import generate_gossip_dag as ref_generate
 from tpu_swirld.tpu import pipeline as ref
+from tpu_swirld_torch import crypto
 from tpu_swirld_torch.gpu import pipeline
 from tpu_swirld_torch.packing import pack_events, packed_from_arrays
 from tpu_swirld_torch.sim import generate_gossip_dag
@@ -20,14 +21,16 @@ FIELDS = ("parents", "creator", "seq", "t", "coin", "stake", "fork_pairs",
 
 @pytest.fixture
 def sim_signer():
-    """The reference's crypto backend set to the simulation signer, restored
-    afterwards (the port has no other signer)."""
-    prev = ref_crypto.backend_name()
+    """Both packages' crypto backends set to the simulation signer,
+    restored afterwards."""
+    prev = ref_crypto.backend_name(), crypto.backend_name()
     ref_crypto.set_backend("sim")
+    crypto.set_backend("sim")
     try:
         yield
     finally:
-        ref_crypto.set_backend(prev)
+        ref_crypto.set_backend(prev[0])
+        crypto.set_backend(prev[1])
 
 
 @pytest.mark.parametrize("n_forkers", [0, 2])

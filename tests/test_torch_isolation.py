@@ -45,6 +45,12 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 5
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {
+        "tpu_swirld_torch/backend.py", "tpu_swirld_torch/oracle/node.py",
+        "tpu_swirld_torch/oracle/graph.py", "tpu_swirld_torch/transport.py",
+        "tpu_swirld_torch/obs.py", "tpu_swirld_torch/sim.py",
+    } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files for m in _imported_modules(f) if _forbidden(m)
@@ -53,7 +59,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_import_leaves_jax_unloaded():
-    code = "import tpu_swirld_torch.gpu.pipeline, sys; assert 'jax' not in sys.modules"
+    code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, sys; "
+            "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 

@@ -142,7 +142,20 @@ def test_visibility_matches_reference():
 
 
 def test_mesh_still_raises():
+    """What the mesh path still refuses, as the reference does (the
+    member-sharded path itself: tests/test_torch_parallel.py)."""
+    from tpu_swirld_torch.parallel import Mesh, make_mesh
+
     members, stake, events, _keys = generate_gossip_dag(4, 40, seed=1)
     packed = carry_across(pack_events(events, members, stake))
-    with pytest.raises(NotImplementedError):
+    mesh = make_mesh(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="use_pallas_ssm"):
+        pipeline.run_consensus(packed, device="cpu", mesh=mesh, use_pallas_ssm=True)
+    with pytest.raises(NotImplementedError, match="columns"):
+        pipeline.run_consensus(packed, device="cpu", mesh=mesh, ssm_mode="columns")
+    with pytest.raises(ValueError, match="Mesh"):
         pipeline.run_consensus(packed, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="mesh's shards"):
+        pipeline.run_consensus(packed, device="cpu", mesh=Mesh((torch.device("meta"),)))
+    with pytest.raises(ValueError, match="several devices"):
+        Mesh((torch.device("cuda", 0), torch.device("cuda", 1)))

@@ -6,7 +6,7 @@ is the counterpart of ``tpu_swirld/tpu/pipeline.py::_columns_pass``) and
 produces bit-identical consensus outputs on the same packed DAG.  It imports
 ``torch`` and numpy only, never ``jax`` and never a module of
 :mod:`tpu_swirld`; the host layers it needs (crypto, event, config, packing,
-sim) are its own copies.
+sim, transport, the oracle node) are its own copies.
 
 :func:`tpu_swirld_torch.gpu.pipeline.run_consensus` runs both batch paths
 of the reference: the column-restricted default (strongly-sees columns for
@@ -26,7 +26,16 @@ driver's device memory by the undecided window: decided rows retire into a
 compressed host archive, and a delta naming pruned history widens the
 window back by re-fetching archived rows.  :class:`MeshStreamingConsensus`
 (``tpu_swirld_torch.parallel``) row-shards that window over a mesh of
-shards on one device.
+shards on one device; ``run_consensus(mesh=)`` splits the strongly-sees
+matrix over the member axis instead (:func:`ssm_matrix_sharded`,
+:func:`make_ssm_block_fn_for_mesh`, :func:`consensus_fn_for_mesh`).
+
+:class:`Node` (``tpu_swirld_torch.oracle``) is a live gossip member, the
+pure-Python consensus oracle with the reference's wire format, and
+:func:`make_simulation` (``tpu_swirld_torch.sim``) a population of them in
+one process.  A node whose ``config.backend`` is ``"tpu"`` runs its
+consensus passes on the card through :class:`TorchEngine`
+(``tpu_swirld_torch.backend``).
 
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
@@ -35,13 +44,19 @@ boolean hops run through the hand-written kernels of
 plain PyTorch versions.
 """
 
+from tpu_swirld_torch.backend import TorchEngine  # noqa: E402
 from tpu_swirld_torch.gpu.incremental import IncrementalConsensus  # noqa: E402
+from tpu_swirld_torch.oracle import Node  # noqa: E402
 from tpu_swirld_torch.parallel import (  # noqa: E402
     Mesh,
     MeshStreamingConsensus,
+    consensus_fn_for_mesh,
     make_mesh,
+    make_ssm_block_fn_for_mesh,
+    ssm_matrix_sharded,
     streaming_consensus_for_mesh,
 )
+from tpu_swirld_torch.sim import make_simulation  # noqa: E402
 from tpu_swirld_torch.store import (  # noqa: E402
     SlabArchive,
     SlabStore,
@@ -53,10 +68,16 @@ __all__ = [
     "IncrementalConsensus",
     "Mesh",
     "MeshStreamingConsensus",
+    "Node",
     "SlabArchive",
     "SlabStore",
     "StreamingConsensus",
     "TileBudgetExceeded",
+    "TorchEngine",
+    "consensus_fn_for_mesh",
     "make_mesh",
+    "make_simulation",
+    "make_ssm_block_fn_for_mesh",
+    "ssm_matrix_sharded",
     "streaming_consensus_for_mesh",
 ]

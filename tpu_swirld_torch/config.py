@@ -1,6 +1,7 @@
 """Protocol parameters the port reads (the subset of the reference's
-``tpu_swirld/config.py::SwirldConfig`` that the batch pipeline and the
-incremental and streaming drivers use, with the same defaults).
+``tpu_swirld/config.py::SwirldConfig`` that the batch pipeline, the
+incremental and streaming drivers, the ``Node``, its ``TorchEngine`` and the
+gossip simulation use, with the same names and defaults).
 
 The streaming and archive knobs resolve as the reference's do: an explicit
 ``SwirldConfig`` field wins, then the ``SWIRLD_*`` environment variable,
@@ -84,6 +85,28 @@ class SwirldConfig:
       decode_overlap: the streaming driver's gossip-decode worker on or off
         (results are identical either way).
       decode_queue_depth: chunks the decode worker runs ahead.
+      backend: the ``Node``'s consensus engine: ``"python"`` (the oracle) or
+        ``"tpu"``, the reference's name for the device engine, which in this
+        package is :class:`~tpu_swirld_torch.backend.TorchEngine` on the
+        card.  Keeping the name makes one config mean the same in both
+        packages.
+      mesh_shape: ``{axis_name: size}``; for a ``"tpu"`` node, the product
+        of the sizes is the number of member shards of its strongly-sees
+        matrix, all on the engine's one device; ``None``: no mesh.
+      block_size: event-block tile of the ancestry closure of a node pass.
+      tpu_min_batch: least new events a ``"tpu"`` node's engine waits for
+        before a pass (the output is the same, computed later).
+      max_orphans, max_orphan_bytes: the orphan buffer's count and byte
+        budgets (events parked for a missing parent).
+      max_want_rounds: want-list round trips per sync.
+      want_ancestor_depth: self-ancestors shipped per wanted event.
+      retry_attempts, retry_backoff, retry_backoff_cap, retry_jitter,
+        retry_deadline: the gossip retry policy, in logical ticks.
+      breaker_failures, breaker_misbehavior, breaker_cooldown: the
+        per-peer circuit breaker's thresholds and cooldown.
+      max_reply_bytes, max_reply_events: caps on a sync or want reply.
+      quarantine_forkers: a detected equivocator opens its breaker at once.
+      max_fork_branches: branch tails walked per forked creator per reply.
 
     Every ``None`` field resolves as :func:`resolve_archive_settings` /
     :func:`resolve_stream_settings` say.
@@ -100,3 +123,33 @@ class SwirldConfig:
     fuse_chunks: Optional[int] = None
     decode_overlap: Optional[bool] = None
     decode_queue_depth: Optional[int] = None
+    backend: str = "python"
+    mesh_shape: Optional[Dict[str, int]] = None
+    block_size: int = 256
+    tpu_min_batch: int = 1
+    max_orphans: int = 4096
+    max_orphan_bytes: int = 8 << 20
+    max_want_rounds: int = 32
+    want_ancestor_depth: int = 64
+    retry_attempts: int = 3
+    retry_backoff: float = 1.0
+    retry_backoff_cap: float = 8.0
+    retry_jitter: float = 0.5
+    retry_deadline: float = 16.0
+    breaker_failures: int = 4
+    breaker_misbehavior: int = 12
+    breaker_cooldown: float = 24.0
+    max_reply_bytes: int = 1 << 24
+    max_reply_events: int = 65536
+    quarantine_forkers: bool = False
+    max_fork_branches: int = 8
+
+    def stakes(self) -> Tuple[int, ...]:
+        if self.stake is not None:
+            if len(self.stake) != self.n_members:
+                raise ValueError(
+                    f"stake has {len(self.stake)} entries for "
+                    f"{self.n_members} members"
+                )
+            return tuple(int(s) for s in self.stake)
+        return tuple(1 for _ in range(self.n_members))

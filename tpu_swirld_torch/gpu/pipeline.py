@@ -551,18 +551,23 @@ def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
 
 def consensus_body(parents, creator, t_rank, coin, stake, fork_pairs,
                    member_table, n_valid, *, tot_stake, coin_period, block,
-                   r_max, s_max, chain, has_forks, ssm_fn=None):
+                   r_max, s_max, chain, has_forks, ssm_fn=None, stages=None):
     """End-to-end device consensus: packed arrays -> all consensus outputs.
     :func:`rounds_body` + :func:`fame_order_body` over one round window, the
-    counterpart of the reference's fused ``consensus_arrays``.
-    :func:`run_consensus` instead runs the two stages apart so the second
-    can take a tight ``r_max``."""
+    counterpart of the reference's fused ``consensus_arrays``; the mesh
+    path runs it with a member-sharded ``ssm_fn``
+    (:func:`~tpu_swirld_torch.parallel.consensus_fn_for_mesh`), the
+    single-device full path runs the two stages apart so the second can
+    take a tight ``r_max``.  Each phase runs as one stage of ``stages`` (a
+    :class:`StageClock`; a fresh one when None)."""
+    stages = stages or StageClock(parents.device)
     a = rounds_body(
         parents, creator, stake, fork_pairs, member_table, n_valid,
         tot_stake=tot_stake, block=block, r_max=r_max, s_max=s_max,
-        has_forks=has_forks, ssm_fn=ssm_fn,
+        has_forks=has_forks, ssm_fn=ssm_fn, stages=stages,
     )
-    b = fame_order_body(
+    b = stages.stage_call(
+        "pipeline.fame_order_stage", fame_order_body,
         a["anc"], a["sees"], a["ssm"], a["wit_table"], a["wit_count"],
         creator, coin, stake, parents[:, 0], t_rank, a["max_round"], n_valid,
         tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
@@ -710,23 +715,42 @@ def run_consensus(
     full-matrix kernel: it implies ``"full"``, and on a CUDA device both
     full forms launch the hand-written ``ssm_matrix`` kernel.  ``device``
     defaults to ``"cuda"`` and raises when no GPU is present; pass
-    ``device="cpu"`` for the plain PyTorch versions on the CPU.  The mesh
-    path is not ported yet and raises ``NotImplementedError``.
+    ``device="cpu"`` for the plain PyTorch versions on the CPU.
+
+    ``mesh`` (:func:`~tpu_swirld_torch.parallel.make_mesh`, its shards on
+    ``device``) runs the full-matrix path with the strongly-sees matrix
+    member-sharded over it (:func:`_run_consensus_mesh`); it does not combine
+    with ``use_pallas_ssm`` or ``ssm_mode="columns"`` (as in the reference,
+    ``NotImplementedError``), and a mesh that is not the port's ``Mesh``, or
+    whose device is not ``device``, raises ``ValueError``.
     """
     if ssm_mode not in (None, "columns", "full"):
         raise ValueError(f"unknown ssm_mode {ssm_mode!r}")
-    if mesh is not None:
+    if mesh is not None and use_pallas_ssm:
         raise NotImplementedError(
-            "the mesh path is not ported yet (ROADMAP A8, mesh drivers)"
+            "use_pallas_ssm is not routed through the mesh path; run one or "
+            "the other"
         )
-    if ssm_mode == "columns" and use_pallas_ssm:
+    if ssm_mode == "columns" and (mesh is not None or use_pallas_ssm):
         raise NotImplementedError(
-            "ssm_mode='columns' is not routed through the pallas path; "
-            "use_pallas_ssm runs the full-matrix kernel"
+            "ssm_mode='columns' is not routed through the mesh / pallas "
+            "paths; those run the full-matrix kernel"
         )
     if ssm_mode is None:
-        ssm_mode = "full" if use_pallas_ssm else "columns"
+        ssm_mode = "full" if (mesh is not None or use_pallas_ssm) else "columns"
     dev = resolve_device(device)
+    if mesh is not None:
+        from tpu_swirld_torch.parallel import Mesh, _canonical
+
+        if not isinstance(mesh, Mesh):
+            raise ValueError(
+                f"mesh must be a tpu_swirld_torch.parallel.Mesh, got "
+                f"{type(mesh).__name__}"
+            )
+        if mesh.device != _canonical(dev):
+            raise ValueError(
+                f"the pass runs on {dev}, the mesh's shards on {mesh.device}"
+            )
     arrays, statics, ts_unique = prepare_inputs(
         packed, config, block=block, r_max=r_max, s_max=s_max,
     )
@@ -738,13 +762,19 @@ def run_consensus(
     # r_max or s_max grows instead of fail-stopping
     r_rounds = min(r_max, _bucket(chain + 1, 32))
     r_cap = max(int(config.max_rounds), r_max)
-    run = _run_consensus_columns if ssm_mode == "columns" else _run_consensus_full
+    kw = {}
+    if mesh is not None:
+        run, kw = _run_consensus_mesh, {"mesh": mesh}
+    elif ssm_mode == "columns":
+        run = _run_consensus_columns
+    else:
+        run = _run_consensus_full
     return run(
         packed, config, arrays["parents"], arrays["creator"],
         arrays["t_rank"], arrays["coin"], arrays["stake"],
         arrays["member_table"], ts_unique, n=packed.n,
         tot=statics["tot_stake"], block=block, r_rounds=r_rounds,
-        r_cap=r_cap, s_max=s_max, chain=chain, device=dev,
+        r_cap=r_cap, s_max=s_max, chain=chain, device=dev, **kw,
     )
 
 
@@ -833,6 +863,52 @@ def _run_consensus_full(
         "max_round": max_round,
         **{k: to_host(v) for k, v in stage_b.items()},
     }
+    return _finalize_timed(
+        packed, out, ts_unique, stages, t_dev0, overflow_retries=retries
+    )
+
+
+def _run_consensus_mesh(
+    packed, config, parents, creator, t_rank, coin, stake, member_table,
+    ts_unique, *, n, tot, block, r_rounds, r_cap, s_max, chain, device, mesh,
+):
+    """The mesh path (the reference's ``run_consensus`` mesh branch): the
+    member axis padded to a mesh multiple, then the fused
+    :func:`consensus_body` with the member-sharded strongly-sees matrix
+    (:func:`~tpu_swirld_torch.parallel.consensus_fn_for_mesh`), one
+    ``pipeline.mesh_consensus`` stage an attempt, inside the overflow
+    self-heal loop over one round window (``r_rounds``: the longest
+    self-chain's bucket, grown to ``r_cap`` on overflow)."""
+    from tpu_swirld_torch.parallel import consensus_fn_for_mesh, pad_members
+
+    member_table, stake = pad_members(member_table, stake, mesh.size)
+    kernel = consensus_fn_for_mesh(mesh)
+    stages = StageClock(device)
+    t_dev0 = time.perf_counter()
+    has_forks = bool(len(packed.fork_pairs))
+    args = (
+        _to_device(parents, device), _to_device(creator, device),
+        _to_device(t_rank, device), _to_device(coin, device),
+        _to_device(stake, device, torch.int32),
+        _to_device(packed.fork_pairs, device),
+        _to_device(member_table, device, torch.int32), n,
+    )
+    retries = 0
+    while True:
+        out = stages.stage_call(
+            "pipeline.mesh_consensus", kernel, *args, tot_stake=tot,
+            coin_period=config.coin_period, block=block, r_max=r_rounds,
+            s_max=s_max, chain=chain, has_forks=has_forks, stages=stages,
+        )
+        ovf = int(out["overflow"])
+        if not ovf:
+            break
+        r_rounds, s_max = _healed_capacities(
+            ovf, r_eff=r_rounds, r_cap=r_cap, s_eff=s_max,
+            s_cap=parents.shape[0],
+        )
+        retries += 1
+    out = {k: to_host(v) for k, v in out.items()}
     return _finalize_timed(
         packed, out, ts_unique, stages, t_dev0, overflow_retries=retries
     )

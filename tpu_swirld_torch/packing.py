@@ -1,6 +1,6 @@
 """Dense packing: hash-addressed event DAG -> index arrays for the device
-(copy of the reference's ``tpu_swirld/packing.py`` batch and streaming
-surface).
+(copy of the reference's ``tpu_swirld/packing.py`` batch, streaming and
+live-node surface).
 
 Events are packed in topological (insertion) order into a ``(N, 2)`` int32
 parent-index array plus creator / seq / timestamp / coin-bit vectors.  Every
@@ -64,7 +64,9 @@ class Packer:
         self._fork_pairs: List[tuple] = []
 
     def append(self, ev: Event) -> int:
-        """Pack one event (parents must already be packed).  Idempotent."""
+        """Pack one event (parents must already be packed).  Idempotent.
+        An event of either package packs alike: only ``p``, ``t``, ``c``,
+        ``s``, ``id`` and ``coin_bit()`` are read."""
         return self.append_prepared(ev, ev.id)
 
     def append_prepared(self, ev: Event, eid: bytes) -> int:
@@ -198,6 +200,15 @@ def pack_events(
     p = Packer(members, stake)
     p.extend(events)
     return p.pack()
+
+
+def pack_node(node) -> PackedDAG:
+    """Pack a ``Node``'s full DAG in its insertion (topo) order, the order
+    its own consensus state was built in.  Takes a node of either package
+    (only its ``hg`` / ``order_added`` / ``members`` / ``stake`` are read)."""
+    events = [node.hg[eid] for eid in node.order_added]
+    stake = [node.stake[m] for m in node.members]
+    return pack_events(events, node.members, stake)
 
 
 def packed_from_arrays(n_members, parents, creator, seq, t, coin, stake,

@@ -1,11 +1,24 @@
-"""Row-sharded streaming over a mesh (counterpart of the streaming half of
-the reference's ``tpu_swirld/parallel.py``).
+"""Sharding over a mesh (counterpart of the reference's
+``tpu_swirld/parallel.py``), both halves, on meshes whose shards share one
+device.
 
-:class:`MeshStreamingConsensus` row-shards the resident window: the
-``anc`` / ``sees`` / ``ssm`` slabs are read as ``D`` contiguous ranges of
-``W / D`` rows, and :func:`make_row_sharded_block_fn` runs every
-strongly-sees block with one halo exchange, exactly as the reference's
-``shard_map`` body does:
+**Batch path (member axis).**  :func:`ssm_matrix_sharded` splits the
+strongly-sees matrix over the member axis: shard ``s`` owns the member-table
+rows ``[s M / D, (s + 1) M / D)`` (padded to a mesh multiple by
+:func:`pad_members`: -1 rows, 0 stake) and computes its members' int32 stake
+tally over every pair of events in one
+:func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` launch; the tallies are
+summed over the shards and the strict-2/3 test runs once.
+:func:`make_ssm_block_fn_for_mesh` is the same split on the ``ssm_block_fn``
+seam, :func:`consensus_fn_for_mesh` the fused ``consensus_body`` over the
+sharded matrix, which ``run_consensus(mesh=)`` and a ``mesh_shape`` node
+run.
+
+**Streaming path (window axis).**  :class:`MeshStreamingConsensus`
+row-shards the resident window: the ``anc`` / ``sees`` / ``ssm`` slabs are
+read as ``D`` contiguous ranges of ``W / D`` rows, and
+:func:`make_row_sharded_block_fn` runs every strongly-sees block with one
+halo exchange, exactly as the reference's ``shard_map`` body does:
 
 - b side (the halo): of the ``M * K`` gathered member rows each lies in one
   shard; every shard gathers the rows it owns (others zero) and one int8
@@ -18,17 +31,12 @@ strongly-sees block with one halo exchange, exactly as the reference's
   strict-2/3 test runs once.
 
 JAX's mesh is single-controller (one driver, arrays carrying a sharding).
-The port keeps that shape in one process, and this slice builds meshes
-whose shards all live on **one** device: the slabs stay one tensor there,
-so their placement cannot drift.  Both sums over the shards go through
+The port keeps that shape in one process and builds meshes whose shards
+all live on **one** device: the slabs stay one tensor there, so their
+placement cannot drift.  Every sum over the shards goes through
 :func:`_psum`, the one function a mesh over several cards replaces.  A mesh
 over several devices raises (ROADMAP A8: per-card shard tensors and
 collectives are not ported, and not approximated).
-
-The member-sharded batch half of the reference (``ssm_matrix_sharded``,
-``make_ssm_block_fn_for_mesh``, ``consensus_fn_for_mesh``,
-``run_consensus(mesh=)``) runs no TPU kernel and is not ported yet
-(ROADMAP A8); :func:`pad_members` is its host helper.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ def _canonical(dev) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: ``devices[s]`` holds row shard ``s`` along ``axis_name``.
+    """A 1-D mesh: ``devices[s]`` holds shard ``s`` along ``axis_name`` (a
+    member shard on the batch path, a row shard of the streaming window).
 
     Every shard must live on one device (see the module doc); a mesh over
     several devices raises ``ValueError``."""
@@ -97,7 +106,7 @@ class Mesh:
 
 
 def make_mesh(n_shards: int = 1, device="cuda") -> Mesh:
-    """A 1-D mesh of ``n_shards`` row shards, all on ``device`` (default
+    """A 1-D mesh of ``n_shards`` shards, all on ``device`` (default
     ``"cuda"``, which raises without a GPU)."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
@@ -128,7 +137,9 @@ def _mesh_cache_get(cache: dict, mesh: Mesh, build):
     return fn
 
 
+_mesh_block_fns = {}
 _mesh_row_block_fns = {}
+_mesh_fns = {}
 
 
 def _psum(parts):
@@ -137,6 +148,123 @@ def _psum(parts):
     is a plain sum; a mesh over several cards replaces this function with
     an all-reduce."""
     return functools.reduce(torch.add, parts)
+
+
+def _member_shards(member_table, stake, d: int):
+    """The ``d`` member shards ``(member_table rows, stake)`` of a member
+    table padded to a multiple of ``d`` (-1 rows, 0 stake: they add
+    nothing), shard ``s`` owning rows ``[s M / d, (s + 1) M / d)``."""
+    m = member_table.shape[0]
+    pad = -m % d
+    if pad:
+        member_table = torch.cat([
+            member_table,
+            member_table.new_full((pad, member_table.shape[1]), -1),
+        ])
+        stake = torch.cat([stake, stake.new_zeros(pad)])
+    m_loc = (m + pad) // d
+    return [
+        (member_table[s * m_loc : (s + 1) * m_loc],
+         stake[s * m_loc : (s + 1) * m_loc])
+        for s in range(d)
+    ]
+
+
+def _check_on_mesh(mesh: Mesh, sees):
+    if _canonical(sees.device) != mesh.device:
+        raise ValueError(
+            f"sees on {sees.device}, the mesh's shards on {mesh.device}"
+        )
+
+
+def _member_sharded_tally(sees, member_table, stake, d, gather_b, row0, rows):
+    """The int32 stake tally of rows ``[row0, row0 + rows)`` over ``d``
+    member shards: one :func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` a
+    shard, with ``b = gather_b(slots) & valid`` its members' gathered rows
+    of ``sees`` (``slots`` clipped to ``[0, n)``), summed by
+    :func:`_psum`."""
+    n = sees.shape[0]
+    tallies = []
+    for mt_s, stake_s in _member_shards(member_table, stake, d):
+        idx = mt_s.reshape(-1)
+        b = gather_b(idx.clamp(0, n - 1)) & (idx >= 0)[:, None]
+        tallies.append(kernels.ssm_tally(sees, mt_s, stake_s, b, row0, rows=rows))
+    return _psum(tallies)
+
+
+def ssm_matrix_sharded(sees, member_table, stake, tot_stake, *, mesh: Mesh):
+    """Member-sharded strongly-sees matrix, bool ``(N, N)``: the ``ssm_fn``
+    of :func:`consensus_fn_for_mesh`.
+
+    Each member shard's partial int32 tally is one
+    :func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` call over every row of
+    ``sees`` (``row_lo = 0``, ``rows = N``) with the shard's member rows and
+    stake, and ``b = sees[members] & valid``, the shard's ``(M / D * K,
+    N)`` gathered member rows; :func:`_psum` sums the tallies and
+    ``3 * acc > 2 * tot_stake`` runs once, in int32 as in the reference
+    (``tot_stake`` inside the int32 envelope, else ``ValueError``).  The
+    member table is padded to a mesh multiple here when it is not."""
+    tot = kernels.check_stake_envelope(tot_stake)
+    _check_on_mesh(mesh, sees)
+    n = sees.shape[0]
+    acc = _member_sharded_tally(
+        sees, member_table, stake, mesh.size, lambda slots: sees[slots], 0, n
+    )
+    return 3 * acc > 2 * tot
+
+
+def make_ssm_block_fn_for_mesh(mesh: Mesh):
+    """Member-sharded strongly-sees *block* with the ``ssm_block_fn``
+    seam's signature (:func:`~tpu_swirld_torch.gpu.kernels.ssm_block`):
+    ``fn(sees, member_table, stake, cols, row0, *, rows, tot_stake)`` ->
+    bool ``(rows, C)``, the windowed counterpart of
+    :func:`ssm_matrix_sharded`.
+
+    Each member shard runs one
+    :func:`~tpu_swirld_torch.gpu.kernels.ssm_tally` over the block's rows of
+    the whole (replicated) ``sees`` with its members' gathered column tiles
+    as ``b``; :func:`_psum` sums the int32 tallies before the threshold.
+    The start is taken as the reference's ``lax.dynamic_slice`` takes it
+    (:func:`~tpu_swirld_torch.gpu.kernels.slice_start`: a negative start
+    counts from the end, then it is clamped to ``[0, n - rows]``; the
+    row-sharded block instead clips a negative start to 0, as its
+    reference does), and columns ``< 0`` come out False.  Cached per
+    mesh."""
+    d = mesh.size
+
+    def build():
+        def block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
+            tot = kernels.check_stake_envelope(tot_stake)
+            _check_on_mesh(mesh, sees)
+            n = sees.shape[0]
+            row0c = kernels.slice_start(row0, rows, n)
+            cv = cols >= 0
+            colsc = cols.clamp(0, n - 1)[None, :]
+            acc = _member_sharded_tally(
+                sees, member_table, stake, d,
+                lambda slots: sees[slots[:, None], colsc] & cv[None, :],
+                row0c, rows,
+            )
+            return (3 * acc > 2 * tot) & cv[None, :]
+
+        return block
+
+    return _mesh_cache_get(_mesh_block_fns, mesh, build)
+
+
+def consensus_fn_for_mesh(mesh: Mesh):
+    """End-to-end consensus (:func:`~tpu_swirld_torch.gpu.pipeline.
+    consensus_body`) with the strongly-sees phase member-sharded over
+    ``mesh`` (:func:`ssm_matrix_sharded`).  Cached per mesh."""
+    from tpu_swirld_torch.gpu.pipeline import consensus_body
+
+    def build():
+        return functools.partial(
+            consensus_body,
+            ssm_fn=functools.partial(ssm_matrix_sharded, mesh=mesh),
+        )
+
+    return _mesh_cache_get(_mesh_fns, mesh, build)
 
 
 def _row_sharded_block_fn(mesh: Mesh, shard_tally, *, every_shard: bool):
@@ -151,10 +279,7 @@ def _row_sharded_block_fn(mesh: Mesh, shard_tally, *, every_shard: bool):
     def block(sees, member_table, stake, cols, row0, *, rows, tot_stake):
         tot_stake = kernels.check_stake_envelope(tot_stake)
         n = sees.shape[0]
-        if _canonical(sees.device) != mesh.device:
-            raise ValueError(
-                f"sees on {sees.device}, the mesh's shards on {mesh.device}"
-            )
+        _check_on_mesh(mesh, sees)
         if n % d:
             raise ValueError(
                 f"a slab of {n} rows does not split into {d} row shards"
