@@ -109,10 +109,30 @@
    ``bmm_or`` and ``ssm_block`` launched and ``ssm_matrix`` not.  Prints
    every pass (events, seconds).  Then a ``mesh_shape={"members": 2}`` node
    at 3 000 events: digests golden, ``ssm_tally`` launched.
-12. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+12. Dynamic membership and restore.  (a) The single-epoch pin at full
+   width: ``run_dynamic(engine=e, chunk=INC_CHUNK, cross_check=True,
+   device="cuda")`` over config 3 for the batch, incremental, streaming and
+   mesh engines (the mesh on ``make_mesh(MESH_SHARDS)``): the observer's
+   order equals the native engine's and its digest is golden; per engine
+   the observer's and the native engine's seconds and the launches (``bmm_or``
+   and ``ssm_block``, or ``bmm_or`` and ``ssm_tally`` for the mesh; never
+   ``ssm_matrix``).  (b) The port's ``churn_schedule(**CHURN)`` (16 members,
+   a leave and a join, three epochs) through ``run_all_engines`` on the
+   card: order, rounds and ledger equal across the engines and to
+   ``CHURN_GOLDEN`` (the JAX reference's oracle driver), one repack a
+   post-genesis epoch with its outputs on the card, the streaming rows
+   stamped with two epochs or more.  (c) ``save_node`` of phase 11's
+   columns node, then ``load_node(device="cuda")``, whose replay pass runs
+   ``TorchEngine`` on the card: state digest equal to the saved node's,
+   ``LIVE_GOLDEN`` digests, ``bmm_or`` and ``ssm_block`` launched and
+   ``ssm_matrix`` not, a copy with one byte of the header's order digest
+   changed refused; ``save_packed`` / ``load_packed`` of the node's packed
+   DAG through ``run_consensus`` golden too.  Prints the replay's and the
+   pass's seconds.
+13. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
-   live node), the card's name and power limit, then ``{"ok": true, ...}``
-   as the last line.
+   live node, dynamic pin, restore), the card's name and power limit, then
+   ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -122,10 +142,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import struct
 import dataclasses
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -133,12 +155,15 @@ import torch
 
 from tpu_swirld_torch import (
     IncrementalConsensus, MeshStreamingConsensus, StreamingConsensus, crypto,
-    make_mesh, make_simulation, make_ssm_block_fn_for_mesh, ssm_matrix_sharded,
+    load_node, load_packed, make_mesh, make_simulation,
+    make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
+    save_packed, ssm_matrix_sharded,
 )
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
+from tpu_swirld_torch.membership.sim import churn_schedule
 from tpu_swirld_torch.packing import pack_events, pack_node
 from tpu_swirld_torch.sim import generate_gossip_dag
 
@@ -250,6 +275,31 @@ LIVE_GOLDEN = {
         "famous": "fa2a0450d345194afccae8cab68b896eebe4f73fd5d3ec1380061db9d8dc9d1e",
         "round_received": "4684e12405d4479e21f2707d544c4c28a7cd8f1b542810e1abc320e23d468900",
     },
+}
+# Dynamic membership (phase 12).  The single-epoch pin: run_dynamic over
+# config 3 through each device engine, ingesting INC_CHUNK events a pass.
+DYN_ENGINES = ("batch", "incremental", "streaming", "mesh")
+# engine -> (kernels it must launch, kernels it must not launch)
+DYN_KERNELS = {
+    "batch": (("bmm_or", "ssm_block"), ("ssm_matrix",)),
+    "incremental": (("bmm_or", "ssm_block"), ("ssm_matrix",)),
+    "streaming": (("bmm_or", "ssm_block"), ("ssm_matrix",)),
+    "mesh": (("bmm_or", "ssm_tally"), ("ssm_matrix", "ssm_block")),
+}
+# The multi-epoch churn schedule: member n-1 leaves at turn leave_at and a
+# fresh key joins at join_at (three epochs).  Its width is cut from 64 to 16
+# members: churn_schedule runs a DynamicNode pass on every sync of every
+# node, which at 64 members would not fit the run's time.
+CHURN = {"n_nodes": 16, "seed": SEED, "turns": 2400, "leave_at": 120, "join_at": 1000}
+# Digests of the JAX reference's run_dynamic(engine="oracle") on the
+# reference's churn_schedule(**CHURN) under the sim signer (see
+# dynamic_digests); recomputed by
+# tests/test_torch_membership.py::test_churn_golden_digests_match_reference.
+CHURN_GOLDEN = {
+    "events": 2388, "decided": 2060, "epochs": 3,
+    "order": "b909debfc505b85efd7be5f3b1e5761e35bc751938751fdb69aa1ab92987d1cf",
+    "round": "5a30eed616b0972619c3d62a7663b454bea18584c953cb26f1ef3ec689e41328",
+    "ledger": "9c15e7df1199a3a69753723a636ce6b799fc556e1ed47a3f826cb7edd48dbccc",
 }
 KERNELS = {name: getattr(kernels, name) for name in KERNEL_INFO}
 
@@ -648,6 +698,16 @@ def check_ssm_matrix(packs, slabs, failures):
     return rows_out
 
 
+def check_launches(tag, launches, needs, never, failures):
+    """Every kernel of ``needs`` launched, none of ``never``."""
+    for kname in needs:
+        if launches[kname] <= 0:
+            failures.append(f"{tag}: kernel {kname} was not launched")
+    for kname in never:
+        if launches[kname] != 0:
+            failures.append(f"{tag}: kernel {kname} launched {launches[kname]} times")
+
+
 def run_main_path(name, packed, path, failures):
     """One measured ``run_consensus`` on the card through ``path`` (after a
     warm-up where the path asks for one).  Returns the kernel launches and
@@ -673,12 +733,7 @@ def run_main_path(name, packed, path, failures):
     print(f"{label}: stage seconds {json.dumps(stage_seconds)}", flush=True)
     print(f"{label}: stage calls {json.dumps(stage_calls)}", flush=True)
     print(f"{label}: launches {json.dumps(launches)}", flush=True)
-    for kname in needs:
-        if launches[kname] <= 0:
-            failures.append(f"{label}: kernel {kname} was not launched")
-    for kname in never:
-        if launches[kname] != 0:
-            failures.append(f"{label}: kernel {kname} launched {launches[kname]} times")
+    check_launches(label, launches, needs, never, failures)
     digests = result_digests(packed, result)
     print(f"{label}: digests {json.dumps(digests)}", flush=True)
     for key, want in GOLDEN[name].items():
@@ -1211,7 +1266,7 @@ def node_state_matches(node, packed, result) -> bool:
 
 def run_live_node(label, failures):
     """Phase 11: one live node (``LIVE_NODES[label]``).  Returns its kernel
-    launches over the gossip and the flush."""
+    launches over the gossip and the flush, and the node."""
     n_events, min_batch, mesh_shape = LIVE_NODES[label]
     tag = f"live {label}"
     sim = live_simulation(N_MEMBERS, min_batch, mesh_shape)
@@ -1268,12 +1323,152 @@ def run_live_node(label, failures):
             failures.append(f"{tag}: node state != run_consensus(pack_node(node))")
     else:
         needs, never = ("bmm_or", "ssm_tally"), ("ssm_matrix", "ssm_block")
-    for kname in needs:
-        if launches[kname] <= 0:
-            failures.append(f"{tag}: kernel {kname} was not launched")
-    for kname in never:
-        if launches[kname] != 0:
-            failures.append(f"{tag}: kernel {kname} launched {launches[kname]} times")
+    check_launches(tag, launches, needs, never, failures)
+    return launches, node
+
+
+def dynamic_digests(res) -> dict:
+    """SHA-256 digests of a dynamic-membership run (either package's
+    ``DynamicResult``): the order (concatenated event ids), the rounds in
+    the observer's insertion order (little-endian int32), and the epoch
+    ledger's own digest, with the counts."""
+    def h(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    return {
+        "events": len(res.rounds), "decided": len(res.order), "epochs": res.epochs,
+        "order": h(b"".join(res.order)),
+        "round": h(np.asarray(list(res.rounds.values()), "<i4").tobytes()),
+        "ledger": res.ledger.digest().hex(),
+    }
+
+
+def run_single_epoch_pin(dag, failures):
+    """Phase 12(a): ``run_dynamic(engine=e, device="cuda", chunk=INC_CHUNK,
+    cross_check=True)`` over config 3 (no membership transaction) for each
+    device engine, the mesh engine on ``make_mesh(MESH_SHARDS)``.  Returns
+    each engine's kernel launches."""
+    members, stake, events, _packed, _keys = dag
+    out = {}
+    for engine in DYN_ENGINES:
+        tag = f"dynamic pin {engine}"
+        mesh = make_mesh(MESH_SHARDS) if engine == "mesh" else None
+        reset_launches()
+        res = run_dynamic(events, members, stake, engine=engine, chunk=INC_CHUNK,
+                          mesh=mesh, cross_check=True, device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        order = hashlib.sha256(b"".join(res.order)).hexdigest()
+        print(f"{tag}: {len(res.order)} ordered, single_epoch {res.single_epoch}, "
+              f"observer {res.observer_seconds} s, native {res.native_seconds} s, "
+              f"launches {json.dumps(launches)}", flush=True)
+        if not res.single_epoch or res.native_order != res.order:
+            failures.append(f"{tag}: single_epoch {res.single_epoch}, native order "
+                            f"{'==' if res.native_order == res.order else '!='} order")
+        if order != GOLDEN["config3"]["order"]:
+            failures.append(f"{tag}: order digest {order} != golden")
+        check_launches(tag, launches, *DYN_KERNELS[engine], failures)
+        out[engine] = launches
+    return out
+
+
+def run_churn(failures):
+    """Phase 12(b): the port's ``churn_schedule(**CHURN)`` through
+    ``run_all_engines`` on the card: every engine's order, rounds and ledger
+    equal to the others' and to ``CHURN_GOLDEN``, a repack on the card per
+    epoch boundary, the streaming archive's rows stamped with >= 2 epochs.
+    A schedule of several epochs runs no native engine (``run_dynamic``
+    cross-checks single-epoch runs only), and neither the observer nor the
+    repack stage launches a kernel: the launches are printed, not
+    counted."""
+    t0 = time.perf_counter()
+    events, members, stake, sim = churn_schedule(**CHURN)
+    print(f"dynamic churn: {len(events)} events from {CHURN} in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_all_engines(events, members, stake, sim.config, chunk=INC_CHUNK,
+                              engines=DYN_ENGINES, mesh=make_mesh(MESH_SHARDS),
+                              device="cuda")
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    print(f"dynamic churn: run_all_engines {time.perf_counter() - t0} s, "
+          f"launches {json.dumps(launches)}", flush=True)
+    for engine, res in results.items():
+        tag = f"dynamic churn {engine}"
+        digests = dynamic_digests(res)
+        shapes = [(str(t.device), tuple(t.shape), tuple(st.shape))
+                  for t, st in res.repack_outputs]
+        print(f"{tag}: digests {json.dumps(digests)}, restatements "
+              f"{res.restatements}, observer {res.observer_seconds} s, repacks "
+              f"{json.dumps([r.to_dict() for r in res.repacks])}, outputs {shapes}",
+              flush=True)
+        for key, want in CHURN_GOLDEN.items():
+            if digests[key] != want:
+                failures.append(f"{tag}: {key} {digests[key]} != golden {want}")
+        if res.epochs < 3 or len(res.repacks) != res.epochs - 1:
+            failures.append(f"{tag}: {res.epochs} epochs, {len(res.repacks)} repacks")
+        for (table, st), rp in zip(res.repack_outputs, res.repacks):
+            if (table.device.type != "cuda" or st.device.type != "cuda"
+                    or tuple(table.shape) != (rp.members_after, table.shape[1])
+                    or tuple(st.shape) != (rp.members_after,)):
+                failures.append(f"{tag}: repack output {table.device} {tuple(table.shape)}")
+    stamped = results["streaming"].archive_epochs
+    if stamped is None or len({epoch for _, epoch in stamped}) < 2:
+        failures.append("dynamic churn: streaming archive rows span < 2 epochs")
+
+
+def run_restore(node, failures):
+    """Phase 12(c): ``save_node`` the columns live node of phase 11, then
+    ``load_node(device="cuda")``: the replay's pass runs ``TorchEngine`` on
+    the card.  State and digests equal to the saved node's and
+    ``LIVE_GOLDEN``'s; a copy with one byte of the header's order digest
+    changed raises ``ValueError``; ``save_packed`` / ``load_packed`` of
+    ``pack_node(node)`` then ``run_consensus(device="cuda")`` gives the same
+    digests.  Returns the restore's kernel launches."""
+    tag = "restore"
+    golden = {k: v for k, v in LIVE_GOLDEN["columns node"].items()
+              if k not in ("turns", "events")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "node.swck")
+        t0 = time.perf_counter()
+        save_node(path, node)
+        t_save = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        restored = load_node(path, node.sk, node.pk, network={}, device="cuda")
+        t_load = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        eng = restored._tpu_engine
+        print(f"{tag}: save {t_save} s, load {t_load} s ({json.dumps(restored.restore_seconds)}"
+              f"), {len(restored.hg)} events, {len(restored.consensus)} ordered, engine on "
+              f"{eng.device}, launches {json.dumps(launches)}", flush=True)
+        if restored.state_digest() != node.state_digest() or restored.consensus != node.consensus:
+            failures.append(f"{tag}: restored state != the saved node's")
+        digests = result_digests(eng.packer.pack(), eng.last_result)
+        if digests != golden:
+            failures.append(f"{tag}: digests {digests} != golden")
+        check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        at = data.index(b'"order_digest": "') + len(b'"order_digest": "')
+        data[at] = ord("0") if data[at] != ord("0") else ord("1")
+        bad = os.path.join(tmp, "tampered.swck")
+        with open(bad, "wb") as f:
+            f.write(data)
+        try:
+            load_node(bad, node.sk, node.pk, network={}, device="cuda")
+            failures.append(f"{tag}: a tampered order digest was accepted")
+        except ValueError as e:
+            print(f"{tag}: tampered copy refused: {e}", flush=True)
+
+        packed = pack_node(node)
+        path = os.path.join(tmp, "packed.npz")
+        save_packed(path, packed)
+        back = load_packed(path)
+        digests = result_digests(back, run_consensus(back, node.config, device="cuda"))
+        if digests != golden:
+            failures.append(f"{tag}: packed round trip digests {digests} != golden")
     return launches
 
 
@@ -1355,7 +1550,17 @@ def main() -> int:
     }
     sharded_rows, member_tally_row, mesh_block_row = check_member_sharded(packs, failures)
     torch.cuda.empty_cache()
-    launches["live_node"] = {label: run_live_node(label, failures) for label in LIVE_NODES}
+    launches["live_node"], live_nodes = {}, {}
+    for label in LIVE_NODES:
+        launches["live_node"][label], live_nodes[label] = run_live_node(label, failures)
+    del live_nodes["mesh_shape node"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launches["dynamic_pin"] = run_single_epoch_pin(dags["config3"], failures)
+    run_churn(failures)
+    launches["restore"] = {"columns node": run_restore(live_nodes.pop("columns node"), failures)}
+    print(f"dynamic membership and restore: {time.perf_counter() - t0} s", flush=True)
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

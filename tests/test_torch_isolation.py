@@ -50,6 +50,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "tpu_swirld_torch/backend.py", "tpu_swirld_torch/oracle/node.py",
         "tpu_swirld_torch/oracle/graph.py", "tpu_swirld_torch/transport.py",
         "tpu_swirld_torch/obs.py", "tpu_swirld_torch/sim.py",
+        "tpu_swirld_torch/checkpoint.py",
+        "tpu_swirld_torch/membership/__init__.py",
+        "tpu_swirld_torch/membership/dynamic.py",
+        "tpu_swirld_torch/membership/engine.py",
+        "tpu_swirld_torch/membership/epoch.py",
+        "tpu_swirld_torch/membership/repack.py",
+        "tpu_swirld_torch/membership/sim.py",
+        "tpu_swirld_torch/membership/txs.py",
     } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -59,7 +67,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, sys; "
+    code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
+            "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

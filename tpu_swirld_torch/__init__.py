@@ -37,6 +37,14 @@ one process.  A node whose ``config.backend`` is ``"tpu"`` runs its
 consensus passes on the card through :class:`TorchEngine`
 (``tpu_swirld_torch.backend``).
 
+:class:`DynamicNode` (``tpu_swirld_torch.membership``) is a node whose
+member set is consensus-decided and epoch-versioned; :func:`run_dynamic`
+drives a schedule under it through any engine, the device ones with their
+member-axis repack on the card.  :func:`save_node` / :func:`load_node`
+(``tpu_swirld_torch.checkpoint``) write and restore a node in the
+reference's checkpoint format; a restored ``"tpu"`` node replays on the
+card.
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of
@@ -45,7 +53,21 @@ plain PyTorch versions.
 """
 
 from tpu_swirld_torch.backend import TorchEngine  # noqa: E402
+from tpu_swirld_torch.checkpoint import (  # noqa: E402
+    load_archive,
+    load_node,
+    load_packed,
+    save_archive,
+    save_node,
+    save_packed,
+)
 from tpu_swirld_torch.gpu.incremental import IncrementalConsensus  # noqa: E402
+from tpu_swirld_torch.membership.dynamic import DynamicNode  # noqa: E402
+from tpu_swirld_torch.membership.engine import (  # noqa: E402
+    run_all_engines,
+    run_dynamic,
+)
+from tpu_swirld_torch.membership.repack import repack_packer  # noqa: E402
 from tpu_swirld_torch.oracle import Node  # noqa: E402
 from tpu_swirld_torch.parallel import (  # noqa: E402
     Mesh,
@@ -65,6 +87,7 @@ from tpu_swirld_torch.store import (  # noqa: E402
 )
 
 __all__ = [
+    "DynamicNode",
     "IncrementalConsensus",
     "Mesh",
     "MeshStreamingConsensus",
@@ -75,9 +98,18 @@ __all__ = [
     "TileBudgetExceeded",
     "TorchEngine",
     "consensus_fn_for_mesh",
+    "load_archive",
+    "load_node",
+    "load_packed",
     "make_mesh",
     "make_simulation",
     "make_ssm_block_fn_for_mesh",
+    "repack_packer",
+    "run_all_engines",
+    "run_dynamic",
+    "save_archive",
+    "save_node",
+    "save_packed",
     "ssm_matrix_sharded",
     "streaming_consensus_for_mesh",
 ]

@@ -1,7 +1,5 @@
-"""Protocol parameters the port reads (the subset of the reference's
-``tpu_swirld/config.py::SwirldConfig`` that the batch pipeline, the
-incremental and streaming drivers, the ``Node``, its ``TorchEngine`` and the
-gossip simulation use, with the same names and defaults).
+"""Protocol parameters: the reference's ``tpu_swirld/config.py::
+SwirldConfig``, every field with the same name and default.
 
 The streaming and archive knobs resolve as the reference's do: an explicit
 ``SwirldConfig`` field wins, then the ``SWIRLD_*`` environment variable,
@@ -107,30 +105,34 @@ class SwirldConfig:
       max_reply_bytes, max_reply_events: caps on a sync or want reply.
       quarantine_forkers: a detected equivocator opens its breaker at once.
       max_fork_branches: branch tails walked per forked creator per reply.
+      flightrec_capacity, flightrec_max_dumps, flightrec_dir: the flight
+        recorder's settings, and ``net_*``: the socket transport's.  They
+        are carried so that a config, and a checkpoint header that holds
+        one, means the same in both packages; the port has neither layer
+        yet (ROADMAP A9 and ``net/``) and reads none of them.
+      membership_delay: rounds between a membership transaction's decision
+        (the round received of its carrier event) and the first round its
+        epoch governs (:mod:`tpu_swirld_torch.membership`).
 
-    Every ``None`` field resolves as :func:`resolve_archive_settings` /
-    :func:`resolve_stream_settings` say.
+    The fields are declared in the reference's order, so the two packages'
+    ``dataclasses.asdict`` list the same keys in the same order.  Every
+    ``None`` archive or streaming field resolves as
+    :func:`resolve_archive_settings` / :func:`resolve_stream_settings` say.
     """
 
     n_members: int = 4
-    coin_period: int = 6
-    max_rounds: int = 256
     stake: Optional[Tuple[int, ...]] = None
-    seed: int = 0
-    archive_compress_level: Optional[int] = None
-    archive_queue_depth: Optional[int] = None
-    archive_async: Optional[bool] = None
-    fuse_chunks: Optional[int] = None
-    decode_overlap: Optional[bool] = None
-    decode_queue_depth: Optional[int] = None
+    coin_period: int = 6
     backend: str = "python"
+    seed: int = 0
     mesh_shape: Optional[Dict[str, int]] = None
     block_size: int = 256
-    tpu_min_batch: int = 1
+    max_rounds: int = 256
     max_orphans: int = 4096
     max_orphan_bytes: int = 8 << 20
     max_want_rounds: int = 32
     want_ancestor_depth: int = 64
+    tpu_min_batch: int = 1
     retry_attempts: int = 3
     retry_backoff: float = 1.0
     retry_backoff_cap: float = 8.0
@@ -143,6 +145,26 @@ class SwirldConfig:
     max_reply_events: int = 65536
     quarantine_forkers: bool = False
     max_fork_branches: int = 8
+    archive_compress_level: Optional[int] = None
+    archive_queue_depth: Optional[int] = None
+    archive_async: Optional[bool] = None
+    fuse_chunks: Optional[int] = None
+    decode_overlap: Optional[bool] = None
+    decode_queue_depth: Optional[int] = None
+    flightrec_capacity: Optional[int] = None
+    flightrec_max_dumps: Optional[int] = None
+    flightrec_dir: Optional[str] = None
+    net_connect_timeout_s: Optional[float] = None
+    net_call_timeout_s: Optional[float] = None
+    net_max_frame_bytes: Optional[int] = None
+    net_tx_batch_bytes: Optional[int] = None
+    net_tx_max_bytes: Optional[int] = None
+    net_tx_pool_txs: Optional[int] = None
+    net_max_undecided: Optional[int] = None
+    net_gossip_interval_s: Optional[float] = None
+    net_checkpoint_every_s: Optional[float] = None
+    net_retry_tick_s: Optional[float] = None
+    membership_delay: int = 4
 
     def stakes(self) -> Tuple[int, ...]:
         if self.stake is not None:

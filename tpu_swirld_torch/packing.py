@@ -1,6 +1,6 @@
 """Dense packing: hash-addressed event DAG -> index arrays for the device
-(copy of the reference's ``tpu_swirld/packing.py`` batch, streaming and
-live-node surface).
+(copy of the reference's ``tpu_swirld/packing.py`` batch, streaming,
+live-node and membership surface).
 
 Events are packed in topological (insertion) order into a ``(N, 2)`` int32
 parent-index array plus creator / seq / timestamp / coin-bit vectors.  Every
@@ -62,6 +62,41 @@ class Packer:
         self._by_member: List[List[int]] = [[] for _ in members]
         self._by_seq: List[Dict[int, List[int]]] = [{} for _ in members]
         self._fork_pairs: List[tuple] = []
+
+    # ---- dynamic membership (the epoch repack seam: membership.repack)
+
+    def add_member(self, pk: bytes) -> int:
+        """Append one member row (a decided JOIN) with no events and stake
+        0: the member axis only ever extends, so existing event indices,
+        fork pairs and every snapshot stay valid.  Returns the member's
+        index (its existing one if ``pk`` is a member already)."""
+        if pk in self.member_index:
+            return self.member_index[pk]
+        i = len(self.members)
+        self.members.append(pk)
+        self.member_index[pk] = i
+        self._by_member.append([])
+        self._by_seq.append({})
+        self.stake = np.concatenate([self.stake, np.zeros((1,), np.int32)])
+        return i
+
+    def set_stake(self, stake: Sequence[int]) -> None:
+        """Swap the stake vector (an epoch activation).  Its length must be
+        the member count."""
+        if len(stake) != len(self.members):
+            raise ValueError("stake length != member count")
+        self.stake = np.asarray(stake, dtype=np.int32)
+
+    def member_table_view(self, n_members: int) -> np.ndarray:
+        """The ``(n_members, k)`` int32 member table of the first
+        ``n_members`` members (event indices, -1 padded), ``k`` the longest
+        member row of the whole packer and at least 1: the table
+        :meth:`pack` snapshots, cut to those members' rows."""
+        k = max(max((len(v) for v in self._by_member), default=0), 1)
+        table = np.full((n_members, k), -1, dtype=np.int32)
+        for ci, evs in enumerate(self._by_member[:n_members]):
+            table[ci, : len(evs)] = evs
+        return table
 
     def append(self, ev: Event) -> int:
         """Pack one event (parents must already be packed).  Idempotent.
@@ -146,10 +181,7 @@ class Packer:
     def pack(self) -> PackedDAG:
         n = len(self._ids)
         m = len(self.members)
-        k = max(max((len(v) for v in self._by_member), default=0), 1)
-        member_table = np.full((m, k), -1, dtype=np.int32)
-        for ci, evs in enumerate(self._by_member):
-            member_table[ci, : len(evs)] = evs
+        member_table = self.member_table_view(m)
         return PackedDAG(
             n=n,
             n_members=m,
