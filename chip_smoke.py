@@ -129,10 +129,36 @@
    changed refused; ``save_packed`` / ``load_packed`` of the node's packed
    DAG through ``run_consensus`` golden too.  Prints the replay's and the
    pass's seconds.
-13. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+13. Observability on the card.  (a) A warm config-3 columns pass under an
+   ambient ``obs.Obs`` with a dispatch profiler: golden digests, the
+   launches of phase 4's untraced pass, no ``compile`` call, the protocol
+   gauges and counters and the rounds-to-decision list equal to the JAX
+   reference's (``OBS_GOLDEN``); the report table, the profiler's summary,
+   the pass against an untraced one run just after, and Obs's own host
+   cost a stage.  (b) The card's busy and idle share: ``trace_consensus``
+   over the first ``INC_CHUNK`` events' columns pass, a window of
+   ``TRACE_ACTIVE`` rounds-chunk calls of config 3's whole pass
+   (``windowed_trace``), and the incremental driver's steady pass
+   ``INC_TRACE_PASS``; per trace the window, busy and idle seconds and
+   shares (also busy over the untraced time of the same work), kernel
+   launches, the top 5 device operations, the hand-written kernels' share
+   of busy time and the 5 longest idle gaps with their stage.  (c) Config
+   3 through ``IncrementalConsensus`` (``fuse_chunks`` 8) and
+   ``StreamingConsensus``, each with a ``FinalityTracker``, a
+   ``FlightRecorder``, an ambient Obs and a ``MemoryMonitor(device=
+   "cuda")`` phase: golden digests, phase 5 / 6's launches, the
+   rounds-to-decision list equal to (a)'s, the ``incremental_*`` /
+   ``store_*`` gauges equal to the driver's own counters; phase 5's
+   config-4 run carries a flight recorder and a memory phase too, and its
+   triggers and every device peak print here.  (d) The live node with
+   ``make_simulation(metrics=True, finality=True, flightrec=...)``, node 0
+   on the card until it holds ``LIVE_OBS_EVENTS`` events: digests,
+   rounds-to-decision lists and gossip counters equal to the reference's
+   (``LIVE_OBS_GOLDEN``); ``node_gauges`` of node 0.
+14. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
-   live node, dynamic pin, restore), the card's name and power limit, then
-   ``{"ok": true, ...}`` as the last line.
+   live node, dynamic pin, restore, and phase 13's), the card's name and
+   power limit, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -143,6 +169,8 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
+import shutil
 import struct
 import dataclasses
 import subprocess
@@ -159,11 +187,20 @@ from tpu_swirld_torch import (
     make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
     save_packed, ssm_matrix_sharded,
 )
+from tpu_swirld_torch import obs
 from tpu_swirld_torch.config import SwirldConfig
+from tpu_swirld_torch.device import StageClock
 from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
 from tpu_swirld_torch.membership.sim import churn_schedule
+from tpu_swirld_torch.metrics import node_gauges, trace_consensus
+from tpu_swirld_torch.obs import (
+    DispatchProfiler, FinalityTracker, FlightRecorder, MemoryMonitor, load_dump,
+    load_trace,
+    record_batch_result,
+)
+from tpu_swirld_torch.obs.report import render_report
 from tpu_swirld_torch.packing import pack_events, pack_node
 from tpu_swirld_torch.sim import generate_gossip_dag
 
@@ -303,6 +340,50 @@ CHURN_GOLDEN = {
 }
 KERNELS = {name: getattr(kernels, name) for name in KERNEL_INFO}
 
+# Observability on the card (phase 13).  The protocol gauges and counters
+# the JAX reference's registry holds after run_consensus on config 3 under
+# its ambient Obs, and the SHA-256 of that pass's rounds-to-decision list;
+# recomputed by tests/test_torch_obs.py::test_obs_golden_matches_reference.
+OBS_GAUGES = (
+    "pipeline_events", "pipeline_pad_events", "pipeline_s_max", "pipeline_block",
+    "pipeline_r_max", "pipeline_overflow_retries_total",
+    "pipeline_ssm_columns_total", "pipeline_chunk_scans_total",
+)
+OBS_GOLDEN = {
+    "pipeline_events": 10000.0, "pipeline_pad_events": 112.0, "pipeline_s_max": 65.0,
+    "pipeline_block": 128.0, "pipeline_r_max": 192.0,
+    "pipeline_overflow_retries_total": None,      # no retry: the counter never made
+    "pipeline_ssm_columns_total": 954.0, "pipeline_chunk_scans_total": 136.0,
+    "rtd": {"n": 8051,
+            "sha256": "85abdbfc8f83c42f7f0baebfab1e977df5a1a3d3907a711a7babc1237e1ea7af"},
+}
+# The live node with its observability: make_simulation(64, seed=LIVE_SEED,
+# metrics=True, finality=True, flightrec=...) until node 0 holds
+# LIVE_OBS_EVENTS events (two passes at LIVE_MIN_BATCH).  From the JAX
+# reference's simulation: node 0's digests and rounds-to-decision list
+# (run_consensus on its DAG, record_batch_result), the list its live oracle
+# node 0 had recorded by then ("oracle_rtd": a prefix of the first, since
+# the oracle decides rounds as they settle on its own passes) and the
+# population's gossip counters; recomputed by
+# tests/test_torch_finality.py::test_live_obs_golden_matches_reference.
+LIVE_OBS_EVENTS = 4162
+LIVE_OBS_GOLDEN = {
+    "turns": 4294, "events": 4162,
+    "order": "70708fd65bd31af719dc80b0d75a544cc7ae82fdc1c758c1891e39b9c613d80d",
+    "round": "a3ed43959e6b4bff9c0956199aa1d81abc2707c2e6ff0b8e73696cbfdefd723e",
+    "famous": "19621a5c92e729782b880d3ab01a5ef977c1d64b08cc99bbc2d42cac8b934e11",
+    "round_received": "39a8d17fdc8bddb001b57bc7f5deecef4cdc349eb6fe7aa5555cfc72155557c5",
+    "rtd": {"n": 2447,
+            "sha256": "269a1ddd3d1a6a2802d5a5944aad0ebc762d751bbd0f759def5e857a91820ef5"},
+    "oracle_rtd": {"n": 1759,
+                   "sha256": "39de2d9639ecb307bd22c4ff27836729b249662a34d59768a8fab0e1113c0336"},
+    "gossip": {"gossip_bytes_in": 50048936, "gossip_bytes_out": 1374080,
+               "gossip_events_received": 257335, "gossip_syncs": 4294},
+}
+# The traced passes' Chrome traces go here (listed in .gitignore), and are
+# removed once read.
+TRACE_DIR = "swirld-trace"
+
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
@@ -327,6 +408,23 @@ def result_digests(packed, result) -> dict:
         "famous": h(fam),
         "round_received": h(np.asarray(result.round_received, "<i4").tobytes()),
     }
+
+
+def rtd_digest(rtd) -> dict:
+    """The length and SHA-256 (little-endian int32) of a rounds-to-decision
+    list."""
+    return {"n": len(rtd),
+            "sha256": hashlib.sha256(np.asarray(rtd, "<i4").tobytes()).hexdigest()}
+
+
+def gossip_totals(nodes) -> dict:
+    """Every ``gossip_*`` counter summed over the nodes' ``Metrics``."""
+    out = {}
+    for node in nodes:
+        for k, v in node.metrics.counts.items():
+            if k.startswith("gossip_"):
+                out[k] = out.get(k, 0) + v
+    return dict(sorted(out.items()))
 
 
 def make_dag(n_forkers: int):
@@ -827,14 +925,28 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
     return launches
 
 
-def run_incremental(label, dag, fuse, columns_evps, failures):
-    """Phase 5: the incremental driver at ``fuse_chunks`` ``fuse``."""
+def run_incremental(label, dag, fuse, columns_evps, failures, c4=None):
+    """Phase 5: the incremental driver at ``fuse_chunks`` ``fuse``.  With
+    ``c4`` (a flight recorder and a memory monitor, phase 13(c)), the
+    driver dumps its triggers there and runs inside a device memory
+    phase."""
     members, stake = dag[:2]
     kw = {} if fuse is None else {"fuse_chunks": fuse}
     inc = IncrementalConsensus(
         members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda", **kw
     )
-    return drive_passes("incremental", label, inc, dag, columns_evps, failures)
+    if c4 is None:
+        return drive_passes("incremental", label, inc, dag, columns_evps, failures)
+    inc.flightrec, mon = c4
+    with mon.phase(f"incremental {label}"):
+        return drive_passes("incremental", label, inc, dag, columns_evps, failures)
+
+
+def config4_observers():
+    """Phase 13(c)'s flight recorder and device memory monitor for phase
+    5's config-4 incremental run."""
+    return (FlightRecorder(dump_dir=os.path.join(TRACE_DIR, "flightrec config4")),
+            MemoryMonitor(device="cuda", enable_host=False))
 
 
 def run_streaming(name, dag, columns_evps, failures):
@@ -1217,7 +1329,7 @@ def check_member_sharded(packs, failures):
     return rows, tally_row, block_row
 
 
-def live_simulation(n_members, min_batch, mesh_shape):
+def live_simulation(n_members, min_batch, mesh_shape, **obs_kw):
     """The port's gossip simulation of ``n_members`` nodes at ``LIVE_SEED``.
     Node 0 runs ``backend="tpu"`` with ``tpu_min_batch`` ``min_batch`` (and
     ``mesh_shape``), so its passes run on the card through the
@@ -1226,8 +1338,9 @@ def live_simulation(n_members, min_batch, mesh_shape):
     one's engine mirrors its store and never runs a pass.  The oracle's
     Python passes on 63 peers would take the phase's whole time, and what a
     peer serves depends on its store alone, not on its consensus state, so
-    the DAG is the one a population of oracle nodes gossips."""
-    sim = make_simulation(n_members, seed=LIVE_SEED)
+    the DAG is the one a population of oracle nodes gossips.  ``obs_kw``
+    (``metrics=``, ``finality=``, ``flightrec=``) go to ``make_simulation``."""
+    sim = make_simulation(n_members, seed=LIVE_SEED, **obs_kw)
     base = sim.config
     peers = dataclasses.replace(base, backend="tpu", tpu_min_batch=2**62)
     for node in sim.nodes[1:]:
@@ -1472,6 +1585,471 @@ def run_restore(node, failures):
     return launches
 
 
+# ------------------------------------------------- phase 13: observability
+
+#: the hand-written kernels' entry points, as the profiler names them
+HAND_KERNELS = ("bmm_or_kernel", "pack_b", "tile", "pack", "tally")
+INC_TRACE_PASS = 5              # the steady incremental pass phase 13(b) traces
+# the columns pass's recorded window: rounds_chunk_stage calls TRACE_SKIP + 2
+# onward (136 calls a config-3 pass), TRACE_ACTIVE of them
+TRACE_SKIP = 60
+TRACE_ACTIVE = 24
+
+
+def _kernel_fn(name: str) -> str:
+    """A CUDA kernel's function name from the profiler's demangled name
+    (``void (anonymous namespace)::tile(...)`` -> ``tile``)."""
+    n = name[5:] if name.startswith("void ") else name
+    n = n.replace("(anonymous namespace)::", "")
+    return n.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def _union(intervals):
+    """Merged, sorted ``[start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+# the trace events card_timeline reads: the card's kernels and copies and
+# the pipeline's stage ranges (record_function)
+_TRACE_EVENT = re.compile(
+    r'"ph": "X",\s*"cat": "(kernel|gpu_memcpy|gpu_memset|user_annotation)",'
+    r'\s*"name": "((?:[^"\\\\]|\\\\.)*)",\s*"pid": [^,]*,\s*"tid": [^,]*,'
+    r'\s*"ts": ([-0-9.e+]+),\s*"dur": ([-0-9.e+]+)')
+
+
+def _trace_events(path):
+    """``(cat, name, start, end)`` (us) of the ``torch.profiler`` Chrome
+    trace's events that :func:`card_timeline` reads, matched in the text
+    (the exporter writes an event's keys in this order), so a trace of
+    several hundred MB is read without building its JSON tree."""
+    with open(path) as f:
+        text = f.read()
+    for m in _TRACE_EVENT.finditer(text):
+        cat, name, ts, dur = m.groups()
+        if "\\" in name:
+            name = json.loads(f'"{name}"')
+        t = float(ts)
+        yield cat, name, t, t + float(dur)
+
+
+def windowed_trace(run, path, skip, active):
+    """``run()`` under ``torch.profiler`` (host and card) stepped at every
+    ``pipeline.rounds_chunk_stage`` call (the obs stage-observer seam): the
+    trace holds the ``active`` calls after the first ``skip`` + 1, each
+    with the host work that follows it, written to ``path``.  Returns ``run()``'s value
+    and the export seconds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    export = {}
+
+    def ready(prof):
+        t0 = time.perf_counter()
+        prof.export_chrome_trace(path)
+        export["s"] = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=skip, warmup=1, active=active, repeat=1),
+                 on_trace_ready=ready) as prof:
+        obs.set_stage_observer(
+            lambda name, fn, args, kw:
+            prof.step() if name == "pipeline.rounds_chunk_stage" else None)
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            obs.set_stage_observer(None)
+    return out, export.get("s")
+
+
+def card_timeline(tag, path, smi, extra):
+    """Phase 13(b): the card's busy and idle share in one profiler trace
+    (a Chrome trace from ``torch.profiler``, times in us).  Busy = the
+    union of the CUDA kernel intervals; the window = the first to the last
+    kernel or copy (the profiler's own start-up, a second or more of no
+    device work, stays out).  Prints
+    the window, busy and idle seconds and shares, the kernel launches, the
+    top 5 device operations, the hand-written kernels' share of busy time
+    and the 5 longest idle gaps with the pipeline stage the host was in.
+    Returns the row."""
+    kern, copies, stages = [], [], []
+    for cat, name, a, b in _trace_events(path):
+        if cat == "kernel":
+            kern.append((a, b, name))
+        elif cat != "user_annotation":
+            copies.append((a, b, name))
+        elif name.startswith("pipeline."):
+            stages.append((a, b, name))
+    stages.sort()
+    ends = [(a, b) for a, b, _ in kern + copies] or [(a, b) for a, b, _ in stages]
+    t0 = min(a for a, _ in ends)
+    t1 = max(b for _, b in ends)
+    busy = _union((a, b) for a, b, _ in kern)
+    busy_us = sum(b - a for a, b in busy)
+    copy_us = sum(b - a for a, b in _union((a, b) for a, b, _ in copies))
+    by_op = {}
+    for a, b, name in kern + copies:
+        k = name[:96]
+        tot, n = by_op.get(k, (0.0, 0))
+        by_op[k] = (tot + b - a, n + 1)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:5]
+    hand_us = sum(b - a for a, b, name in kern if _kernel_fn(name) in HAND_KERNELS)
+    gaps = [(b0, a1) for (_, b0), (a1, _) in zip(busy, busy[1:])]
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
+
+    def stage_at(t):
+        inside = [s for s in stages if s[0] <= t <= s[1]]
+        return min(inside, key=lambda s: s[1] - s[0])[2] if inside else "host, no stage"
+
+    window_us = t1 - t0
+    if "untraced_s" in extra:
+        # the profiler slows the host; the card's busy seconds are its own
+        extra = {**extra, "busy_share_untraced": busy_us / 1e6 / extra["untraced_s"]}
+    row = {
+        "trace": tag, **extra, "card": smi,
+        "window_s": window_us / 1e6, "busy_s": busy_us / 1e6,
+        "busy_share": busy_us / window_us, "idle_share": 1 - busy_us / window_us,
+        "copy_s": copy_us / 1e6, "kernel_launches": len(kern),
+        "hand_kernel_share_of_busy": hand_us / busy_us if busy_us else 0.0,
+        "top_device_ops": [{"name": k, "s": v[0] / 1e6, "calls": v[1]} for k, v in top],
+        "longest_idle_gaps": [{"s": (b - a) / 1e6, "stage": stage_at(a)}
+                              for a, b in longest],
+        "stage_ranges": len(stages),
+    }
+    print(f"card timeline {tag}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def registry_values(reg, names) -> dict:
+    return {k: reg.value(k) for k in names}
+
+
+def stage_cost_us(calls: int = 2000) -> dict:
+    """Host microseconds a stage call costs through ``StageClock`` with no
+    ambient Obs and under one with a dispatch profiler (a no-op stage on the
+    card's device, so the synchronize is in both)."""
+    clock = StageClock(torch.device("cuda"))
+    x = torch.zeros(4, device="cuda")
+
+    def per_call():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            clock.stage_call("pipeline.noop", torch.Tensor.view, x, -1)
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    off = per_call()
+    with obs.enabled(obs.Obs(profiler=DispatchProfiler())):
+        on = per_call()
+    return {"off": off, "obs": on}
+
+
+def run_obs_columns(packed, untraced, failures):
+    """Phase 13(a): a warm columns pass on config 3 under an ambient Obs with
+    a dispatch profiler: golden digests, the launches of the untraced pass
+    (``untraced`` = phase 4's ``(launches, wall)``), no ``compile`` call,
+    the protocol gauges equal to the reference's (``OBS_GOLDEN``).  Prints
+    the report table and the profiler's summary.  Returns the result, its
+    rounds-to-decision list, the launches and a rounds-chunk call's seconds
+    (with its column adds)."""
+    tag = "obs columns config3"
+    cfg = SwirldConfig(n_members=N_MEMBERS)
+    prof = DispatchProfiler()
+    o = obs.Obs(profiler=prof)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.enabled(o):
+        prof.begin_chunk("columns")
+        result = run_consensus(packed, cfg, device="cuda")
+        prof.end_chunk(n_events=packed.n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    base_launches, base_wall = untraced
+    # the same pass untraced once more, right after: the host's speed drifts
+    # between phases more than Obs costs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_consensus(packed, cfg, device="cuda")
+    torch.cuda.synchronize()
+    next_wall = time.perf_counter() - t0
+    print(f"{tag}: {wall} s ({packed.n / wall} events/s); untraced {base_wall} s "
+          f"(phase 4), {next_wall} s (just after): Obs {100 * (wall / next_wall - 1)} % "
+          f"against the latter; launches {json.dumps(launches)}; Obs's own cost a "
+          f"stage {stage_cost_us()} us", flush=True)
+    if launches != base_launches:
+        failures.append(f"{tag}: launches {launches} != untraced {base_launches}")
+    digests = result_digests(packed, result)
+    if digests != GOLDEN["config3"]:
+        failures.append(f"{tag}: digests {digests} != golden")
+    compiles = obs.compile_counts(o.registry)
+    if compiles:
+        failures.append(f"{tag}: compile calls on a warm pass: {compiles}")
+    got = registry_values(o.registry, OBS_GAUGES)
+    fin = FinalityTracker("batch")
+    record_batch_result(fin, result)
+    got["rtd"] = rtd_digest(fin.rtd)
+    print(f"{tag}: registry {json.dumps(got)}", flush=True)
+    if got != OBS_GOLDEN:
+        failures.append(f"{tag}: registry {got} != the reference's {OBS_GOLDEN}")
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "columns.obs.jsonl")
+    o.save(path)
+    for line in render_report(load_trace(path)).splitlines():
+        print(f"{tag}: report | {line}", flush=True)
+    summary = prof.summary()
+    summary.pop("per_chunk")
+    print(f"{tag}: dispatch profiler {json.dumps(summary)}", flush=True)
+    # a rounds-chunk call and the column adds after it, untraced
+    call_s = sum(o.registry.value("pipeline_stage_seconds",
+                                  {"stage": f"pipeline.{stage}", "kind": "execute"})
+                 for stage in ("rounds_chunk_stage", "ssm_block_stage"))
+    return result, fin.rtd, launches, call_s / got["pipeline_chunk_scans_total"]
+
+
+def run_trace_columns(dag, base_launches, chunk_call_s, smi, failures):
+    """Phase 13(b), columns.  ``trace_consensus`` over the columns pass of
+    config 3's first ``INC_CHUNK`` events, whole (its export timed); then
+    config 3's whole pass with a window of ``TRACE_ACTIVE`` rounds-chunk
+    calls from the middle of the scan recorded (``windowed_trace``): a
+    whole 10 000-event trace is ~2 GB and takes ~150 s to record, stop and
+    export and ~40 s to read on an H100's host (PERF.md).  The windowed
+    pass's launches equal the untraced pass's (``base_launches``); both
+    traced passes' digests are the untraced ones'.  ``chunk_call_s`` is a
+    rounds-chunk call's untraced seconds with its column adds (phase
+    13(a)).  Returns the windowed pass's launches and the timeline rows."""
+    members, stake, events, packed, _keys = dag
+    tag = "trace columns config3"
+    cfg = SwirldConfig(n_members=N_MEMBERS)
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    rows = []
+    prefix = pack_events(events[:INC_CHUNK], members, stake)
+    label = f"trace_consensus columns config3[:{INC_CHUNK}]"
+    outdir = os.path.join(TRACE_DIR, "columns")
+    t0 = time.perf_counter()
+    result = trace_consensus(prefix, cfg, outdir=outdir, device="cuda")
+    wall = time.perf_counter() - t0
+    if result_digests(prefix, result) != result_digests(
+            prefix, run_consensus(prefix, cfg, device="cuda")):
+        failures.append(f"{label}: digests != the untraced pass's")
+    path = os.path.join(outdir, "trace.json")
+    rows.append(card_timeline(label, path, smi, {
+        "whole_pass": True, "call_s": wall,
+        "export_s": result.timings["trace_export_seconds"],
+        "trace_bytes": os.path.getsize(path),
+    }))
+    os.remove(path)
+
+    label = f"{tag} window"
+    path = os.path.join(TRACE_DIR, "columns-window.json")
+    reset_launches()
+    t0 = time.perf_counter()
+    result, export_s = windowed_trace(
+        lambda: run_consensus(packed, cfg, device="cuda"), path, TRACE_SKIP, TRACE_ACTIVE)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    if launches != base_launches:
+        failures.append(f"{label}: launches {launches} != untraced {base_launches}")
+    if result_digests(packed, result) != GOLDEN["config3"]:
+        failures.append(f"{label}: digests != golden")
+    rows.append(card_timeline(label, path, smi, {
+        "whole_pass": False, "call_s": wall, "export_s": export_s,
+        "untraced_s": chunk_call_s * TRACE_ACTIVE,
+        "window": f"rounds_chunk_stage calls {TRACE_SKIP + 2}-"
+                  f"{TRACE_SKIP + 1 + TRACE_ACTIVE} of the pass, each with the host "
+                  "work up to the next",
+        "trace_bytes": os.path.getsize(path),
+    }))
+    os.remove(path)
+    for row in rows:
+        if row["kernel_launches"] <= 0 or row["hand_kernel_share_of_busy"] <= 0:
+            failures.append(f"{row['trace']}: the trace holds no hand-written kernel")
+    return launches, rows
+
+
+def traced_ingest(inc, chunk):
+    """One ``ingest`` under ``torch.profiler`` (host and card), its trace
+    written under ``TRACE_DIR``.  Returns the trace's path and its row's
+    fields for :func:`card_timeline`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st = inc.ingest(chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "incremental.json")
+    prof.export_chrome_trace(path)
+    export_s = time.perf_counter() - t0
+    return path, {
+        "whole_pass": True, "pass": INC_TRACE_PASS, "new_events": st["new_events"],
+        "rebased": st["rebased"], "export_s": export_s,
+        "trace_bytes": os.path.getsize(path),
+    }
+
+
+def run_obs_driver(kind, name, dag, batch_rtd, base_launches, mon, smi, failures):
+    """Phase 13(c): one driver (``kind`` incremental at ``fuse_chunks`` 8,
+    or streaming) over one configuration in chunks of ``INC_CHUNK``, with a
+    finality tracker, a flight recorder and an ambient Obs, inside a device
+    memory phase; the incremental config-3 run's pass ``INC_TRACE_PASS``
+    traced (phase 13(b)).  Checks: golden digests, launches equal to the
+    untraced run's (``base_launches``), the rounds-to-decision list equal to
+    the batch pass's (``batch_rtd``), the registry's
+    ``incremental_*`` / ``store_*`` gauges equal to the driver's own
+    counters.  Prints the triggers and the profiler's summary."""
+    members, stake, events, packed, _keys = dag
+    tag = f"obs {kind} {name}"
+    cls = IncrementalConsensus if kind == "incremental" else StreamingConsensus
+    inc = cls(members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda")
+    inc.finality = FinalityTracker(kind)
+    rec = inc.flightrec = FlightRecorder(
+        dump_dir=os.path.join(TRACE_DIR, f"flightrec {kind} {name}"))
+    prof = DispatchProfiler()
+    o = obs.Obs(profiler=prof)
+    reset_launches()
+    traced = None
+    t0 = time.perf_counter()
+    with obs.enabled(o), mon.phase(f"{kind} {name}"):
+        for i in range(0, len(events), INC_CHUNK):
+            chunk = events[i : i + INC_CHUNK]
+            if kind == "incremental" and i // INC_CHUNK == INC_TRACE_PASS:
+                traced = traced_ingest(inc, chunk)
+            else:
+                inc.ingest(chunk)
+        if kind == "streaming":
+            inc.store.archive.digest()        # drains the pack worker
+    wall = time.perf_counter() - t0
+    if traced is not None:
+        # the untraced time of a steady pass: the later passes' mean
+        later = [c["wall_s"] for c in prof.chunks[INC_TRACE_PASS + 1 :]]
+        path, extra = traced
+        card_timeline(f"incremental {name} pass {INC_TRACE_PASS}", path, smi,
+                      {**extra, "untraced_s": sum(later) / len(later)})
+        os.remove(path)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    reg = o.registry
+    print(f"{tag}: {wall} s, {inc.passes} passes, {inc.rebases} rebases, launches "
+          f"{json.dumps(launches)}", flush=True)
+    if launches != base_launches:
+        failures.append(f"{tag}: launches {launches} != untraced {base_launches}")
+    digests = result_digests(packed, inc.result())
+    if digests != GOLDEN[name]:
+        failures.append(f"{tag}: digests {digests} != golden")
+    rtd = inc.finality.rtd
+    print(f"{tag}: rounds-to-decision {json.dumps(rtd_digest(rtd))}, finality "
+          f"{json.dumps(inc.finality.summary())}", flush=True)
+    if rtd != batch_rtd:
+        failures.append(f"{tag}: rounds-to-decision list != the batch pass's")
+    want = {"incremental_window_size": inc.window_size,
+            "incremental_pruned_prefix": inc.pruned_prefix,
+            "incremental_r_base": inc._r_base,
+            "incremental_passes_total": inc.passes,
+            "incremental_rebases_total": inc.rebases}
+    if kind == "streaming":
+        stats = inc.store.stats()
+        want.update(store_resident_bytes=stats["resident_bytes"],
+                    store_resident_tiles=stats["resident_tiles"],
+                    store_archived_rows=inc.store.archive.n_rows,
+                    store_spilled_rows_total=inc.store.archive.spilled_rows)
+        print(f"{tag}: resident_bytes {stats['resident_bytes']}, device peak "
+              f"{mon.phases[f'{kind} {name}']['device_peak_bytes']} bytes", flush=True)
+    got = registry_values(reg, want)
+    print(f"{tag}: gauges {json.dumps(got)}", flush=True)
+    if got != want:
+        failures.append(f"{tag}: gauges {got} != the driver's own {want}")
+    print(f"{tag}: triggers {json.dumps(rec.trigger_counts)}", flush=True)
+    for path in rec.dumps:
+        dump = load_dump(path)
+        print(f"{tag}: trigger {dump['reason']} detail {json.dumps(dump['detail'])} "
+              f"decided_frontier {json.dumps(dump['decided_frontier'])}", flush=True)
+    summary = prof.summary()
+    summary.pop("per_chunk")
+    print(f"{tag}: dispatch profiler {json.dumps(summary)}", flush=True)
+    if kind == "streaming":
+        inc.store.close()
+    return launches, inc
+
+
+def run_live_obs(smi, failures):
+    """Phase 13(d): the live node with its observability wired by
+    ``make_simulation(metrics=True, finality=True, flightrec=...)``, node 0
+    on the card until it holds ``LIVE_OBS_EVENTS`` events.  Node 0's
+    digests, its rounds-to-decision list (its decided order through
+    ``record_batch_result``: a ``"tpu"`` node's engine feeds no tracker, in
+    either package) and the population's gossip counters equal the
+    reference's (``LIVE_OBS_GOLDEN``).  Returns the launches."""
+    tag = "obs live node"
+    rec = FlightRecorder()
+    sim = live_simulation(N_MEMBERS, LIVE_MIN_BATCH, None, metrics=True,
+                          finality=True, flightrec=rec)
+    reset_launches()
+    t0 = time.perf_counter()
+    turns = gossip_until(sim, LIVE_OBS_EVENTS)
+    node = sim.nodes[0]
+    eng = node._tpu_engine
+    if eng.last_result is None or eng.last_result.n != len(node.hg):
+        eng.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    packed = eng.packer.pack()
+    fin = FinalityTracker("oracle")
+    record_batch_result(fin, eng.last_result)
+    n_oracle = LIVE_OBS_GOLDEN["oracle_rtd"]["n"]
+    got = {"turns": turns, "events": packed.n, **result_digests(packed, eng.last_result),
+           "rtd": rtd_digest(fin.rtd), "oracle_rtd": rtd_digest(fin.rtd[:n_oracle]),
+           "gossip": gossip_totals(sim.nodes)}
+    print(f"{tag}: {wall} s, {json.dumps(got)}", flush=True)
+    print(f"{tag}: node_gauges {json.dumps(node_gauges(node))}", flush=True)
+    print(f"{tag}: node 0 tracker {json.dumps(node.finality.summary())}, flight "
+          f"recorder {rec.records_total} records", flush=True)
+    if got != LIVE_OBS_GOLDEN:
+        failures.append(f"{tag}: {got} != the reference's {LIVE_OBS_GOLDEN}")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_observability(dags, packs, untraced, base, c4, smi, failures):
+    """Phase 13.  ``untraced`` is phase 4's config-3 columns ``(launches,
+    wall)``; ``base`` maps ``(kind, name)`` to phase 5 / 6's launches; ``c4``
+    is phase 5's config-4 incremental run's ``(flight recorder, memory
+    monitor)``, read here (13(c): its triggers and device peak)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    _result, batch_rtd, columns, chunk_call_s = run_obs_columns(
+        packs["config3"], untraced, failures)
+    launches["obs_columns"] = {"config3": columns}
+    traced, _rows = run_trace_columns(
+        dags["config3"], untraced[0], chunk_call_s, smi, failures)
+    launches["obs_trace"] = {"config3": traced}
+    mon = MemoryMonitor(device="cuda", enable_host=False)
+    launches["obs_drivers"] = {}
+    for kind in ("incremental", "streaming"):
+        launches["obs_drivers"][f"{kind} config3"], inc = run_obs_driver(
+            kind, "config3", dags["config3"], batch_rtd, base[(kind, "config3")], mon,
+            smi, failures)
+        del inc
+        torch.cuda.empty_cache()
+    rec, c4_mon = c4
+    tag = "obs incremental config4 (phase 5's run)"
+    print(f"{tag}: triggers {json.dumps(rec.trigger_counts)}", flush=True)
+    for path in rec.dumps:
+        dump = load_dump(path)
+        print(f"{tag}: trigger {dump['reason']} detail {json.dumps(dump['detail'])} "
+              f"decided_frontier {json.dumps(dump['decided_frontier'])}", flush=True)
+    print(f"obs memory (device peaks, bytes): "
+          f"{json.dumps({**mon.phases, **c4_mon.phases})}", flush=True)
+    launches["obs_live_node"] = {"columns node": run_live_obs(smi, failures)}
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    print(f"observability: {time.perf_counter() - t_phase} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1523,9 +2101,11 @@ def main() -> int:
             if path == "columns":
                 columns_evps[name] = evps
     launches["incremental"] = {}
+    c4 = config4_observers()
     for label, (name, fuse) in INC_RUNS.items():
         launches["incremental"][label] = run_incremental(
-            label, dags[name], fuse, columns_evps[name], failures
+            label, dags[name], fuse, columns_evps[name], failures,
+            c4=c4 if label == "config4" else None,
         )
     launches["streaming"], archives = {}, {}
     for name in CONFIGS:
@@ -1561,6 +2141,11 @@ def main() -> int:
     run_churn(failures)
     launches["restore"] = {"columns node": run_restore(live_nodes.pop("columns node"), failures)}
     print(f"dynamic membership and restore: {time.perf_counter() - t0} s", flush=True)
+
+    untraced = (launches["columns"]["config3"], packs["config3"].n / columns_evps["config3"])
+    base = {("incremental", name): launches["incremental"][name] for name in CONFIGS}
+    base[("streaming", "config3")] = launches["streaming"]["config3"]
+    launches.update(run_observability(dags, packs, untraced, base, c4, smi, failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

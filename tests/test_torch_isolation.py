@@ -20,6 +20,8 @@ from tpu_swirld_torch.packing import pack_events
 from tpu_swirld_torch.sim import generate_gossip_dag
 
 ROOT = Path(__file__).resolve().parents[1]
+OBS_MODULES = ("__init__", "__main__", "registry", "tracer", "profile",
+               "memory", "finality", "flightrec", "report", "cluster_trace")
 
 
 def _port_files():
@@ -49,7 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {
         "tpu_swirld_torch/backend.py", "tpu_swirld_torch/oracle/node.py",
         "tpu_swirld_torch/oracle/graph.py", "tpu_swirld_torch/transport.py",
-        "tpu_swirld_torch/obs.py", "tpu_swirld_torch/sim.py",
+        "tpu_swirld_torch/sim.py", "tpu_swirld_torch/metrics.py",
         "tpu_swirld_torch/checkpoint.py",
         "tpu_swirld_torch/membership/__init__.py",
         "tpu_swirld_torch/membership/dynamic.py",
@@ -58,6 +60,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "tpu_swirld_torch/membership/repack.py",
         "tpu_swirld_torch/membership/sim.py",
         "tpu_swirld_torch/membership/txs.py",
+        *(f"tpu_swirld_torch/obs/{m}.py" for m in OBS_MODULES),
     } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -67,8 +70,10 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_import_leaves_jax_unloaded():
+    obs = ", ".join(f"tpu_swirld_torch.obs.{m}" for m in OBS_MODULES[2:])
     code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
-            "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, sys; "
+            "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, "
+            f"tpu_swirld_torch.metrics, {obs}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -100,6 +105,23 @@ def test_streaming_without_device_raises_without_gpu():
         make_mesh(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MeshStreamingConsensus(make_mesh(2, device="cpu"), members)
+
+
+def test_memory_monitor_and_trace_without_device_raise_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from tpu_swirld_torch.metrics import trace_consensus
+    from tpu_swirld_torch.obs import MemoryMonitor
+
+    members, stake, events, _keys = generate_gossip_dag(4, 40, seed=1)
+    packed = pack_events(events, members, stake)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MemoryMonitor(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MemoryMonitor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trace_consensus(packed, outdir=str(tmp_path / "t"), device="cuda")
+    assert not (tmp_path / "t").exists()
 
 
 def _chip_smoke(cwd):

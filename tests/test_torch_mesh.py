@@ -162,7 +162,7 @@ def test_mesh_smoke_row_sharded(d):
     st = got.ingest([])
     assert st["mesh_devices"] == d and st["mesh_repins"] == 0
     # every strongly-sees block (rebase column adds included) ran M x D hops
-    assert len(hop_calls) == 6 * d * got.stages.calls["pipeline.ssm_block_stage"] > 0
+    assert len(hop_calls) == 6 * d * got.stages.calls["pipeline.ssm_block_mesh"] > 0
     assert_batch_parity(got, events, members, stake, cfg)
 
 

@@ -45,6 +45,11 @@ member-axis repack on the card.  :func:`save_node` / :func:`load_node`
 reference's checkpoint format; a restored ``"tpu"`` node replays on the
 card.
 
+:mod:`tpu_swirld_torch.obs` and :mod:`tpu_swirld_torch.metrics` are the
+observability layer (spans, protocol gauges, finality tracking, the flight
+recorder, the dispatch profiler and ``trace_consensus``, a
+``torch.profiler`` trace of a pass), off unless enabled.
+
 Entry points take ``device=`` (default ``"cuda"``) and raise when no GPU is
 present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of

@@ -4,7 +4,7 @@ SwirldConfig``, every field with the same name and default.
 The streaming and archive knobs resolve as the reference's do: an explicit
 ``SwirldConfig`` field wins, then the ``SWIRLD_*`` environment variable,
 then the built-in default (:func:`resolve_stream_settings`,
-:func:`resolve_archive_settings`).
+:func:`resolve_archive_settings`, :func:`resolve_flightrec_settings`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,13 @@ _ARCHIVE_ENV = {
     "archive_compress_level": ("SWIRLD_ARCHIVE_COMPRESS_LEVEL", 1, int),
     "archive_queue_depth": ("SWIRLD_ARCHIVE_QUEUE_DEPTH", 8, int),
     "archive_async": ("SWIRLD_ARCHIVE_ASYNC", True, _env_flag),
+}
+
+#: built-in flight-recorder defaults (field -> (env var, default, parser))
+_FLIGHTREC_ENV = {
+    "flightrec_capacity": ("SWIRLD_FLIGHTREC_CAPACITY", 256, int),
+    "flightrec_max_dumps": ("SWIRLD_FLIGHTREC_MAX_DUMPS", 16, int),
+    "flightrec_dir": ("SWIRLD_FLIGHTREC_DIR", None, str),
 }
 
 #: built-in streaming-dispatch defaults (field -> (env var, default, parser))
@@ -61,6 +68,17 @@ def resolve_archive_settings(config: Optional["SwirldConfig"] = None) -> Dict:
         "archive_compress_level": "compress_level",
         "archive_queue_depth": "queue_depth",
         "archive_async": "async_spill",
+    })
+
+
+def resolve_flightrec_settings(config: Optional["SwirldConfig"] = None) -> Dict:
+    """Concrete flight-recorder settings, ``{"capacity", "max_dumps",
+    "dump_dir"}`` (``dump_dir`` may be ``None``: record in memory, never
+    dump)."""
+    return _resolve(config, _FLIGHTREC_ENV, {
+        "flightrec_capacity": "capacity",
+        "flightrec_max_dumps": "max_dumps",
+        "flightrec_dir": "dump_dir",
     })
 
 
@@ -106,10 +124,11 @@ class SwirldConfig:
       quarantine_forkers: a detected equivocator opens its breaker at once.
       max_fork_branches: branch tails walked per forked creator per reply.
       flightrec_capacity, flightrec_max_dumps, flightrec_dir: the flight
-        recorder's settings, and ``net_*``: the socket transport's.  They
-        are carried so that a config, and a checkpoint header that holds
-        one, means the same in both packages; the port has neither layer
-        yet (ROADMAP A9 and ``net/``) and reads none of them.
+        recorder's settings (:func:`resolve_flightrec_settings`), and
+        ``net_*``: the socket transport's.  They are carried so that a
+        config, and a checkpoint header that holds one, means the same in
+        both packages; the port has no socket transport yet (ROADMAP
+        ``net/``) and reads no ``net_*`` field.
       membership_delay: rounds between a membership transaction's decision
         (the round received of its carrier event) and the first round its
         epoch governs (:mod:`tpu_swirld_torch.membership`).

@@ -4,16 +4,20 @@ Counterparts: ``pallas_kernels.accel_compiled``/``resolve_interpret``
 (here the kernel or its plain version is chosen by where the tensors live),
 ``pipeline.default_matmul_dtype`` (the port has no dtype choice: its CUDA
 kernels use bit operations, and its plain matmuls run in float32 with TF32
-off, pinned below) and ``obs.stage_call`` / ``obs.to_host``.
+off, pinned below).  :func:`to_host` is :func:`tpu_swirld_torch.obs.
+to_host`, the pull seam that counts D2H bytes into the ambient profiler.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict
 
-import numpy as np
 import torch
+
+from tpu_swirld_torch import obs
+from tpu_swirld_torch.obs import to_host  # noqa: F401  (the pull seam)
 
 # The fame stake tallies multiply stake values into float32 matmuls, exact
 # only while inputs and sums stay exact in f32 (below 2^24).  TF32 rounds the
@@ -43,6 +47,12 @@ class StageClock:
 
     ``stage_call`` synchronizes the CUDA device after the stage, so a
     stage's seconds measure its completion on the card, not its enqueue.
+    Every stage also routes through :func:`tpu_swirld_torch.obs.
+    stage_call`'s seam, which records it under the ambient ``Obs`` (a span,
+    ``pipeline_stage_seconds`` / ``pipeline_stage_calls``, the dispatch
+    profiler) and passes it through when observability is off.  Under a
+    running ``torch.profiler`` each stage is also a ``record_function``
+    range named after it, so a trace shows which stage a kernel ran in.
     """
 
     def __init__(self, device: torch.device):
@@ -51,20 +61,21 @@ class StageClock:
         self.calls: Dict[str, int] = {}
 
     def stage_call(self, name: str, fn, *args, **kw):
+        return self._call(name, 1, fn, args, kw)
+
+    def stage_call_fused(self, name: str, fused_chunks: int, fn, *args, **kw):
+        """:meth:`stage_call` for a dispatch covering ``fused_chunks`` scan
+        chunks (``obs.stage_call_fused``)."""
+        return self._call(name, max(1, int(fused_chunks)), fn, args, kw)
+
+    def _call(self, name, fused_chunks, fn, args, kw):
         t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with (torch.profiler.record_function(name)
+              if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+            out = obs._stage_call(name, fused_chunks, fn, args, kw, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.seconds[name] = self.seconds.get(name, 0.0) + dt
         self.calls[name] = self.calls.get(name, 0) + 1
         return out
-
-
-def to_host(x: torch.Tensor, copy: bool = False) -> np.ndarray:
-    """Pull a tensor to host numpy (blocks on the device).  A CPU tensor's
-    array shares its memory; ``copy=True`` returns an owned array, which a
-    caller that mutates it, or keeps it while the tensor is updated in
-    place, needs."""
-    a = x.cpu().numpy()
-    return a.copy() if copy else a

@@ -28,6 +28,10 @@ NVCC_FLAGS = (
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+#: libraries loaded (each built first when missing) in this process; a
+#: stage during which it grows is a ``compile`` call (``obs.stage_call``)
+load_count = 0
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc")
@@ -79,8 +83,10 @@ def build_all(names: Iterable[str] = SOURCES) -> List[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    global load_count
     lib = _loaded.get(name)
     if lib is None:
+        load_count += 1
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib

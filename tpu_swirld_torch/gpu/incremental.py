@@ -25,10 +25,12 @@ replaced, and every rounds-scan probe runs on a copy of a carry uploaded
 from the host mirrors, so a discarded probe never leaves a trace.  The
 reference's XLA a-side gather cache is not ported: every block goes
 through the kernel seam, the branch the reference runs under its own
-Pallas bundle.  Its
-``obs`` hooks (profiler chunks, registry gauges, finality tracker, flight
-recorder) are left out; stage seconds and calls go to a
-:class:`~tpu_swirld_torch.device.StageClock`.
+Pallas bundle.  Stage seconds and calls go to a
+:class:`~tpu_swirld_torch.device.StageClock`, and through it to the
+ambient ``obs``; the reference's other ``obs`` hooks sit at the same sites
+(a profiler chunk a pass, the ``incremental_*`` gauges, the finality
+tracker's births and decisions, the ``rebase_storm`` / ``overflow_heal``
+flight-recorder triggers).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_swirld_torch import crypto
+from tpu_swirld_torch import crypto, obs
 from tpu_swirld_torch.config import SwirldConfig, resolve_stream_settings
 from tpu_swirld_torch.device import StageClock, resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
@@ -296,7 +298,15 @@ class IncrementalConsensus:
     covers; 1 keeps the per-chunk loop.  Outputs are identical at every
     value.  ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``device="cpu"`` for the plain PyTorch versions.
+
+    Observability: set ``finality`` (a :class:`~tpu_swirld_torch.obs.
+    FinalityTracker`) and ``flightrec`` (a :class:`~tpu_swirld_torch.obs.
+    FlightRecorder`, its ring key ``flightrec_label``); the registry gauges
+    and profiler chunks follow the ambient ``obs``.
     """
+
+    #: the stage name of a strongly-sees block (the mesh driver's differs)
+    _block_stage = "pipeline.ssm_block_stage"
 
     def __init__(
         self,
@@ -385,6 +395,15 @@ class IncrementalConsensus:
         self.rebases = 0
         self.overflow_heals = 0     # capacity growths absorbed by rebases
         self.scan_steps = 0         # per-event rounds steps of extension passes
+        self.finality = None        # obs.FinalityTracker: births at ingest,
+                                    # decided at commit (_stats)
+        self.flightrec = None       # obs.FlightRecorder: storm / overflow
+                                    # triggers dump post-mortems
+        self.flightrec_label = "incremental"
+        # latency-phase attribution: the streaming driver stamps each pass's
+        # decided events "window" / "widened" / "full"; None here
+        self._latency_phase = None
+        self._latency_phase_default = None
 
         # rebase-storm guard: after `storm_threshold` consecutive detected
         # rebases the driver rebases outright for `storm_cooldown` passes,
@@ -468,8 +487,17 @@ class IncrementalConsensus:
         ``seconds``.
         """
         t0 = time.perf_counter()
+        o = obs.current()
+        if o is not None and o.profiler is not None:
+            # one profiler chunk a pass: _stats closes it on every path
+            o.profiler.begin_chunk()
+        n_before = len(self.packer)
         self._pack_delta(events)
         n_total = len(self.packer)
+        if self.finality is not None and n_total > n_before:
+            # birth = the tick this delta entered the driver, in the
+            # tracker's clock's unit
+            self.finality.mark_births(n_before, n_total)
         n_new = n_total - self._n_done
         if n_total == 0 or (n_new == 0 and self._initialized):
             return self._stats(n_new, [], t0, rebased=False)
@@ -553,11 +581,49 @@ class IncrementalConsensus:
                 ):
                     self.storm_entries += 1
                     self._storm_left = self.storm_cooldown
+                    self._trigger(
+                        "rebase_storm",
+                        {"consecutive": self._consec_rebases,
+                         "cooldown": self.storm_cooldown},
+                        len(self._order),
+                    )
         elif n_new > 0:
             self._consec_rebases = 0   # a clean incremental pass
         # a storm-mode pass reports as such even when it was the last one
         # of the cooldown (_storm_left was decremented before _stats)
         in_storm = storm or self._storm_left > 0
+        o = obs.current()
+        if o is not None:
+            g = o.registry
+            g.gauge("incremental_window_size").set(self.window_size)
+            g.gauge("incremental_pruned_prefix").set(self.pruned_prefix)
+            g.gauge("incremental_r_base").set(self._r_base)
+            g.gauge("incremental_storm_mode").set(1.0 if in_storm else 0.0)
+            g.gauge("incremental_consecutive_rebases").set(
+                self._consec_rebases
+            )
+            g.counter("incremental_passes_total").inc()
+            if rebased:
+                g.counter("incremental_rebases_total").inc()
+            if storm:
+                g.counter("incremental_storm_rebases_total").inc()
+        fin = self.finality
+        if fin is not None and ordered:
+            phase = self._latency_phase
+            now = fin.now()
+            for gi in ordered:
+                gi = int(gi)
+                fin.record_decided(
+                    gi, int(self._round_g[gi]), int(self._rr_g[gi]),
+                    now=now, phase=phase,
+                )
+            fin.set_watermark(
+                self.flightrec_label, len(self._order),
+                self._consensus_round - 1,
+            )
+        self._latency_phase = self._latency_phase_default
+        if o is not None and o.profiler is not None:
+            o.profiler.end_chunk(n_events=int(n_new))
         return {
             "new_events": int(n_new),
             "ordered": ordered,
@@ -567,6 +633,22 @@ class IncrementalConsensus:
             "storm_mode": in_storm,
             "seconds": round(time.perf_counter() - t0, 6),
         }
+
+    def _trigger(self, reason: str, detail: Dict, decided: int) -> None:
+        """A flight-recorder trigger with this driver's decided frontier
+        (a no-op without a recorder)."""
+        if self.flightrec is None:
+            return
+        o = obs.current()
+        self.flightrec.trigger(
+            reason, node=self.flightrec_label, detail=detail,
+            decided_frontier={
+                self.flightrec_label: {
+                    "decided": decided, "round": self._consensus_round,
+                },
+            },
+            registry=o.registry if o is not None else None,
+        )
 
     def _grow_global(self, n: int) -> None:
         if self._round_g.shape[0] >= n:
@@ -711,7 +793,7 @@ class IncrementalConsensus:
         """One strongly-sees block of window rows [row0, row0 + rows) x the
         column events ``cols`` through the kernel seam."""
         return self.stages.stage_call(
-            "pipeline.ssm_block_stage", self._ssm_block_fn,
+            self._block_stage, self._ssm_block_fn,
             self._sees_d, _upload(self._mt_np, self.device),
             _upload(self._stake, self.device), _upload(cols, self.device),
             row0, rows=rows, tot_stake=self._tot,
@@ -784,8 +866,8 @@ class IncrementalConsensus:
             fresh = tuple(_upload(a, self.device) for a in carry_h)
             overflow0 = torch.zeros((1,), dtype=torch.int32, device=self.device)
             for _attempt in range(span_len + 1):
-                out = self.stages.stage_call(
-                    "pipeline.rounds_span_stage", rounds_span_stage,
+                out = self.stages.stage_call_fused(
+                    "pipeline.rounds_span_stage", k, rounds_span_stage,
                     self._parents_w, self._ssm_d,
                     _upload(self._colpos_w, self.device), creator_d, stake_d,
                     n_valid, *fresh, overflow0,
@@ -1241,12 +1323,18 @@ class IncrementalConsensus:
             arrays["member_table"],
             n=n, tot=self._tot, block=self._block, r_rounds=r_rounds,
             s_max=self._s_cap, chain=chain, device=dev, stages=self.stages,
-            ssm_block_fn=self._ssm_block_fn,
+            ssm_block_fn=self._ssm_block_fn, block_stage=self._block_stage,
         )
         # adopt any self-healed capacities (the carried window table must
         # match the batch table's slot shape)
         self._s_cap = max(self._s_cap, aux["s_max"])
-        self.overflow_heals += int(aux["overflow_retries"])
+        heals = int(aux["overflow_retries"])
+        self.overflow_heals += heals
+        if heals:
+            self._trigger(
+                "overflow_heal", {"retries": heals, "s_cap": self._s_cap},
+                prev_ordered,
+            )
         result = finalize_order(packed, out, ts_unique)
 
         # ---- commit everything the batch pass decided

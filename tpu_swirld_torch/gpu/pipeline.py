@@ -36,6 +36,7 @@ device stays int32-pure.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -44,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_swirld_torch import crypto
+from tpu_swirld_torch import crypto, obs
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock, resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
@@ -57,6 +58,27 @@ INT32_MAX = kernels.INT32_MAX
 # (OVF_SLOT).  The host heals the flagged capacity and retries.
 OVF_ROUND = 1
 OVF_SLOT = 2
+
+
+def _maybe_span(o, name: str, **args):
+    """A tracer span under the ambient Obs ``o``, or a no-op when it is
+    None.  Stage-granular only, never per event."""
+    if o is None:
+        return contextlib.nullcontext()
+    return o.tracer.span(name, **args)
+
+
+def _record_shapes(o, *, n: int, n_pad: int, statics: Dict) -> None:
+    """Pad-waste and static-shape gauges for one pipeline invocation
+    (``pipeline_r_max`` is set once the chain-trimmed bound is known)."""
+    g = o.registry
+    g.gauge("pipeline_events").set(n)
+    g.gauge("pipeline_pad_events").set(n_pad - n)
+    g.gauge("pipeline_pad_waste_frac").set(
+        round((n_pad - n) / max(n_pad, 1), 6)
+    )
+    g.gauge("pipeline_s_max").set(statics["s_max"])
+    g.gauge("pipeline_block").set(statics["block"])
 
 
 def _bucket(v: int, m: int) -> int:
@@ -689,6 +711,11 @@ def _healed_capacities(ovf: int, *, r_eff: int, r_cap: int, s_eff: int,
         s_new = min(max(2 * s_eff, 1), s_cap)
     if (r_new, s_new) == (r_eff, s_eff):
         raise RuntimeError(f"unhealable overflow mask {ovf}")
+    o = obs.current()
+    if o is not None:
+        o.registry.counter("pipeline_overflow_retries_total").inc()
+        o.registry.gauge("pipeline_r_max").set(r_new)
+        o.registry.gauge("pipeline_s_max").set(s_new)
     return r_new, s_new
 
 
@@ -754,6 +781,11 @@ def run_consensus(
     arrays, statics, ts_unique = prepare_inputs(
         packed, config, block=block, r_max=r_max, s_max=s_max,
     )
+    o = obs.current()
+    if o is not None:
+        _record_shapes(
+            o, n=packed.n, n_pad=arrays["parents"].shape[0], statics=statics
+        )
     config = config or SwirldConfig(n_members=packed.n_members)
     r_max, s_max = statics["r_max"], statics["s_max"]
     chain = statics["chain"]
@@ -762,6 +794,8 @@ def run_consensus(
     # r_max or s_max grows instead of fail-stopping
     r_rounds = min(r_max, _bucket(chain + 1, 32))
     r_cap = max(int(config.max_rounds), r_max)
+    if o is not None:
+        o.registry.gauge("pipeline_r_max").set(r_rounds)
     kw = {}
     if mesh is not None:
         run, kw = _run_consensus_mesh, {"mesh": mesh}
@@ -790,11 +824,16 @@ def _run_consensus_columns(
         n=n, tot=tot, block=block, r_rounds=r_rounds, r_cap=r_cap,
         s_max=s_max, chain=chain, device=device, stages=stages,
     )
-    return _finalize_timed(
+    result = _finalize_timed(
         packed, out, ts_unique, stages, t_dev0, ssm_columns=aux["n_cols"],
         ssm_col_iterations=aux["n_scans"],
         overflow_retries=aux["overflow_retries"],
     )
+    o = obs.current()
+    if o is not None:
+        o.registry.counter("pipeline_ssm_columns_total").inc(aux["n_cols"])
+        o.registry.counter("pipeline_chunk_scans_total").inc(aux["n_scans"])
+    return result
 
 
 def _finalize_timed(packed, out, ts_unique, stages, t_dev0, **counters):
@@ -803,7 +842,8 @@ def _finalize_timed(packed, out, ts_unique, stages, t_dev0, **counters):
     counters, and the per-stage seconds and calls of ``stages``."""
     t_device = time.perf_counter() - t_dev0
     t_fin0 = time.perf_counter()
-    result = finalize_order(packed, out, ts_unique)
+    with _maybe_span(obs.current(), "pipeline.finalize"):
+        result = finalize_order(packed, out, ts_unique)
     result.timings = {
         "device_and_dispatch": t_device,
         "finalize_host": time.perf_counter() - t_fin0,
@@ -883,6 +923,9 @@ def _run_consensus_mesh(
 
     member_table, stake = pad_members(member_table, stake, mesh.size)
     kernel = consensus_fn_for_mesh(mesh)
+    o = obs.current()
+    if o is not None:
+        o.registry.gauge("mesh_devices").set(int(mesh.size))
     stages = StageClock(device)
     t_dev0 = time.perf_counter()
     has_forks = bool(len(packed.fork_pairs))
@@ -917,7 +960,7 @@ def _run_consensus_mesh(
 def _columns_pass(
     packed, config, parents, creator, t_rank, coin, stake, member_table,
     *, n, tot, block, r_rounds, s_max, chain, device, stages,
-    r_cap=None, ssm_block_fn=None,
+    r_cap=None, ssm_block_fn=None, block_stage="pipeline.ssm_block_stage",
 ):
     """Column-restricted strongly-sees execution core.
 
@@ -932,7 +975,9 @@ def _columns_pass(
 
     ``ssm_block_fn`` is the strongly-sees block seam (signature of
     :func:`~tpu_swirld_torch.gpu.kernels.ssm_block`, the default and the
-    counterpart of the reference's ``ssm_block_stage``).  ``r_cap`` bounds
+    counterpart of the reference's ``ssm_block_stage``), run as the stage
+    ``block_stage`` (the mesh driver's is ``pipeline.ssm_block_mesh``, as
+    in the reference).  ``r_cap`` bounds
     the round-window heal (default: the larger of ``config.max_rounds`` and
     ``r_rounds``).  Returns ``(out, aux)`` in the reference's shapes:
     ``out`` the numpy outputs for :func:`finalize_order` (witness table and
@@ -980,7 +1025,7 @@ def _columns_pass(
         cols_arr[: len(events)] = events
         row0, rows_eff = _suffix_rows(n_pad, min(events), n_pad)
         part = stages.stage_call(
-            "pipeline.ssm_block_stage", ssm_block_fn,
+            block_stage, ssm_block_fn,
             sees, mt_d, stake_d, _to_device(cols_arr, device), row0,
             rows=rows_eff, tot_stake=tot,
         )

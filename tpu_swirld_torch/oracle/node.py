@@ -136,8 +136,8 @@ class Node:
                                           # f = (n-1)//3 admission budget
         self.sync_branches_capped = 0     # ask_sync replies whose branch
                                           # walk hit max_fork_branches
-        # observability hooks, duck-typed: the port has no Metrics,
-        # tracer, finality tracker or flight recorder yet (ROADMAP A9)
+        # observability hooks (tpu_swirld_torch.metrics / obs; wired by
+        # sim.attach_obs), duck-typed
         self.metrics = None   # counters: .count(name, n) / .phase(name)
         self.tracer = None    # phase spans: .span(name)
         self.finality = None  # per-event lifecycle tracking

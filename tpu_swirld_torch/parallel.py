@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tpu_swirld_torch import obs
 from tpu_swirld_torch.device import resolve_device
 from tpu_swirld_torch.gpu import kernels
 from tpu_swirld_torch.store.slab import SlabStore
@@ -387,7 +388,8 @@ class MeshStreamingConsensus(StreamingConsensus):
         self._n_devices = d
         # the slabs are one tensor on the mesh's one device, so their
         # placement cannot drift and nothing is ever re-pinned: repins
-        # stays 0 (kept for the reference's mesh_repins stats key)
+        # stays 0 (kept for the reference's mesh_repins stats key; its
+        # gauge is set where a repin happens, so never here)
         self.repins = 0
         wb = max(256, int(kw.pop("window_bucket", 1024)))
         wb = -(-wb // d) * d
@@ -404,6 +406,10 @@ class MeshStreamingConsensus(StreamingConsensus):
                 device_budget_tiles=device_tile_budget,
             )
         super().__init__(members, stake, config, store=store, **kw)
+        self.flightrec_label = "streaming-mesh"
+
+    #: every block runs as this stage, as in the reference
+    _block_stage = "pipeline.ssm_block_mesh"
 
     def ingest(self, events=()) -> dict:
         st = super().ingest(events)
@@ -422,6 +428,9 @@ def pad_members(member_table: np.ndarray, stake: np.ndarray, n_devices: int):
     stake)."""
     m = member_table.shape[0]
     m_pad = ((m + n_devices - 1) // n_devices) * n_devices
+    o = obs.current()
+    if o is not None:
+        o.registry.gauge("mesh_member_pad").set(m_pad - m)
     if m_pad == m:
         return member_table, stake
     extra = m_pad - m

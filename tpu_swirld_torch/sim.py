@@ -11,9 +11,11 @@ crypto backend (``crypto.set_backend("sim")`` in both packages) a port
 simulation and a reference simulation make the same events in the same
 order, and reach the same node states.
 
-Not ported yet (ROADMAP A9): the fork-injecting adversaries, the divergent
-forkers, ``make_straggler_event``, the stream schedules, and the
-``metrics=True`` / ``finality=`` / ``flightrec=`` observability wiring.
+:func:`attach_obs` wires observability into a node as the reference's
+does (``make_simulation(metrics=, tracer=, finality=, flightrec=)``).
+
+Not ported yet (ROADMAP A10): the fork-injecting adversaries, the divergent
+forkers, ``make_straggler_event`` and the stream schedules.
 """
 
 from __future__ import annotations
@@ -25,8 +27,51 @@ from typing import Callable, Dict, List, Optional, Tuple
 from tpu_swirld_torch import crypto
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.event import Event
+from tpu_swirld_torch.metrics import Metrics
 from tpu_swirld_torch.oracle.node import Node
 from tpu_swirld_torch.transport import Transport
+
+
+def attach_obs(
+    node: Node, metrics=None, tracer=None, finality=None, flightrec=None,
+    label: Optional[str] = None,
+) -> None:
+    """Wire observability into one node.
+
+    ``metrics``: a shared :class:`~tpu_swirld_torch.metrics.Metrics` (all
+    nodes aggregate into one registry), ``True`` for a fresh per-node
+    ``Metrics()``, or ``None`` to leave it off.  ``tracer``: a
+    :class:`~tpu_swirld_torch.obs.Tracer` shared by every node it is given
+    to, or ``None``.  ``finality``: ``True`` builds a per-node
+    :class:`~tpu_swirld_torch.obs.finality.FinalityTracker` on the node's
+    own logical clock (engine ``"oracle"``, registry shared via ``metrics``
+    when given), or pass a prebuilt tracker.  ``flightrec``: a shared
+    :class:`~tpu_swirld_torch.obs.flightrec.FlightRecorder`; the node's
+    ingest digests land in its ring under ``label`` (default: a pk prefix).
+    """
+    if label is None:
+        label = "n-" + node.pk[:4].hex()
+    if metrics:            # falsy (None/False) means disabled
+        node.metrics = Metrics() if metrics is True else metrics
+    if tracer:
+        node.tracer = tracer
+    if finality:
+        if finality is True:
+            from tpu_swirld_torch.obs.finality import FinalityTracker
+
+            registry = (
+                node.metrics.registry
+                if node.metrics is not None else None
+            )
+            finality = FinalityTracker(
+                "oracle", clock=node._clock, registry=registry,
+            )
+        node.finality = finality
+        node.flightrec_label = label
+    if flightrec:
+        from tpu_swirld_torch.obs.flightrec import wire_node
+
+        wire_node(node, flightrec, label)
 
 
 def member_keys(n_nodes: int, seed: int = 0) -> List[Tuple[bytes, bytes]]:
@@ -139,29 +184,27 @@ def make_simulation(
 ) -> Simulation:
     """Build keypairs, the shared network dict and ``n_nodes`` nodes.
 
-    ``metrics=`` / ``tracer=`` give every node one shared object (duck-typed
-    as the reference's ``Metrics`` / ``Tracer``); ``metrics=True``, which
-    builds a fresh ``Metrics`` in the reference, and ``finality=`` /
-    ``flightrec=`` raise ``NotImplementedError``: the port has none of
-    them yet (ROADMAP A9).  ``transport_factory(network, network_want,
-    members, clock)`` builds the shared delivery layer.
+    ``metrics=`` / ``tracer=`` (see :func:`attach_obs`) wire gossip
+    counters and phase spans into every node; one shared ``Metrics``
+    aggregates the population's gossip into one registry, ``metrics=True``
+    gives each node its own.  ``finality=True`` gives every node its own
+    lifecycle tracker on the shared logical clock (merged into the
+    ``metrics`` registry when given); ``flightrec=`` shares one
+    :class:`~tpu_swirld_torch.obs.flightrec.FlightRecorder` across the
+    population (rings keyed ``n0..n{N-1}``).  ``transport_factory(network,
+    network_want, members, clock)`` builds the shared delivery layer.
 
     A ``"tpu"`` node builds its :class:`~tpu_swirld_torch.backend.
     TorchEngine` at its first consensus pass, on the card; set a node's
     ``_tpu_engine`` beforehand to pick another device.
     """
-    if metrics is True or finality or flightrec:
-        raise NotImplementedError(
-            "metrics=True, finality= and flightrec= need the observability "
-            "layer, which is not ported yet (ROADMAP A9)"
-        )
     config = config or SwirldConfig(n_members=n_nodes, seed=seed)
     if config.n_members != n_nodes:
         raise ValueError("config.n_members != n_nodes")
     pop = build_population(n_nodes, seed, transport_factory)
     clock = pop.clock
     nodes: List[Node] = []
-    for pk, sk in pop.keys:
+    for i, (pk, sk) in enumerate(pop.keys):
         node = Node(
             sk=sk,
             pk=pk,
@@ -172,10 +215,10 @@ def make_simulation(
             network_want=pop.network_want,
             transport=pop.transport,
         )
-        if metrics:
-            node.metrics = metrics
-        if tracer:
-            node.tracer = tracer
+        attach_obs(
+            node, metrics, tracer, finality=finality, flightrec=flightrec,
+            label=f"n{i}",
+        )
         pop.network[pk] = node.ask_sync
         pop.network_want[pk] = node.ask_events
         nodes.append(node)

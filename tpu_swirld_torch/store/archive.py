@@ -43,13 +43,18 @@ Decompressed rows are kept in a bounded LRU cache, which
 rebase.  The archive checkpoints to one ``.npz`` (no pickle) carrying a
 running BLAKE2b digest that :meth:`~SlabArchive.load` verifies; a file
 saved by either package loads in the other.  The reference's
-schedule-fuzz seam (``_injector``, for ``analysis.races``) is not ported,
-nor its ``obs`` gauges and spans.
+schedule-fuzz seam (``_injector``, for ``analysis.races``) is not ported.
+Its ``obs`` hooks are, at the same sites: the ``store_spill_queue_depth`` /
+``store_archived_rows`` gauges, the ``store_spills_total`` /
+``store_prefetches_total`` / ``store_fetches_total`` /
+``store_fetched_rows_total`` counters and the ``store.archive_fetch``
+span, all on the calling thread.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import struct
 import threading
@@ -60,7 +65,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpu_swirld_torch import crypto
+from tpu_swirld_torch import crypto, obs
 from tpu_swirld_torch.config import resolve_archive_settings
 from tpu_swirld_torch.device import to_host
 
@@ -214,6 +219,9 @@ class SlabArchive:
     def _enqueue(self, item) -> None:
         q = self._ensure_worker()
         self.max_queue_depth = max(self.max_queue_depth, q.qsize() + 1)
+        o = obs.current()
+        if o is not None:
+            o.registry.gauge("store_spill_queue_depth").set(q.qsize() + 1)
         if q.full():
             t0 = time.perf_counter()
             q.put(item)
@@ -259,6 +267,7 @@ class SlabArchive:
             self._pack_window_rows(lo, np.asarray(parents), rows)
         self.spills += 1
         self.spilled_rows += added
+        self._record_gauges()
         return added
 
     def _pack_window_rows(self, lo: int, parents: np.ndarray, rows) -> None:
@@ -305,6 +314,7 @@ class SlabArchive:
             self._pack_full_rows(start, rows)
         self.spills += 1
         self.spilled_rows += added
+        self._record_gauges()
         return added
 
     def _pack_full_rows(self, start: int, rows) -> None:
@@ -328,6 +338,9 @@ class SlabArchive:
             return
         lo = max(lo, hi - _ROW_CACHE_ENTRIES)   # cache-bounded window
         self._enqueue(("prefetch", (lo, hi)))
+        o = obs.current()
+        if o is not None:
+            o.registry.counter("store_prefetches_total").inc()
 
     def fetch(
         self, lo: int, hi: int, col_lo: int, col_hi: int,
@@ -343,19 +356,25 @@ class SlabArchive:
                 f"fetch [{lo}, {hi}) exceeds archived prefix {self.n_rows}"
             )
         self._drain()
-        if out is None:
-            out = np.zeros((hi - lo, col_hi - col_lo), dtype=bool)
-        elif out.shape != (hi - lo, col_hi - col_lo):
-            raise ValueError(
-                f"out shape {out.shape} != {(hi - lo, col_hi - col_lo)}"
-            )
-        for i, e in enumerate(range(lo, hi)):
-            row = self._row_bool(e)
-            a = min(col_hi, e + 1)
-            if a > col_lo:
-                out[i, : a - col_lo] = row[col_lo:a]
+        o = obs.current()
+        with (o.tracer.span("store.archive_fetch") if o is not None
+              else contextlib.nullcontext()):
+            if out is None:
+                out = np.zeros((hi - lo, col_hi - col_lo), dtype=bool)
+            elif out.shape != (hi - lo, col_hi - col_lo):
+                raise ValueError(
+                    f"out shape {out.shape} != {(hi - lo, col_hi - col_lo)}"
+                )
+            for i, e in enumerate(range(lo, hi)):
+                row = self._row_bool(e)
+                a = min(col_hi, e + 1)
+                if a > col_lo:
+                    out[i, : a - col_lo] = row[col_lo:a]
         self.fetches += 1
         self.fetched_rows += hi - lo
+        if o is not None:
+            o.registry.counter("store_fetches_total").inc()
+            o.registry.counter("store_fetched_rows_total").inc(hi - lo)
         return out
 
     @staticmethod
@@ -469,3 +488,13 @@ class SlabArchive:
                 pos += 3
             arch.retire_round(int(rnd), evs, fam, dec)
         return arch
+
+    # ---------------------------------------------------------------- obs
+
+    def _record_gauges(self) -> None:
+        o = obs.current()
+        if o is None:
+            return
+        g = o.registry
+        g.gauge("store_archived_rows").set(self.n_rows)
+        g.counter("store_spills_total").inc()

@@ -13,7 +13,10 @@ batch-scale slabs by design); its footprint still lands in the peaks.
 
 Under a row-sharded mesh (``n_shards`` > 1) the store also accounts the
 widest row shard, which ``device_budget_tiles`` bounds like the global
-budget.  The reference's ``obs`` gauges and counters are not ported.
+budget.  The reference's ``obs`` hooks sit at the same sites: the
+``store_resident_tiles`` / ``store_resident_bytes`` (and, sharded,
+``store_device_resident_tiles``) gauges and the
+``store_budget_overruns_total`` / ``store_spilled_rows_total`` counters.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from tpu_swirld_torch import obs
 from tpu_swirld_torch.store.archive import SlabArchive
 
 
@@ -168,6 +172,9 @@ class SlabStore:
         if not over:
             return True
         self.budget_overruns += 1
+        o = obs.current()
+        if o is not None:
+            o.registry.counter("store_budget_overruns_total").inc()
         if self.strict:
             raise TileBudgetExceeded(
                 "; ".join(over) + "; raise the budget or lower the ingest "
@@ -176,25 +183,35 @@ class SlabStore:
         return False
 
     def _touch(self) -> None:
-        self.peak_resident_tiles = max(
-            self.peak_resident_tiles, self.resident_tiles
-        )
-        self.peak_resident_bytes = max(
-            self.peak_resident_bytes, self.resident_bytes
-        )
-        self.peak_device_tiles = max(
-            self.peak_device_tiles, self.device_resident_tiles
-        )
+        rt, rb = self.resident_tiles, self.resident_bytes
+        dt = self.device_resident_tiles
+        self.peak_resident_tiles = max(self.peak_resident_tiles, rt)
+        self.peak_resident_bytes = max(self.peak_resident_bytes, rb)
+        self.peak_device_tiles = max(self.peak_device_tiles, dt)
+        o = obs.current()
+        if o is not None:
+            g = o.registry
+            g.gauge("store_resident_tiles").set(rt)
+            g.gauge("store_resident_bytes").set(rb)
+            if self.n_shards > 1:
+                g.gauge("store_device_resident_tiles").set(dt)
 
     # ------------------------------------------------------ spill / fetch
 
     def spill(self, lo: int, parents: np.ndarray, rows) -> int:
         """Retire decided window rows ``[lo, lo + d)`` into the archive
         (see :meth:`SlabArchive.spill`)."""
-        return self.archive.spill(lo, parents, rows)
+        return self._spilled(self.archive.spill(lo, parents, rows))
 
     def spill_full(self, start: int, rows) -> int:
-        return self.archive.spill_full(start, rows)
+        return self._spilled(self.archive.spill_full(start, rows))
+
+    @staticmethod
+    def _spilled(added: int) -> int:
+        o = obs.current()
+        if o is not None and added:
+            o.registry.counter("store_spilled_rows_total").inc(added)
+        return added
 
     def fetch(
         self,

@@ -26,9 +26,11 @@ recomputing the whole DAG.
 
 The parent writes its slabs in place where JAX donated them, so every row
 handed to the archive's worker is an owned device copy (``clone``), never a
-view.  The reference's ``obs`` calls (gauges, counters, latency phases) are
-left out: counters stay plain attributes and stage seconds go to the
-driver's :class:`~tpu_swirld_torch.device.StageClock`.
+view.  The reference's ``obs`` hooks sit at the same sites: the
+``stream_overlap_ratio`` / ``store_spill_queue_depth`` gauges a pass, the
+``store_widen_rebases_total`` counter, and the finality phase of each
+pass's decided events (``window``, ``widened`` or ``full``); the flight
+recorder keys its ring ``"streaming"``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from tpu_swirld_torch import obs
 from tpu_swirld_torch.config import resolve_stream_settings
 from tpu_swirld_torch.device import to_host
 from tpu_swirld_torch.gpu.incremental import IncrementalConsensus
@@ -99,6 +102,12 @@ class StreamingConsensus(IncrementalConsensus):
         self.decoded_off_thread = 0          # events decoded on the worker
         self._round_hi = 0          # next global round to ledger-retire
         self._widen_answered = False
+        self.flightrec_label = "streaming"
+        # latency attribution: a pass's decided events are stamped with how
+        # the pass decided them: window residency ("window"), an archive
+        # widening ("widened") or the full batch fallback ("full")
+        self._latency_phase = "window"
+        self._latency_phase_default = "window"
         self.widen_rebases = 0      # rebases answered by window widening
         self.full_rebases = 0       # rebases that paid the batch pass
 
@@ -150,6 +159,11 @@ class StreamingConsensus(IncrementalConsensus):
         st["archived_rows"] = arch.n_rows
         st["overlap_ratio"] = round(overlap, 4)
         st["spill_queue_depth"] = arch.pending_batches
+        o = obs.current()
+        if o is not None:
+            g = o.registry
+            g.gauge("stream_overlap_ratio").set(st["overlap_ratio"])
+            g.gauge("store_spill_queue_depth").set(st["spill_queue_depth"])
         return st
 
     # ----------------------------------------------------- decode overlap
@@ -329,8 +343,15 @@ class StreamingConsensus(IncrementalConsensus):
                     if not need:
                         self.widen_rebases += 1
                         self._widen_answered = True
+                        self._latency_phase = "widened"
+                        o = obs.current()
+                        if o is not None:
+                            o.registry.counter(
+                                "store_widen_rebases_total"
+                            ).inc()
                         return ordered
         self.full_rebases += 1
+        self._latency_phase = "full"
         return super()._rebase()
 
     def _widen_target(self) -> Optional[int]:

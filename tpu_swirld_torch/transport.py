@@ -11,7 +11,7 @@ reliable half of the reference's ``tpu_swirld/transport.py``).
   open, cooldown, half-open probe and close transitions.
 
 The reference's seeded fault injection (``LinkFaults``, ``Partition``,
-``FaultPlan``, ``FaultyTransport``) is not ported (ROADMAP A9, chaos).
+``FaultPlan``, ``FaultyTransport``) is not ported (ROADMAP A10, chaos).
 """
 
 from __future__ import annotations
