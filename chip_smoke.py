@@ -102,7 +102,7 @@
    ``block_size``, ``tpu_min_batch`` ``LIVE_MIN_BATCH``), so its consensus
    passes run ``run_consensus`` on the card through the ``TorchEngine`` its
    first pass builds; the 63 peers gossip and run no pass (see
-   :func:`live_simulation`).  Gossip until node 0 holds 10 000 events
+   :func:`live_simulation`).  Gossip until node 0 holds 4 162 events
    (``LIVE_NODES``), then ``flush()``: node 0's digests must be golden (the JAX
    reference's ``run_consensus`` on the same node's DAG), its state must
    equal the port's own ``run_consensus(pack_node(node), device="cuda")``,
@@ -111,9 +111,10 @@
    at 3 000 events: digests golden, ``ssm_tally`` launched.
 12. Dynamic membership and restore.  (a) The single-epoch pin at full
    width: ``run_dynamic(engine=e, chunk=INC_CHUNK, cross_check=True,
-   device="cuda")`` over config 3 for the batch, incremental, streaming and
-   mesh engines (the mesh on ``make_mesh(MESH_SHARDS)``): the observer's
-   order equals the native engine's and its digest is golden; per engine
+   device="cuda")`` over config 3's first ``DYN_PIN_EVENTS`` events for the
+   batch, incremental, streaming and mesh engines (the mesh on
+   ``make_mesh(MESH_SHARDS)``): the observer's order equals the native
+   engine's and its digest is golden (``PIN_GOLDEN``); per engine
    the observer's and the native engine's seconds and the launches (``bmm_or``
    and ``ssm_block``, or ``bmm_or`` and ``ssm_tally`` for the mesh; never
    ``ssm_matrix``).  (b) The port's ``churn_schedule(**CHURN)`` (16 members,
@@ -155,10 +156,31 @@
    on the card until it holds ``LIVE_OBS_EVENTS`` events: digests,
    rounds-to-decision lists and gossip counters equal to the reference's
    (``LIVE_OBS_GOLDEN``); ``node_gauges`` of node 0.
-14. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+14. Chaos and adversaries on the card, under the simulation signer.  (a)
+   The chaos acceptance scenario (:func:`acceptance_scenario`: 5 members,
+   240 turns, one divergent forker, lossy links, a partition over turns
+   80-140, member 4 down over turns 60-120) with member 4 on
+   ``backend="tpu"``: its ``TorchEngine`` runs on the card, and its restore
+   through ``load_node(device="cuda")``.  The verdict must be ok and its
+   protocol fields (:func:`chaos_fields`) equal to ``CHAOS_GOLDEN`` (the JAX
+   reference's), the restored node's engine must run passes on the card,
+   ``bmm_or`` and ``ssm_block`` launch and ``ssm_matrix`` not; prints the
+   node's passes (events, seconds) and the restore's seconds.  (b) Every
+   ``SCENARIOS`` entry with ``device="cuda"``, ``horizon_storm`` and
+   ``fork_bomb`` replayed through the incremental, streaming and
+   8-shard streaming-mesh drivers (block 64, chunk 64, window bucket 256):
+   every verdict ok, every engine row's parities true, protocol fields
+   equal to ``CHAOS_GOLDEN``, ``ssm_tally`` launched on the mesh rows,
+   ``overflow_storm``'s fork leg retried; prints each scenario's host and
+   device seconds.  (c) Config 4 through ``IncrementalConsensus`` and
+   config 3 through ``StreamingConsensus``, fed the port's
+   ``chunked_ingest_schedule(events, INC_CHUNK, delay_prob=0.02,
+   max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests golden
+   once moved back to creation order); the schedule must move events.
+15. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
-   live node, dynamic pin, restore, and phase 13's), the card's name and
-   power limit, then ``{"ok": true, ...}`` as the last line.
+   live node, dynamic pin, restore, phase 13's and phase 14's), the card's
+   name and power limit, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -166,6 +188,7 @@ phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -187,7 +210,8 @@ from tpu_swirld_torch import (
     make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
     save_packed, ssm_matrix_sharded,
 )
-from tpu_swirld_torch import obs
+from tpu_swirld_torch import chaos, obs, transport
+from tpu_swirld_torch.adversary import SCENARIOS
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock
 from tpu_swirld_torch.event import Event
@@ -202,7 +226,7 @@ from tpu_swirld_torch.obs import (
 )
 from tpu_swirld_torch.obs.report import render_report
 from tpu_swirld_torch.packing import pack_events, pack_node
-from tpu_swirld_torch.sim import generate_gossip_dag
+from tpu_swirld_torch.sim import chunked_ingest_schedule, generate_gossip_dag
 
 N_MEMBERS = 64
 N_EVENTS = 10_000
@@ -286,7 +310,9 @@ LIVE_SEED = 1
 LIVE_MIN_BATCH = 2000           # node 0's tpu_min_batch: a pass per ~2000 events
 # live node label -> (events node 0 gossips up to, tpu_min_batch, mesh_shape)
 LIVE_NODES = {
-    "columns node": (10_000, LIVE_MIN_BATCH, None),
+    # cut from 10 000 events to phase 13(d)'s 4 162 (the same DAG), to keep
+    # the whole run, phase 14 included, inside its time limit on a slow host
+    "columns node": (4_162, LIVE_MIN_BATCH, None),
     # the mesh node's depth is cut to 3 000 events: its full-matrix passes
     # repeat the whole DAG's rounds scan, and phase 10 holds the same path
     # at 10 000
@@ -299,11 +325,11 @@ LIVE_NODES = {
 # tests/test_torch_backend.py::test_live_golden_digests_match_reference.
 LIVE_GOLDEN = {
     "columns node": {
-        "turns": 10269, "events": 10051,
-        "order": "4ac75e18e4fc2ecd3c974a2046b69c4d359b5abdece4cc570b81ef362f764db9",
-        "round": "7434358839f5e34c956f959811e2193704c34abd1d5ace197dde78fcc69a9a24",
-        "famous": "0ffadfb5e88a68be4961b39a083494dffcb8a699ebae2ae8173867606ac0707b",
-        "round_received": "319680840b6cc35e8893fc8506cc02f579a256112793d5e3de5e1cd98119bc91",
+        "turns": 4294, "events": 4162,
+        "order": "70708fd65bd31af719dc80b0d75a544cc7ae82fdc1c758c1891e39b9c613d80d",
+        "round": "a3ed43959e6b4bff9c0956199aa1d81abc2707c2e6ff0b8e73696cbfdefd723e",
+        "famous": "19621a5c92e729782b880d3ab01a5ef977c1d64b08cc99bbc2d42cac8b934e11",
+        "round_received": "39a8d17fdc8bddb001b57bc7f5deecef4cdc349eb6fe7aa5555cfc72155557c5",
     },
     "mesh_shape node": {
         "turns": 3215, "events": 3039,
@@ -314,7 +340,17 @@ LIVE_GOLDEN = {
     },
 }
 # Dynamic membership (phase 12).  The single-epoch pin: run_dynamic over
-# config 3 through each device engine, ingesting INC_CHUNK events a pass.
+# config 3's first DYN_PIN_EVENTS events (cut from 10 000 to keep the run
+# inside its time limit on a slow host) through each device engine,
+# ingesting INC_CHUNK events a pass.  PIN_GOLDEN is the JAX reference's
+# run_consensus on the same events (sim signer), its decided count and
+# order digest; recomputed by
+# tests/test_torch_host.py::test_pin_golden_matches_reference.
+DYN_PIN_EVENTS = 5000
+PIN_GOLDEN = {
+    "decided": 3208,
+    "order": "fa7ef0adc28f7e2f195e4842764aac8e1a61020c545751df4273ba08877f2a83",
+}
 DYN_ENGINES = ("batch", "incremental", "streaming", "mesh")
 # engine -> (kernels it must launch, kernels it must not launch)
 DYN_KERNELS = {
@@ -383,6 +419,237 @@ LIVE_OBS_GOLDEN = {
 # The traced passes' Chrome traces go here (listed in .gitignore), and are
 # removed once read.
 TRACE_DIR = "swirld-trace"
+
+# Chaos and adversaries (phase 14).  (a) The acceptance scenario with this
+# member on the card; (b) every SCENARIOS entry, these replayed through all
+# three windowed drivers; (c) configs 3 and 4 under a straggler arrival
+# schedule (events held back up to 3 chunks).
+CHAOS_TPU_NODE = 4
+CHAOS_ENGINES = ("incremental", "streaming", "streaming-mesh")
+CHAOS_MULTI = ("horizon_storm", "fork_bomb")
+STRAGGLERS = {"delay_prob": 0.02, "max_delay": 3}
+STRAGGLER_RUNS = {"config4": "incremental", "config3": "streaming"}
+# The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
+# the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
+# section without wall times or the flight recorder's path, plus the SHA-256
+# of the oracle replay's order.  "acceptance" is acceptance_scenario() with
+# member 4 on backend="tpu"; the SCENARIOS entries run as phase 14(b) runs
+# them.  Recomputed by tests/test_torch_chaos.py and
+# tests/test_torch_adversary.py.
+CHAOS_GOLDEN = {
+    "acceptance": {
+        "faults": {"corruptions": 31, "crash_blocked": 18, "delays": 9, "drops": 147,
+            "duplicates": 13, "partition_blocked": 39, "peer_errors": 21, "reorders":
+            6},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 0, "decided_final":
+            29, "heal_turn": 140},
+        "ok": True,
+        "oracle_order_sha256":
+            "1466a621e489ef52e75ac316567cc11ae070956599f8b9236256024562083372",
+        "resilience": {"backoff_total": 136.546, "bad_replies": 5, "bad_requests": 19,
+            "budget_exhausted": 0, "circuit_opens": 41, "crashes": 1,
+            "equivocations_detected": 63, "forks_detected": 1, "horizon_violations": 0,
+            "late_witnesses": 0, "orphans_parked": 0, "quarantined_member_indices": [0,
+            2, 4], "restarts": 1, "retries": 82, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 29, "oracle_agree": True, "oracle_len": 109,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [], "attack_end": 0, "n_forkers": 1,
+            "n_nodes": 5, "n_turns": 240, "plan_seed": 3, "seed": 3},
+    },
+    "censorship": {
+        "adversary": {"budget_exhausted": 0, "equivocations_detected": 0,
+            "horizon_violations": 0, "late_witnesses": 0, "strategy": "censorship",
+            "sync_branches_capped": 0, "withholding_suspected": 11},
+        "engines": {"batch_oracle_parity": True, "engine": "incremental",
+            "incremental_batch_parity": True, "incremental_rebases": 1},
+        "faults": {},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 111,
+            "decided_final": 335, "heal_turn": 120},
+        "ok": True,
+        "oracle_order_sha256":
+            "3c4879f3b6113803ed3ddc4dcdf2f0f38eb7eee3ff384199d1fabb426dd69503",
+        "resilience": {"backoff_total": 0.0, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 0, "circuit_opens": 0, "crashes": 0,
+            "equivocations_detected": 0, "forks_detected": 0, "horizon_violations": 0,
+            "late_witnesses": 0, "orphans_parked": 0, "quarantined_member_indices": [],
+            "restarts": 0, "retries": 0, "sync_branches_capped": 0,
+            "withholding_suspected": 11},
+        "safety": {"common_prefix_len": 335, "oracle_agree": True, "oracle_len": 346,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [0], "attack_end": 120, "n_forkers": 0,
+            "n_nodes": 5, "n_turns": 200, "plan_seed": 0, "seed": 3},
+    },
+    "delayed_release": {
+        "adversary": {"budget_exhausted": 0, "equivocations_detected": 0,
+            "horizon_violations": 0, "late_witnesses": 8, "strategy": "delayed_release",
+            "sync_branches_capped": 0, "withholding_suspected": 0},
+        "engines": {"batch_oracle_parity": True, "engine": "incremental",
+            "incremental_batch_parity": True, "incremental_rebases": 7},
+        "faults": {},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 121,
+            "decided_final": 345, "heal_turn": 140},
+        "ok": True,
+        "oracle_order_sha256":
+            "b7116b1a57a734f64c32202009bb78b96a51ab335c523161a4c9335aef627d7e",
+        "resilience": {"backoff_total": 0.0, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 0, "circuit_opens": 0, "crashes": 0,
+            "equivocations_detected": 0, "forks_detected": 0, "horizon_violations": 0,
+            "late_witnesses": 8, "orphans_parked": 0, "quarantined_member_indices": [],
+            "restarts": 0, "retries": 0, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 345, "oracle_agree": True, "oracle_len": 384,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [0], "attack_end": 140, "n_forkers": 0,
+            "n_nodes": 5, "n_turns": 230, "plan_seed": 0, "seed": 5},
+    },
+    "equivocation_storm": {
+        "adversary": {"budget_exhausted": 0, "equivocations_detected": 55,
+            "horizon_violations": 0, "late_witnesses": 0, "strategy":
+            "equivocation_storm", "sync_branches_capped": 0, "withholding_suspected":
+            0},
+        "engines": {"batch_oracle_parity": True, "engine": "incremental",
+            "incremental_batch_parity": True, "incremental_rebases": 1},
+        "faults": {},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 65,
+            "decided_final": 210, "heal_turn": 120},
+        "ok": True,
+        "oracle_order_sha256":
+            "59cd2daca6edae08e856e6c44baceb93b86a44ea51f0bf1ccea1eadbcbceda9b",
+        "resilience": {"backoff_total": 0.0, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 0, "circuit_opens": 15, "crashes": 0,
+            "equivocations_detected": 55, "forks_detected": 1, "horizon_violations": 0,
+            "late_witnesses": 0, "orphans_parked": 0, "quarantined_member_indices": [],
+            "restarts": 0, "retries": 0, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 210, "oracle_agree": True, "oracle_len": 210,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [0], "attack_end": 120, "n_forkers": 0,
+            "n_nodes": 5, "n_turns": 200, "plan_seed": 0, "seed": 7},
+    },
+    "fork_bomb": {
+        "adversary": {"budget_exhausted": 0, "equivocations_detected": 250, "f_budget":
+            2, "horizon_violations": 0, "late_witnesses": 0, "n_forkers": 2, "strategy":
+            "fork_bomb", "sync_branches_capped": 0, "withholding_suspected": 0},
+        "engines": [{"batch_oracle_parity": True, "engine": "incremental",
+            "incremental_batch_parity": True, "incremental_rebases": 1},
+            {"batch_oracle_parity": True, "engine": "streaming",
+            "incremental_batch_parity": True, "incremental_rebases": 1, "store":
+            {"archived_rows": 0, "budget_overruns": 0, "budget_tiles": None,
+            "device_budget_tiles": None, "device_resident_tiles": 21, "fetched_rows": 0,
+            "fetches": 0, "n_shards": 1, "peak_device_tiles": 21, "peak_resident_bytes":
+            1376256, "peak_resident_tiles": 21, "resident_bytes": 1376256,
+            "resident_tiles": 21, "spilled_rows": 0, "spills": 0, "tile": 256},
+            "widen_rebases": 0}, {"batch_oracle_parity": True, "engine":
+            "streaming-mesh", "incremental_batch_parity": True, "incremental_rebases":
+            1, "mesh_devices": 8, "mesh_repins": 0, "store": {"archived_rows": 0,
+            "budget_overruns": 0, "budget_tiles": None, "device_budget_tiles": None,
+            "device_resident_tiles": 7, "fetched_rows": 0, "fetches": 0, "n_shards": 8,
+            "peak_device_tiles": 7, "peak_resident_bytes": 1376256,
+            "peak_resident_tiles": 21, "resident_bytes": 1376256, "resident_tiles": 21,
+            "spilled_rows": 0, "spills": 0, "tile": 256}, "widen_rebases": 0}],
+        "faults": {},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 21,
+            "decided_final": 209, "heal_turn": 130},
+        "ok": True,
+        "oracle_order_sha256":
+            "36b16edf8958a23f8f1520086a0e89fc472cbab8c71e9a270146544f092e8aa2",
+        "resilience": {"backoff_total": 0.0, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 0, "circuit_opens": 33, "crashes": 0,
+            "equivocations_detected": 250, "forks_detected": 2, "horizon_violations": 0,
+            "late_witnesses": 0, "orphans_parked": 0, "quarantined_member_indices": [0,
+            1], "restarts": 0, "retries": 0, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 209, "oracle_agree": True, "oracle_len": 350,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [0, 1], "attack_end": 130, "n_forkers": 0,
+            "n_nodes": 7, "n_turns": 220, "plan_seed": 0, "seed": 2},
+    },
+    "fork_bomb_overbudget": {
+        "adversary": {"budget_exhausted": 1, "equivocations_detected": 375, "f_budget":
+            2, "horizon_violations": 0, "late_witnesses": 0, "n_forkers": 3,
+            "silent_divergence": False, "strategy": "fork_bomb_overbudget",
+            "sync_branches_capped": 0, "withholding_suspected": 0},
+        "faults": {},
+        "liveness": {"advanced_after_heal": False, "decided_at_heal": 0,
+            "decided_final": 0, "heal_turn": 130},
+        "ok": True,
+        "oracle_order_sha256":
+            "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+        "resilience": {"backoff_total": 0.0, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 1, "circuit_opens": 41, "crashes": 0,
+            "equivocations_detected": 375, "forks_detected": 3, "horizon_violations": 0,
+            "late_witnesses": 0, "orphans_parked": 0, "quarantined_member_indices": [1,
+            2], "restarts": 0, "retries": 0, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 0, "oracle_agree": True, "oracle_len": 0,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [0, 1, 2], "attack_end": 130, "n_forkers": 0,
+            "n_nodes": 7, "n_turns": 220, "plan_seed": 0, "seed": 2},
+    },
+    "horizon_storm": {
+        "engines": [{"batch_oracle_parity": True, "engine": "incremental",
+            "incremental_batch_parity": True, "incremental_rebases": 3},
+            {"batch_oracle_parity": True, "engine": "streaming",
+            "incremental_batch_parity": True, "incremental_rebases": 3, "store":
+            {"archived_rows": 85, "budget_overruns": 0, "budget_tiles": None,
+            "device_budget_tiles": None, "device_resident_tiles": 10, "fetched_rows": 0,
+            "fetches": 0, "n_shards": 1, "peak_device_tiles": 10, "peak_resident_bytes":
+            655360, "peak_resident_tiles": 10, "resident_bytes": 655360,
+            "resident_tiles": 10, "spilled_rows": 85, "spills": 1, "tile": 256},
+            "widen_rebases": 0}, {"batch_oracle_parity": True, "engine":
+            "streaming-mesh", "incremental_batch_parity": True, "incremental_rebases":
+            3, "mesh_devices": 8, "mesh_repins": 0, "store": {"archived_rows": 85,
+            "budget_overruns": 0, "budget_tiles": None, "device_budget_tiles": None,
+            "device_resident_tiles": 5, "fetched_rows": 0, "fetches": 0, "n_shards": 8,
+            "peak_device_tiles": 5, "peak_resident_bytes": 655360,
+            "peak_resident_tiles": 10, "resident_bytes": 655360, "resident_tiles": 10,
+            "spilled_rows": 85, "spills": 1, "tile": 256}, "widen_rebases": 0}],
+        "faults": {"partition_blocked": 42},
+        "horizon": {"batch_oracle_parity": True, "engine": "incremental",
+            "horizon_violations": 0, "incremental_batch_parity": True,
+            "incremental_rebases": 3, "late_witnesses": 8},
+        "liveness": {"advanced_after_heal": True, "decided_at_heal": 0, "decided_final":
+            154, "heal_turn": 173},
+        "ok": True,
+        "oracle_order_sha256":
+            "d219f651dd530e22d863a9bea1db9b545b55dfd71bbacddf32a0786beb02e45a",
+        "resilience": {"backoff_total": 29.488, "bad_replies": 0, "bad_requests": 0,
+            "budget_exhausted": 0, "circuit_opens": 27, "crashes": 0,
+            "equivocations_detected": 17, "forks_detected": 1, "horizon_violations": 0,
+            "late_witnesses": 8, "orphans_parked": 0, "quarantined_member_indices": [4],
+            "restarts": 0, "retries": 16, "sync_branches_capped": 0,
+            "withholding_suspected": 0},
+        "safety": {"common_prefix_len": 154, "oracle_agree": True, "oracle_len": 154,
+            "prefix_agree": True},
+        "scenario": {"adversary_indices": [], "attack_end": 0, "n_forkers": 0,
+            "n_nodes": 5, "n_turns": 260, "plan_seed": 1, "seed": 1},
+    },
+    "membership_churn": {
+        "adversary": {"budget_exhausted": 0, "equivocations_detected": 33,
+            "forks_detected": 1, "pairs_fed": 80, "strategy": "membership_churn"},
+        "checkpoint": {"epochs": 3, "ok": True},
+        "engines": {"archive_epochs_spanned": 3, "decided": 790, "epochs": 3,
+            "mesh_repins": [4, 5, 5], "parity": True, "repacks": [{"activation_round":
+            6, "epoch_id": 1, "members_after": 5, "members_before": 4, "rows_added": 1},
+            {"activation_round": 25, "epoch_id": 2, "members_after": 5,
+            "members_before": 5, "rows_added": 0}], "restatements": 1},
+        "liveness": {"advanced_after_vote_out": True, "decided": 790,
+            "decided_at_vote_out": 606},
+        "membership": {"activation_round": 25, "adversary_events_post_activation": 175,
+            "epochs": 3, "joined": True, "joiner_decided": 790, "voted_out": True,
+            "witness_gating_ok": True},
+        "ok": True,
+        "safety": {"prefix_agree": True},
+        "scenario": {"name": "membership_churn", "seed": 11},
+    },
+    "overflow_storm": {
+        "fork_storm": {"fork_pairs": 767, "overflow_retries": 1, "parity": True},
+        "ok": True,
+        "round_clamp": {"max_round": 13, "overflow_retries": 1, "parity": True},
+        "scenario": {"name": "overflow_storm", "seed": 4},
+    },
+}
 
 
 def reset_launches():
@@ -847,24 +1114,27 @@ def _delta(after: dict, before: dict) -> dict:
 
 
 def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or", "ssm_block"),
-                 never=("ssm_matrix",)):
+                 never=("ssm_matrix",), chunks=None):
     """One driver (``inc``) over one configuration in chunks of ``INC_CHUNK``
-    events, with the checks of the module docstring: golden digests, the
-    per-pass ``ordered`` lists concatenating to the order, a non-rebase
+    events (or the ingests ``chunks``), with the checks of the module
+    docstring: golden digests (of the result moved back to creation order),
+    the per-pass ``ordered`` lists concatenating to the order, a non-rebase
     pass, every kernel of ``needs`` launched on the non-rebase passes and
     none of ``never`` launched at all.  Returns the run's kernel launches."""
     _members, _stake, events, packed, _keys = dag
+    if chunks is None:
+        chunks = [events[i : i + INC_CHUNK] for i in range(0, len(events), INC_CHUNK)]
     name = label.split()[0]
     tag = f"{kind} {label}"
     reset_launches()
     ordered, passes = [], []
-    for i in range(0, len(events), INC_CHUNK):
+    for chunk in chunks:
         launches0 = {k: fn.launches for k, fn in KERNELS.items()}
         seconds0, calls0 = dict(inc.stages.seconds), dict(inc.stages.calls)
         steps0 = inc.scan_steps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = inc.ingest(events[i : i + INC_CHUNK])
+        st = inc.ingest(chunk)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         calls = _delta(inc.stages.calls, calls0)
@@ -906,13 +1176,17 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
           f"{steady[0]['pass']}-{steady[-1]['pass']} (warmed up: {warmed_up}); "
           f"the same call's warm columns pass {columns_evps} events/s, ratio "
           f"{steady_evps / columns_evps}", flush=True)
+    if ordered != result.order:
+        failures.append(f"{tag}: per-pass ordered lists != result().order")
+    # the driver indexes events in arrival order, the golden in creation order
+    arrival = [ev.id for chunk in chunks for ev in chunk]
+    if arrival != packed.ids:
+        result = reindex(result, arrival, packed.ids)
     digests = result_digests(packed, result)
     print(f"{tag}: digests {json.dumps(digests)}", flush=True)
     for key, want in GOLDEN[name].items():
         if digests[key] != want:
             failures.append(f"{tag}: {key} digest {digests[key]} != golden {want}")
-    if ordered != result.order:
-        failures.append(f"{tag}: per-pass ordered lists != result().order")
     clean = [r for r in passes if not r["rebased"]]
     if not clean:
         failures.append(f"{tag}: every pass rebased")
@@ -1458,10 +1732,11 @@ def dynamic_digests(res) -> dict:
 
 def run_single_epoch_pin(dag, failures):
     """Phase 12(a): ``run_dynamic(engine=e, device="cuda", chunk=INC_CHUNK,
-    cross_check=True)`` over config 3 (no membership transaction) for each
-    device engine, the mesh engine on ``make_mesh(MESH_SHARDS)``.  Returns
+    cross_check=True)`` over config 3's first ``DYN_PIN_EVENTS`` events (no
+    membership transaction) for each device engine, the mesh engine on ``make_mesh(MESH_SHARDS)``.  Returns
     each engine's kernel launches."""
     members, stake, events, _packed, _keys = dag
+    events = events[:DYN_PIN_EVENTS]
     out = {}
     for engine in DYN_ENGINES:
         tag = f"dynamic pin {engine}"
@@ -1478,8 +1753,9 @@ def run_single_epoch_pin(dag, failures):
         if not res.single_epoch or res.native_order != res.order:
             failures.append(f"{tag}: single_epoch {res.single_epoch}, native order "
                             f"{'==' if res.native_order == res.order else '!='} order")
-        if order != GOLDEN["config3"]["order"]:
-            failures.append(f"{tag}: order digest {order} != golden")
+        if (len(res.order), order) != (PIN_GOLDEN["decided"], PIN_GOLDEN["order"]):
+            failures.append(f"{tag}: {len(res.order)} decided, order digest {order} "
+                            f"!= golden {PIN_GOLDEN}")
         check_launches(tag, launches, *DYN_KERNELS[engine], failures)
         out[engine] = launches
     return out
@@ -2050,6 +2326,265 @@ def run_observability(dags, packs, untraced, base, c4, smi, failures):
     return launches
 
 
+# ----------------------------------------- phase 14: chaos and adversaries
+
+
+def acceptance_scenario(chaos_mod, transport_mod, tpu_node_index=CHAOS_TPU_NODE):
+    """The chaos acceptance scenario (5 members, 240 turns, seed 3, one
+    divergent forker, lossy links, a partition over turns 80-140, member 4
+    down over turns 60-120) built from ``chaos_mod`` / ``transport_mod``, the
+    port's modules or the reference's, with member ``tpu_node_index`` on
+    ``backend="tpu"``."""
+    plan = transport_mod.FaultPlan(
+        seed=3,
+        default=transport_mod.LinkFaults(
+            drop=0.2, corrupt=0.05, duplicate=0.05, reorder=0.1, delay=0.05,
+        ),
+        partitions=[transport_mod.Partition(start=80, end=140, group=(0, 1))],
+        crashes={4: [(60, 120)]},
+    )
+    return chaos_mod.ChaosScenario(
+        n_nodes=5, n_turns=240, seed=3, n_forkers=1, plan=plan,
+        checkpoint_every=40, tpu_node_index=tpu_node_index,
+    )
+
+
+@contextlib.contextmanager
+def oracle_orders(chaos_mod):
+    """Record the order of every oracle replay that ``chaos_mod``'s
+    verdicts compute (either package's ``chaos`` module)."""
+    orders = []
+    replay = chaos_mod.oracle_replay
+
+    def recorded(*args, **kw):
+        order = replay(*args, **kw)
+        orders.append(order)
+        return order
+
+    chaos_mod.oracle_replay = recorded
+    try:
+        yield orders
+    finally:
+        chaos_mod.oracle_replay = replay
+
+
+#: verdict keys that hold no protocol field: the flight recorder's dump
+#: path, and the slab archive's two counters that its pack worker thread
+#: sets on its own time (bytes packed so far, the queue's high-water mark)
+UNTIMED_SKIP = ("flightrec_dump", "archive_bytes", "spill_queue_depth_peak")
+
+
+def _no_times(x):
+    if isinstance(x, dict):
+        return {k: _no_times(v) for k, v in x.items()
+                if k not in UNTIMED_SKIP and "seconds" not in k}
+    if isinstance(x, list):
+        return [_no_times(v) for v in x]
+    return x
+
+
+def chaos_fields(verdict, orders=()) -> dict:
+    """The protocol fields of a chaos verdict (either package's): every
+    section without wall times (``*seconds*`` keys) or the keys of
+    ``UNTIMED_SKIP``, and the SHA-256 of the last oracle replay's order
+    when ``orders`` (from :func:`oracle_orders`) holds one."""
+    out = _no_times(verdict)
+    if orders:
+        out["oracle_order_sha256"] = hashlib.sha256(b"".join(orders[-1])).hexdigest()
+    return out
+
+
+def engine_rows(verdict) -> list:
+    """The verdict's cross-engine rows (none for a verdict without any)."""
+    rows = verdict.get("engines")
+    if rows is None and "horizon" in verdict:
+        rows = [verdict["horizon"]]
+    if isinstance(rows, dict):
+        rows = [rows]
+    return rows or []
+
+
+def device_seconds(verdict) -> float:
+    """Wall seconds of a verdict's device runs: its engine replays (or
+    ``run_all_engines``) and the overflow storm's two ``run_consensus``."""
+    return (sum(r.get("seconds", 0.0) for r in engine_rows(verdict))
+            + sum(verdict[k]["seconds"] for k in ("fork_storm", "round_clamp")
+                  if k in verdict))
+
+
+def check_chaos_golden(tag, name, fields, failures):
+    want = CHAOS_GOLDEN[name]
+    if fields != want:
+        keys = sorted(k for k in set(fields) | set(want) if fields.get(k) != want.get(k))
+        failures.append(f"{tag}: verdict fields {keys} != CHAOS_GOLDEN: "
+                        f"{json.dumps({k: fields.get(k) for k in keys}, sort_keys=True)}")
+
+
+def run_chaos_node(failures):
+    """Phase 14(a): the acceptance scenario with member ``CHAOS_TPU_NODE``
+    on the card (``TorchEngine`` on ``"cuda"``), crashed over turns 60-120
+    and restored through ``load_node(device="cuda")``.  Returns the run's
+    kernel launches."""
+    tag = "chaos acceptance"
+    engines, passes = [], []
+
+    def on_turn(turn, sim):
+        node = sim.nodes.get(CHAOS_TPU_NODE)
+        eng = node._tpu_engine if node is not None else None
+        if eng is None:
+            return
+        if not engines or engines[-1][0] is not eng:
+            engines.append((eng, 0, 0.0))
+        _, n0, s0 = engines[-1]
+        if eng.n_passes != n0:
+            passes.append({"turn": turn, "engine": len(engines) - 1,
+                           "passes": eng.n_passes - n0, "events": eng.last_result.n,
+                           "seconds": eng.pass_seconds - s0})
+            engines[-1] = (eng, eng.n_passes, eng.pass_seconds)
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, oracle_orders(chaos) as orders:
+        sim = chaos.ChaosSimulation(acceptance_scenario(chaos, transport), tmp,
+                                    on_turn=on_turn, device="cuda")
+        t0 = time.perf_counter()
+        verdict = sim.run()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    node = sim.nodes[CHAOS_TPU_NODE]
+    eng = node._tpu_engine
+    pass_seconds = sum(p["seconds"] for p in passes)
+    print(f"{tag}: {wall} s, ok {verdict['ok']}; node {CHAOS_TPU_NODE} (engine on "
+          f"{eng.device}) passes (turn, engine incarnation, passes, events, seconds): "
+          f"{json.dumps([[p['turn'], p['engine'], p['passes'], p['events'], round(p['seconds'], 6)] for p in passes])}",
+          flush=True)
+    print(f"{tag}: {len(passes)} turns with a pass, {pass_seconds} s of passes on the "
+          f"card, {wall - pass_seconds} s host; restore {json.dumps(node.restore_seconds)}"
+          f"; launches {json.dumps(launches)}", flush=True)
+    print(f"{tag}: {json.dumps(chaos_fields(verdict, orders), sort_keys=True)}", flush=True)
+    if not verdict["ok"]:
+        failures.append(f"{tag}: verdict not ok")
+    check_chaos_golden(tag, "acceptance", chaos_fields(verdict, orders), failures)
+    if (len(engines) < 2 or eng is not engines[-1][0] or eng.device.type != "cuda"
+            or eng.n_passes < 2 or verdict["resilience"]["restarts"] != 1):
+        failures.append(f"{tag}: the restored node's engine did not run on the card "
+                        f"after its restore ({len(engines)} engines, {eng.n_passes} passes)")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_scenarios(failures):
+    """Phase 14(b): every ``SCENARIOS`` entry with ``device="cuda"``, the
+    ``CHAOS_MULTI`` ones replayed through ``CHAOS_ENGINES``.  Returns each
+    scenario's kernel launches."""
+    out = {}
+    for name, runner in SCENARIOS.items():
+        tag = f"chaos {name}"
+        engine = CHAOS_ENGINES if name in CHAOS_MULTI else "incremental"
+        reset_launches()
+        with tempfile.TemporaryDirectory() as tmp, oracle_orders(chaos) as orders:
+            t0 = time.perf_counter()
+            verdict = runner(tmp, engine=engine, device="cuda")
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        card = device_seconds(verdict)
+        fields = chaos_fields(verdict, orders)
+        print(f"{tag}: ok {verdict['ok']}, {wall} s: {wall - card} s host simulation, "
+              f"{card} s in the device runs; launches {json.dumps(launches)}", flush=True)
+        print(f"{tag}: {json.dumps(fields, sort_keys=True)}", flush=True)
+        if not verdict["ok"]:
+            failures.append(f"{tag}: verdict not ok")
+        rows = engine_rows(verdict)
+        for row in rows:
+            if "parity" in row:
+                bad = not row["parity"]
+            else:
+                bad = not (row["batch_oracle_parity"] and row["incremental_batch_parity"])
+            if bad:
+                failures.append(f"{tag}: engines row {json.dumps(_no_times(row))} disagrees")
+        check_chaos_golden(tag, name, fields, failures)
+        if name == "overflow_storm" and verdict["fork_storm"]["overflow_retries"] < 1:
+            failures.append(f"{tag}: the fork leg took no overflow retry on the card")
+        if card > 0:
+            # membership_churn's device runs are run_all_engines over a
+            # multi-epoch schedule: repacks, no native engine, no kernel
+            # (phase 12(b))
+            needs = () if name == "membership_churn" else ("bmm_or", "ssm_block")
+            if name in CHAOS_MULTI:
+                needs += ("make_mesh_row_block_fn", "ssm_tally")
+            check_launches(tag, launches, needs, ("ssm_matrix",), failures)
+        elif any(launches.values()):
+            failures.append(f"{tag}: kernels launched outside a device run")
+        out[name] = launches
+    return out
+
+
+def reindex(result, from_ids, to_ids):
+    """``result`` (indices into ``from_ids``) with its indices moved to
+    ``to_ids``' order, the same events in another order."""
+    pos = {eid: i for i, eid in enumerate(from_ids)}
+    perm = np.array([pos[eid] for eid in to_ids], dtype=np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return dataclasses.replace(
+        result,
+        round=result.round[perm], is_witness=result.is_witness[perm],
+        famous={int(inv[k]): v for k, v in result.famous.items()},
+        round_received=result.round_received[perm],
+        consensus_ts=result.consensus_ts[perm],
+        order=[int(inv[i]) for i in result.order],
+    )
+
+
+def straggler_chunks(events):
+    """The straggler arrival schedule of phase 14(c), and how many events
+    it moved out of their creation-order chunk."""
+    chunks = chunked_ingest_schedule(events, INC_CHUNK, seed=SEED, **STRAGGLERS)
+    at = {ev.id: j for j, ev in enumerate(events)}
+    moved = sum(at[ev.id] // INC_CHUNK != c for c, chunk in enumerate(chunks) for ev in chunk)
+    return chunks, moved
+
+
+def run_stragglers(dags, columns_evps, failures):
+    """Phase 14(c): config 4 through ``IncrementalConsensus`` and config 3
+    through ``StreamingConsensus`` on the card, both fed the straggler
+    schedule, with the checks of :func:`drive_passes`.  Returns each run's
+    kernel launches."""
+    out = {}
+    for name, kind in STRAGGLER_RUNS.items():
+        dag = dags[name]
+        members, stake, events = dag[:3]
+        chunks, moved = straggler_chunks(events)
+        print(f"stragglers {name}: {len(chunks)} chunks of {[len(c) for c in chunks]} "
+              f"events, {moved} events moved out of their creation-order chunk",
+              flush=True)
+        if moved == 0:
+            failures.append(f"stragglers {name}: the schedule moved no event")
+        driver = IncrementalConsensus if kind == "incremental" else StreamingConsensus
+        inc = driver(members, stake, SwirldConfig(n_members=N_MEMBERS), device="cuda")
+        out[f"{name} {kind}"] = drive_passes(
+            kind, f"{name} stragglers", inc, dag, columns_evps[name], failures,
+            chunks=chunks,
+        )
+        if kind == "streaming":
+            inc.store.close()
+    return out
+
+
+def run_chaos_phase(dags, columns_evps, failures):
+    """Phase 14.  Returns its launches by leg."""
+    t_phase = time.perf_counter()
+    crypto.set_backend("sim")
+    launches = {"chaos_node": {"acceptance": run_chaos_node(failures)}}
+    t_a = time.perf_counter()
+    launches["chaos_scenarios"] = run_scenarios(failures)
+    t_b = time.perf_counter()
+    launches["stragglers"] = run_stragglers(dags, columns_evps, failures)
+    t_c = time.perf_counter()
+    print(f"chaos and adversaries: {t_c - t_phase} s ((a) {t_a - t_phase} s, (b) "
+          f"{t_b - t_a} s, (c) {t_c - t_b} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2146,6 +2681,7 @@ def main() -> int:
     base = {("incremental", name): launches["incremental"][name] for name in CONFIGS}
     base[("streaming", "config3")] = launches["streaming"]["config3"]
     launches.update(run_observability(dags, packs, untraced, base, c4, smi, failures))
+    launches.update(run_chaos_phase(dags, columns_evps, failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

@@ -106,3 +106,23 @@ def test_golden_digests_match_reference(sim_signer, name):
         s_max=chip_smoke.N_MEMBERS + 1,
     )
     assert chip_smoke.result_digests(packed, result) == chip_smoke.GOLDEN[name]
+
+
+@pytest.mark.slow
+def test_pin_golden_matches_reference(sim_signer):
+    """Recompute chip_smoke.PIN_GOLDEN: the JAX reference's run_consensus on
+    config 3's first ``DYN_PIN_EVENTS`` events, its decided count and order
+    digest (what phase 12(a)'s single-epoch pin holds each engine to)."""
+    import chip_smoke
+
+    members, stake, events, _keys = ref_generate(
+        chip_smoke.N_MEMBERS, chip_smoke.N_EVENTS, seed=chip_smoke.SEED,
+    )
+    packed = ref_pack_events(events[: chip_smoke.DYN_PIN_EVENTS], members, stake)
+    result = ref.run_consensus(
+        packed, RefConfig(n_members=chip_smoke.N_MEMBERS),
+        s_max=chip_smoke.N_MEMBERS + 1,
+    )
+    digests = chip_smoke.result_digests(packed, result)
+    assert {"decided": len(result.order), "order": digests["order"]} == \
+        chip_smoke.PIN_GOLDEN

@@ -53,6 +53,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "tpu_swirld_torch/oracle/graph.py", "tpu_swirld_torch/transport.py",
         "tpu_swirld_torch/sim.py", "tpu_swirld_torch/metrics.py",
         "tpu_swirld_torch/checkpoint.py",
+        "tpu_swirld_torch/chaos.py", "tpu_swirld_torch/adversary.py",
+        "tpu_swirld_torch/chaos_run.py",
         "tpu_swirld_torch/membership/__init__.py",
         "tpu_swirld_torch/membership/dynamic.py",
         "tpu_swirld_torch/membership/engine.py",
@@ -73,6 +75,8 @@ def test_import_leaves_jax_unloaded():
     obs = ", ".join(f"tpu_swirld_torch.obs.{m}" for m in OBS_MODULES[2:])
     code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
             "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, "
+            "tpu_swirld_torch.chaos, tpu_swirld_torch.adversary, "
+            "tpu_swirld_torch.chaos_run, "
             f"tpu_swirld_torch.metrics, {obs}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -122,6 +126,26 @@ def test_memory_monitor_and_trace_without_device_raise_without_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trace_consensus(packed, outdir=str(tmp_path / "t"), device="cuda")
     assert not (tmp_path / "t").exists()
+
+
+def test_chaos_without_device_raises_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from tpu_swirld_torch import SCENARIOS, chaos
+    from tpu_swirld_torch.sim import make_simulation
+
+    scenario = chaos.ChaosScenario(n_nodes=4, n_turns=40, tpu_node_index=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.ChaosSimulation(scenario, str(tmp_path / "a"))
+    sim = chaos.ChaosSimulation(scenario, str(tmp_path / "b"), device="cpu")
+    assert sim.nodes[3]._tpu_engine.device.type == "cpu"
+    node = make_simulation(4, seed=1).nodes[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos._engines_agree(node)
+    assert chaos._engines_agree(node, device="cpu")["batch_oracle_parity"]
+    for name in ("overflow_storm", "membership_churn", "censorship"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SCENARIOS[name](str(tmp_path / name))
 
 
 def _chip_smoke(cwd):

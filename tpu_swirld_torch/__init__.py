@@ -45,6 +45,16 @@ member-axis repack on the card.  :func:`save_node` / :func:`load_node`
 reference's checkpoint format; a restored ``"tpu"`` node replays on the
 card.
 
+:class:`ChaosSimulation` (``tpu_swirld_torch.chaos``) runs a population
+under a :class:`FaultPlan` (drops, corruption, duplicates, reordering,
+delays, partitions, crashes and restores from checkpoints) through
+:class:`FaultyTransport`, with byzantine members from
+``tpu_swirld_torch.sim`` and ``tpu_swirld_torch.adversary`` (whose
+``SCENARIOS`` registry names the reference's eight scenarios), and judges
+the run against an oracle replay; a ``"tpu"`` member and the cross-engine
+replays run on the card.  ``python -m tpu_swirld_torch.chaos_run`` is its
+command line.
+
 :mod:`tpu_swirld_torch.obs` and :mod:`tpu_swirld_torch.metrics` are the
 observability layer (spans, protocol gauges, finality tracking, the flight
 recorder, the dispatch profiler and ``trace_consensus``, a
@@ -57,7 +67,13 @@ boolean hops run through the hand-written kernels of
 plain PyTorch versions.
 """
 
+from tpu_swirld_torch.adversary import SCENARIOS  # noqa: E402
 from tpu_swirld_torch.backend import TorchEngine  # noqa: E402
+from tpu_swirld_torch.chaos import (  # noqa: E402
+    ChaosScenario,
+    ChaosSimulation,
+    run_chaos,
+)
 from tpu_swirld_torch.checkpoint import (  # noqa: E402
     load_archive,
     load_node,
@@ -83,20 +99,37 @@ from tpu_swirld_torch.parallel import (  # noqa: E402
     ssm_matrix_sharded,
     streaming_consensus_for_mesh,
 )
-from tpu_swirld_torch.sim import make_simulation  # noqa: E402
+from tpu_swirld_torch.sim import (  # noqa: E402
+    make_simulation,
+    run_with_divergent_forkers,
+    run_with_forkers,
+)
 from tpu_swirld_torch.store import (  # noqa: E402
     SlabArchive,
     SlabStore,
     StreamingConsensus,
     TileBudgetExceeded,
 )
+from tpu_swirld_torch.transport import (  # noqa: E402
+    FaultPlan,
+    FaultyTransport,
+    LinkFaults,
+    Partition,
+)
 
 __all__ = [
+    "ChaosScenario",
+    "ChaosSimulation",
     "DynamicNode",
+    "FaultPlan",
+    "FaultyTransport",
     "IncrementalConsensus",
+    "LinkFaults",
     "Mesh",
     "MeshStreamingConsensus",
     "Node",
+    "Partition",
+    "SCENARIOS",
     "SlabArchive",
     "SlabStore",
     "StreamingConsensus",
@@ -111,7 +144,10 @@ __all__ = [
     "make_ssm_block_fn_for_mesh",
     "repack_packer",
     "run_all_engines",
+    "run_chaos",
     "run_dynamic",
+    "run_with_divergent_forkers",
+    "run_with_forkers",
     "save_archive",
     "save_node",
     "save_packed",

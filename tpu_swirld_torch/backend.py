@@ -31,6 +31,7 @@ Each pass recomputes from the whole DAG, so its cost grows with history;
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional
 
 from tpu_swirld_torch.device import resolve_device
@@ -53,6 +54,8 @@ class TorchEngine:
             n_shards = math.prod(int(v) for v in node.config.mesh_shape.values())
             self.mesh = make_mesh(n_shards, self.device)
         self.last_result: Optional[ConsensusResult] = None
+        self.n_passes = 0           # batch passes run, and their wall seconds
+        self.pass_seconds = 0.0
         self._n_consumed = 0
         self._violations_seen: set = set()  # famous late witnesses already
         #   counted into node.horizon_violations (fame may decide on a
@@ -70,6 +73,7 @@ class TorchEngine:
         if not force and pending < max(1, node.config.tpu_min_batch):
             return
         self._n_consumed = len(self.packer)
+        t0 = time.perf_counter()
         packed = self.packer.pack()
         result = run_consensus(
             packed,
@@ -80,6 +84,8 @@ class TorchEngine:
         )
         self.last_result = result
         self._write_back(packed, result)
+        self.n_passes += 1
+        self.pass_seconds += time.perf_counter() - t0
 
     def flush(self) -> None:
         """Run any pending events through a pass now, ignoring the

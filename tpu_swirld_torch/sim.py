@@ -1,7 +1,8 @@
 """In-process gossip simulation and random-gossip DAG synthesis (copy of
 the reference's ``tpu_swirld/sim.py``: ``member_keys``, ``Population``,
 ``build_population``, ``Simulation``, ``make_simulation``, the module-level
-``test`` driver and ``generate_gossip_dag``).
+``test`` driver, the byzantine simulations, the stream schedules and
+``generate_gossip_dag``).
 
 Every node lives in one interpreter and gossip goes through a shared dict
 of bound ``ask_sync`` / ``ask_events`` endpoints, under a shared logical
@@ -14,8 +15,15 @@ order, and reach the same node states.
 :func:`attach_obs` wires observability into a node as the reference's
 does (``make_simulation(metrics=, tracer=, finality=, flightrec=)``).
 
-Not ported yet (ROADMAP A10): the fork-injecting adversaries, the divergent
-forkers, ``make_straggler_event`` and the stream schedules.
+The byzantine members share the population's ``random.Random`` in the
+reference's call order: :class:`ForkingAdversary` (consistent-order forks,
+:func:`run_with_forkers`) and :class:`DivergentForker` (an equivocator that
+serves different branches to different peers,
+:func:`run_with_divergent_forkers`).  :func:`make_straggler_event` forges a
+lagging member's stale witness; :func:`chunked_ingest_schedule` holds events
+back by a few chunks (a straggler arrival schedule for the windowed drivers)
+and :func:`stream_gossip_dag` yields :func:`generate_gossip_dag`'s stream in
+chunks.
 """
 
 from __future__ import annotations
@@ -242,6 +250,394 @@ def test(n_nodes: int, n_turns: int, seed: int = 0) -> Simulation:
     sim = make_simulation(n_nodes, seed=seed)
     sim.run(n_turns)
     return sim
+
+
+class ForkingAdversary:
+    """*Consistent-order* fork injection: a forker occasionally creates a
+    sibling of its own head (same self-parent) in its own store, whence
+    both branches propagate to every peer through the same honest
+    ``ask_sync`` path in one arrival order.
+
+    This exercises fork *detection and tolerance* on a DAG every node sees
+    identically.  It does NOT create divergent per-peer views — for the
+    byzantine equivocation case (different branches served to different
+    peers) use :class:`DivergentForker` / :func:`run_with_divergent_forkers`.
+    """
+
+    def __init__(self, sim: Simulation, forker_indices: List[int], fork_every: int = 5):
+        self.sim = sim
+        self.forkers = forker_indices
+        self.fork_every = max(1, fork_every)
+        self._count = 0
+
+    def maybe_fork(self) -> None:
+        """Every ``fork_every`` calls, one forker creates a fork pair."""
+        self._count += 1
+        if self._count % self.fork_every:
+            return
+        fi = self.forkers[self._count // self.fork_every % len(self.forkers)]
+        node = self.sim.nodes[fi]
+        if node.head is None or not node.hg[node.head].p:
+            return
+        head_ev = node.hg[node.head]
+        others = [pk for pk in self.sim.members if pk != node.pk]
+        op = None
+        for pk in others:
+            if node.member_events[pk]:
+                op = node.member_events[pk][-1]
+                break
+        if op is None or op == head_ev.other_parent:
+            return
+        # a sibling of the current head: same self-parent, different other-parent
+        sibling = Event(
+            d=b"fork", p=(head_ev.self_parent, op), t=node._now(), c=node.pk
+        ).signed(node.sk)
+        try:
+            node.add_event(sibling)
+            node.divide_rounds([sibling.id])
+        except (ValueError, AssertionError):
+            return
+
+
+def run_with_forkers(
+    n_nodes: int,
+    n_forkers: int,
+    n_turns: int,
+    seed: int = 0,
+    fork_every: int = 7,
+    metrics=None,
+    tracer=None,
+    transport_factory: Optional[Callable] = None,
+) -> Simulation:
+    """Config-4-style run: honest gossip with periodic fork injection.
+    ``metrics=`` / ``tracer=`` as in :func:`make_simulation` — fork-pair
+    detections land in ``gossip_fork_pairs_detected``.  The adversary
+    injects forks into its own store, so fork *propagation* rides
+    whatever transport the sim was built with — pass a faulty
+    ``transport_factory`` to compose byzantine + network faults."""
+    sim = make_simulation(
+        n_nodes, seed=seed, metrics=metrics, tracer=tracer,
+        transport_factory=transport_factory,
+    )
+    adversary = ForkingAdversary(sim, list(range(n_forkers)), fork_every)
+    for _ in range(n_turns):
+        sim.step()
+        adversary.maybe_fork()
+    return sim
+
+
+class DivergentForker:
+    """A genuinely equivocating byzantine member: it maintains TWO branch
+    views of its own chain and serves *different branches to different
+    peers* through its public ``ask_sync`` / ``ask_events`` endpoints
+    (BASELINE config 4's adversary model).
+
+    Each branch is a full honest :class:`Node` sharing the forker's key;
+    peers are pinned to a branch on first contact.  ``step()`` advances
+    both branches: each pulls from a random honest peer (receiving real
+    gossip) and extends its own self-chain — producing fork pairs at every
+    sequence number.  Honest nodes first receive one branch, later learn
+    of the other through third parties (orphan + want-list recovery), and
+    must detect the fork and converge without crashing.
+    """
+
+    def __init__(
+        self,
+        sk: bytes,
+        pk: bytes,
+        members: List[bytes],
+        network: Dict[bytes, Callable],
+        network_want: Dict[bytes, Callable],
+        config: SwirldConfig,
+        clock: Callable[[], int],
+        rng: random.Random,
+        transport: Optional[Transport] = None,
+    ):
+        self.pk = pk
+        self.sk = sk
+        self.rng = rng
+        # the branch nodes ride the same transport as honest members, so
+        # byzantine equivocation composes with injected network faults
+        # (drops/partitions hit the forker's pulls too)
+        self.branches = [
+            Node(
+                sk=sk, pk=pk, network=network, members=members,
+                config=config, clock=clock, network_want=network_want,
+                transport=transport,
+            )
+            for _ in range(2)
+        ]
+        # both branches created the identical deterministic genesis; track
+        # per-branch heads explicitly (ingesting the sibling branch back
+        # from honest gossip must not move a branch's own tip)
+        self._heads = [br.head for br in self.branches]
+        self._route: Dict[bytes, int] = {}
+
+    def _branch_for(self, peer_pk: bytes) -> Node:
+        b = self._route.get(peer_pk)
+        if b is None:
+            b = len(self._route) % 2
+            self._route[peer_pk] = b
+        return self.branches[b]
+
+    def ask_sync(self, from_pk: bytes, req: bytes) -> bytes:
+        return self._branch_for(from_pk).ask_sync(from_pk, req)
+
+    def ask_events(self, from_pk: bytes, req: bytes) -> bytes:
+        return self._branch_for(from_pk).ask_events(from_pk, req)
+
+    def step(self, honest_peers: List[bytes]) -> None:
+        """Advance both branches: pull real gossip, extend the fork."""
+        for bi, br in enumerate(self.branches):
+            peer = honest_peers[self.rng.randrange(len(honest_peers))]
+            try:
+                br.pull(peer)
+            except ValueError:
+                pass
+            op = br.member_events[peer][-1] if br.member_events[peer] else None
+            if op is None:
+                continue
+            ev = Event(
+                d=b"branch:%d:%d" % (bi, len(br.hg)),
+                p=(self._heads[bi], op),
+                t=br._now(),
+                c=self.pk,
+            ).signed(self.sk)
+            br.add_event(ev)
+            self._heads[bi] = ev.id
+
+
+@dataclasses.dataclass
+class DivergentSimulation:
+    """Honest nodes + equivocating forkers sharing one gossip network."""
+
+    config: SwirldConfig
+    nodes: List[Node]                  # honest nodes only
+    forkers: List[DivergentForker]
+    network: Dict[bytes, Callable]
+    rng: random.Random
+    clock: List[int]
+    members: List[bytes]
+    transport: Optional[Transport] = None
+
+
+def run_with_divergent_forkers(
+    n_nodes: int,
+    n_forkers: int,
+    n_turns: int,
+    seed: int = 0,
+    fork_every: int = 3,
+    node_config: Optional[Callable[[int, SwirldConfig], SwirldConfig]] = None,
+    on_turn: Optional[Callable[[int, List[Node]], None]] = None,
+    metrics=None,
+    tracer=None,
+    transport_factory: Optional[Callable] = None,
+) -> DivergentSimulation:
+    """Config-4 adversary model: ``n_forkers`` equivocating members serving
+    divergent branches; honest nodes must stay live and prefix-consistent
+    (within the BFT bound ``n > 3f``).
+
+    ``node_config(i, base)`` may override an honest member's config (e.g.
+    switch one node to ``backend="tpu"``); ``on_turn(turn, honest_nodes)``
+    runs after every gossip turn (checkpoint hooks, assertions, ...).
+    ``metrics=`` / ``tracer=`` (see :func:`attach_obs`) instrument the
+    *honest* nodes — the adversary's branch nodes stay unobserved.
+    ``transport_factory`` as in :func:`make_simulation`: honest nodes AND
+    the forkers' branch nodes all route through the one transport, so
+    byzantine and network faults compose in one scenario.
+    """
+    config = SwirldConfig(n_members=n_nodes, seed=seed)
+    pop = build_population(n_nodes, seed, transport_factory)
+    rng, members, clock = pop.rng, pop.members, pop.clock
+    network, network_want, transport = (
+        pop.network, pop.network_want, pop.transport
+    )
+    forkers: List[DivergentForker] = []
+    honest: List[Node] = []
+    for i, (pk, sk) in enumerate(pop.keys):
+        if i < n_forkers:
+            f = DivergentForker(
+                sk, pk, members, network, network_want, config,
+                lambda: clock[0], rng, transport=transport,
+            )
+            network[pk] = f.ask_sync
+            network_want[pk] = f.ask_events
+            forkers.append(f)
+        else:
+            cfg_i = node_config(i, config) if node_config else config
+            node = Node(
+                sk=sk, pk=pk, network=network, members=members,
+                config=cfg_i, clock=lambda: clock[0],
+                network_want=network_want, transport=transport,
+            )
+            attach_obs(node, metrics, tracer)
+            network[pk] = node.ask_sync
+            network_want[pk] = node.ask_events
+            honest.append(node)
+    honest_pks = [n.pk for n in honest]
+    for turn in range(n_turns):
+        clock[0] += 1
+        node = honest[rng.randrange(len(honest))]
+        peers = [pk for pk in members if pk != node.pk]
+        peer = peers[rng.randrange(len(peers))]
+        new_ids = node.sync(peer, b"tx:%d" % turn)
+        node.consensus_pass(new_ids)
+        if turn % fork_every == 0:
+            for f in forkers:
+                f.step(honest_pks)
+        if on_turn is not None:
+            on_turn(turn, honest)
+    return DivergentSimulation(
+        config=config, nodes=honest, forkers=forkers, network=network,
+        rng=rng, clock=clock, members=members, transport=transport,
+    )
+
+
+def make_straggler_event(
+    node: Node,
+    pk: bytes,
+    sk: bytes,
+    *,
+    at_round: int,
+    payload: bytes = b"straggler",
+) -> Event:
+    """Forge the event a lagging member's stale tail produces: an event by
+    ``pk`` whose parents sit deep in ``node``'s history, landing as a
+    WITNESS at (roughly) ``at_round`` — typically far below the committed
+    frontier, i.e. the deterministic-expiry-horizon corner.
+
+    Self-parent: ``pk``'s earliest event with round < ``at_round``;
+    other-parent: the earliest event by another member with round exactly
+    ``at_round`` (so the new event's round is ``at_round`` + at most one
+    promotion, and exceeds the self-parent's round — the witness
+    condition).  When ``pk``'s real chain continued past the chosen
+    self-parent this is also a fork pair, exactly as an equivocating or
+    amnesiac member would produce.  Raises ``ValueError`` when the DAG has
+    no suitable parents yet.
+    """
+    sp = None
+    for eid in node.member_events[pk]:
+        if node.round[eid] < at_round:
+            sp = eid
+            break
+    if sp is None:
+        raise ValueError(f"{pk[:4].hex()} has no event below round {at_round}")
+    op = None
+    for eid in node.order_added:
+        ev = node.hg[eid]
+        if ev.c != pk and node.round[eid] == at_round:
+            op = eid
+            break
+    if op is None:
+        raise ValueError(f"no other-member event at round {at_round}")
+    t = max(node.hg[sp].t, node.hg[op].t) + 1
+    return Event(d=payload, p=(sp, op), t=t, c=pk).signed(sk)
+
+
+def chunked_ingest_schedule(
+    events,
+    chunk_size: int,
+    *,
+    delay_prob: float = 0.0,
+    max_delay: int = 3,
+    seed: int = 0,
+):
+    """Split a topo-ordered event stream into ingest chunks.
+
+    With ``delay_prob`` > 0, individual events are held back by up to
+    ``max_delay`` chunks (children are always pulled along so every chunk
+    stays topologically valid) — an orphan-heavy/straggler arrival
+    schedule for exercising :class:`tpu_swirld_torch.gpu.incremental.
+    IncrementalConsensus` window-exit paths (events referencing old
+    parents force its documented full-recompute fallbacks).
+    Returns a list of event lists, each in topo order.
+    """
+    rng = random.Random(seed)
+    idx = {ev.id: j for j, ev in enumerate(events)}
+    chunk_of = [0] * len(events)
+    for j, ev in enumerate(events):
+        c = j // chunk_size
+        if delay_prob and rng.random() < delay_prob:
+            c += rng.randrange(1, max_delay + 1)
+        for p in ev.p:
+            c = max(c, chunk_of[idx[p]])
+        chunk_of[j] = c
+    n_chunks = max(chunk_of) + 1 if events else 0
+    out: List[List[Event]] = [[] for _ in range(n_chunks)]
+    for j, ev in enumerate(events):
+        out[chunk_of[j]].append(ev)
+    return out
+
+
+def stream_gossip_dag(
+    n_members: int,
+    n_events: int,
+    chunk: int,
+    seed: int = 0,
+    stake: Optional[List[int]] = None,
+    n_forkers: int = 0,
+    fork_prob: float = 0.05,
+):
+    """Streaming variant of :func:`generate_gossip_dag`: returns
+    ``(members, stake, keys, chunks)`` where ``chunks`` is a *generator*
+    of topo-ordered event lists of size ``chunk``.
+
+    Identical event stream to :func:`generate_gossip_dag` for the same
+    arguments (same RNG call pattern), but host memory stays
+    O(members + chunk): only the per-member branch heads are retained, so
+    a config-5-shaped feed (256 members / 100k events) never holds the
+    full history — the shape ``bench.py --stream`` ingests.
+    """
+    rng = random.Random(seed)
+    keys = [crypto.keypair(b"dag-%d-%d" % (seed, i)) for i in range(n_members)]
+    members = [pk for pk, _ in keys]
+    stake = list(stake) if stake is not None else [1] * n_members
+
+    def chunks():
+        branches: List[List[Event]] = []
+        buf: List[Event] = []
+        n_done = 0
+        t = 0
+        for pk, sk in keys:
+            t += 1
+            ev = Event(d=b"", p=(), t=t, c=pk).signed(sk)
+            buf.append(ev)
+            branches.append([ev])
+        n_total = n_done + len(buf)
+        while n_total < n_events:
+            ci = rng.randrange(n_members)
+            pi = rng.randrange(n_members - 1)
+            if pi >= ci:
+                pi += 1
+            pk, sk = keys[ci]
+            other = branches[pi][rng.randrange(len(branches[pi]))]
+            bi = rng.randrange(len(branches[ci]))
+            head = branches[ci][bi]
+            t += 1
+            fork_now = (
+                ci < n_forkers and head.p and rng.random() < fork_prob
+            )
+            if fork_now:
+                sp = head.p[0]
+                ev = Event(
+                    d=b"fork:%d" % n_total, p=(sp, other.id), t=t, c=pk
+                ).signed(sk)
+                branches[ci].append(ev)
+            else:
+                ev = Event(
+                    d=b"tx:%d" % n_total, p=(head.id, other.id), t=t, c=pk
+                ).signed(sk)
+                branches[ci][bi] = ev
+            buf.append(ev)
+            n_total += 1
+            if len(buf) >= chunk:
+                yield buf
+                n_done += len(buf)
+                buf = []
+        if buf:
+            yield buf
+
+    return members, stake, keys, chunks()
 
 
 def generate_gossip_dag(

@@ -1,24 +1,42 @@
 """Gossip transport: the delivery seam between the simulation and the
-``Node``, with bounded retry and a per-peer circuit breaker (copy of the
-reliable half of the reference's ``tpu_swirld/transport.py``).
+``Node``, its seeded fault injection, bounded retry and a per-peer circuit
+breaker (copy of the reference's ``tpu_swirld/transport.py``).
 
 - :class:`Transport`: the delivery interface and its reliable in-process
   implementation, ``call(src, dst, channel, payload) -> reply``, over the
   simulation's ``network`` / ``network_want`` endpoint dicts.
+- :class:`FaultPlan` / :class:`LinkFaults` / :class:`Partition`: a seeded,
+  declarative fault schedule: per-link drop / corrupt / duplicate / reorder /
+  delay probabilities, partitions that cut the links crossing a group's
+  boundary over a window of logical time, and crash windows that the chaos
+  driver (:mod:`tpu_swirld_torch.chaos`) interprets.
+- :class:`FaultyTransport`: applies a :class:`FaultPlan` around the reliable
+  call.  Requests and replies are dropped (a :class:`TransportError`: the
+  caller's retry path), corrupted (truncation, a bit flip or emptying: the
+  caller's counted rejection), duplicated or held back and delivered stale
+  later (idempotent ingest); partitions and crashed peers cut links.
 - :class:`RetryPolicy`: bounded retry with exponential backoff, jitter and a
   per-peer deadline, in logical ticks (nothing sleeps).
 - :class:`CircuitBreaker`: per-peer failure and misbehavior strikes with
   open, cooldown, half-open probe and close transitions.
 
-The reference's seeded fault injection (``LinkFaults``, ``Partition``,
-``FaultPlan``, ``FaultyTransport``) is not ported (ROADMAP A10, chaos).
+Every fault is drawn from a per-directed-link numpy ``Generator`` seeded
+``SeedSequence(plan.seed, spawn_key=(src + 1, dst + 1))``, the reference's
+construction, so a link's fault history is a function of ``(plan.seed, src,
+dst, call number)`` alone and the port draws the reference's faults call for
+call.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import random
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from tpu_swirld_torch import obs
 
 CHANNEL_SYNC = "sync"
 CHANNEL_WANT = "want"
@@ -97,6 +115,223 @@ class Transport:
         """Release delivery resources.  A no-op in process; a socket
         transport overrides it to drop its per-peer connections, so
         callers tear any transport down uniformly."""
+
+
+# --------------------------------------------------------------- fault plan
+
+
+@dataclasses.dataclass
+class LinkFaults:
+    """Per-link fault probabilities (each sampled independently per call).
+
+    ``drop`` is sampled twice — once for the request, once for the reply —
+    so the end-to-end loss rate of a link with ``drop=p`` is ``1-(1-p)^2``.
+    ``corrupt`` mangles bytes (truncation, bit flips, or emptying) without
+    losing the call; ``duplicate`` re-delivers a copy of the reply stale on
+    a later call; ``reorder`` swaps the fresh reply with a previously
+    stashed one; ``delay`` holds the fresh reply back entirely (the caller
+    times out; the reply arrives stale later).
+
+    The last three knobs only have meaning on a real wire, where a socket
+    proxy applies them (the port has no socket transport yet); the
+    in-process :class:`FaultyTransport` never does: ``reset`` is the
+    probability of a hard connection teardown after the server already
+    processed the request (the redial-after-success hazard), ``delay_s`` is
+    the hold applied when a ``delay`` fault fires on a stream (an
+    in-process delay is a stashed stale reply instead), and
+    ``throttle_bps`` > 0 paces relayed bytes to that budget.  All default
+    off, so every in-process plan is byte-identical.
+    """
+
+    drop: float = 0.0
+    corrupt: float = 0.0
+    duplicate: float = 0.0
+    reorder: float = 0.0
+    delay: float = 0.0
+    reset: float = 0.0
+    delay_s: float = 0.0
+    throttle_bps: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """Cut every link crossing ``group``'s boundary while
+    ``start <= clock < end``.  ``group`` holds member *indices* (resolved
+    against the transport's member list, so plans can be written before
+    keys exist)."""
+
+    start: int
+    end: int
+    group: Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """A seeded, declarative fault schedule for one chaos scenario.
+
+    ``default`` applies to every link; ``links`` overrides per
+    ``(src_index, dst_index)`` directed pair.  ``crashes`` maps a member
+    index to ``[(down_turn, up_turn), ...]`` windows — interpreted by the
+    chaos driver (which owns checkpoint/restore), while the transport
+    exposes the resulting downtime via :attr:`FaultyTransport.down`.
+    """
+
+    seed: int = 0
+    default: LinkFaults = dataclasses.field(default_factory=LinkFaults)
+    links: Dict[Tuple[int, int], LinkFaults] = dataclasses.field(
+        default_factory=dict
+    )
+    partitions: List[Partition] = dataclasses.field(default_factory=list)
+    crashes: Dict[int, List[Tuple[int, int]]] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def faults_for(self, src_i: int, dst_i: int) -> LinkFaults:
+        return self.links.get((src_i, dst_i), self.default)
+
+    def partitioned(self, src_i: int, dst_i: int, t: int) -> bool:
+        for p in self.partitions:
+            if p.start <= t < p.end:
+                if (src_i in p.group) != (dst_i in p.group):
+                    return True
+        return False
+
+    def heal_time(self) -> int:
+        """The first tick with no scheduled partition or crash window."""
+        ends = [p.end for p in self.partitions]
+        ends += [up for ws in self.crashes.values() for _, up in ws]
+        return max(ends, default=0)
+
+
+class FaultyTransport(Transport):
+    """A :class:`Transport` that applies a :class:`FaultPlan`.
+
+    ``clock`` supplies logical time (the sim's turn counter) for
+    partition windows; ``members`` resolves pk -> index for the plan's
+    index-keyed knobs.  Each directed link draws from its own RNG stream,
+    keyed ``SeedSequence(plan.seed, spawn_key=(src_i+1, dst_i+1))`` — the
+    hash-stable spawn construction, so a link's fault sequence never
+    depends on which other links happened to carry traffic first (the old
+    single shared ``Random(plan.seed)`` made every link's draws a
+    function of global call interleaving).
+
+    Fault counters accumulate in :attr:`stats` and, when an ambient
+    :func:`tpu_swirld_torch.obs.current` registry is enabled, as
+    ``transport_<name>_total`` counters (rendered by the report CLI's
+    resilience section).
+    """
+
+    def __init__(
+        self,
+        network: Dict[bytes, Callable],
+        network_want: Optional[Dict[bytes, Callable]],
+        plan: FaultPlan,
+        members: Sequence[bytes],
+        clock: Callable[[], int],
+    ):
+        super().__init__(network, network_want)
+        self.plan = plan
+        self.clock = clock
+        self.member_index = {m: i for i, m in enumerate(members)}
+        self.down: set = set()          # crashed pks (driver-maintained)
+        self._link_rngs: Dict[Tuple[int, int], np.random.Generator] = {}
+        self._pending: Dict[Tuple[bytes, bytes, str], collections.deque] = {}
+        self.stats: Dict[str, int] = collections.defaultdict(int)
+
+    # ------------------------------------------------------------- helpers
+
+    def _link_rng(self, src_i: int, dst_i: int) -> np.random.Generator:
+        """The directed link's private fault stream.  Spawn keys are
+        offset by 1 so unknown members (index -1) get a valid stream."""
+        key = (src_i, dst_i)
+        rng = self._link_rngs.get(key)
+        if rng is None:
+            rng = np.random.default_rng(
+                np.random.SeedSequence(
+                    self.plan.seed, spawn_key=(src_i + 1, dst_i + 1)
+                )
+            )
+            self._link_rngs[key] = rng
+        return rng
+
+    def _count(self, name: str, delta: int = 1) -> None:
+        self.stats[name] += delta
+        o = obs.current()
+        if o is not None:
+            o.registry.counter(f"transport_{name}_total").inc(delta)
+
+    @staticmethod
+    def _corrupt(data: bytes, r: np.random.Generator) -> bytes:
+        """Truncate, bit-flip, or empty the message — never crash."""
+        mode = int(r.integers(3))
+        if not data or mode == 0:
+            return data[: int(r.integers(len(data) + 1))]  # truncation
+        if mode == 1:
+            i = int(r.integers(len(data)))
+            return data[:i] + bytes([data[i] ^ (1 << int(r.integers(8)))]) + data[i + 1:]
+        return b""                                         # total garbage
+
+    def set_down(self, pk: bytes) -> None:
+        self.down.add(pk)
+
+    def set_up(self, pk: bytes) -> None:
+        self.down.discard(pk)
+
+    # ---------------------------------------------------------------- call
+
+    def call(self, src: bytes, dst: bytes, channel: str, payload: bytes) -> bytes:
+        t = int(self.clock())
+        if src in self.down or dst in self.down:
+            self._count("crash_blocked")
+            raise PeerUnreachable("peer is down")
+        si = self.member_index.get(src, -1)
+        di = self.member_index.get(dst, -1)
+        if self.plan.partitioned(si, di, t):
+            self._count("partition_blocked")
+            raise PeerPartitioned(f"link cut at t={t}")
+        lf = self.plan.faults_for(si, di)
+        r = self._link_rng(si, di)
+        if r.random() < lf.drop:
+            self._count("drops")
+            raise MessageDropped("request lost")
+        req = payload
+        if r.random() < lf.corrupt:
+            self._count("corruptions")
+            req = self._corrupt(req, r)
+        try:
+            reply = super().call(src, dst, channel, req)
+        except TransportError:
+            raise
+        except Exception:
+            # the peer rejected the (possibly mangled) request; a real
+            # network shows the caller a failed RPC, not a traceback
+            self._count("peer_errors")
+            raise PeerUnreachable("peer rejected the request")
+        if r.random() < lf.drop:
+            self._count("drops")
+            raise MessageDropped("reply lost")
+        if r.random() < lf.corrupt:
+            self._count("corruptions")
+            reply = self._corrupt(reply, r)
+        key = (src, dst, channel)
+        queue = self._pending.setdefault(key, collections.deque(maxlen=8))
+        if r.random() < lf.duplicate:
+            self._count("duplicates")
+            queue.append(reply)
+        if r.random() < lf.delay:
+            self._count("delays")
+            queue.append(reply)
+            raise DeliveryTimeout("reply delayed past deadline")
+        # stashed stale replies (duplicates / delayed deliveries) surface
+        # on later calls at a rate matching whichever fault stashed them —
+        # so duplicate/delay are not inert when reorder is 0; the fresh
+        # reply is stashed in exchange, never lost
+        drain_p = max(lf.reorder, lf.duplicate, lf.delay)
+        if queue and r.random() < drain_p:
+            self._count("reorders")
+            queue.append(reply)
+            return queue.popleft()
+        return reply
 
 
 # ------------------------------------------------------------ retry policy
