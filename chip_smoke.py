@@ -177,10 +177,28 @@
    ``chunked_ingest_schedule(events, INC_CHUNK, delay_prob=0.02,
    max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests golden
    once moved back to creation order); the schedule must move events.
-15. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+15. The real-process cluster (``tpu_swirld_torch.net``), under the
+   machine's default signer, the one every node process uses.  (a)
+   ``bench.py --cluster``'s chaos leg, uncut (``CLUSTER_SPEC``: 5 node
+   processes, 6 s of 300 tx/s, node 1 killed at 1.8 s and restarted at 3.0 s
+   from its checkpoint and WAL) through ``run_cluster``: the verdict ok,
+   ``prefix_agree`` and ``oracle_agree``, the decided frontier past the
+   heal, the victim restarted once with an unclean start and a post-mortem
+   on disk; prints the tx ledger, the union's size and the heal time.  (b)
+   The overload leg (3 nodes, ``max_undecided=0``): nothing acked, every
+   submission shed by the window.  The node processes run the oracle, as
+   the reference's do.  (c) (a)'s union event log,
+   replayed into an observer in ``oracle_replay``'s order (its order must be
+   the verdict's), through ``chaos._engines_agree(engine=e, device="cuda")``
+   for ``e`` in ``CLUSTER_ENGINES`` (the streaming driver; the incremental
+   one is cut for time, see ``CLUSTER_ENGINES``): every comparison true,
+   ``bmm_or`` and ``ssm_block`` launched, ``ssm_matrix`` not; prints each
+   replay's seconds beside the union's event count.
+16. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
-   live node, dynamic pin, restore, phase 13's and phase 14's), the card's
-   name and power limit, then ``{"ok": true, ...}`` as the last line.
+   live node, dynamic pin, restore, phase 13's, phase 14's and phase 15's
+   ``cluster`` replays), the card's name and power limit, then ``{"ok":
+   true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -218,6 +236,7 @@ from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
 from tpu_swirld_torch.membership.sim import churn_schedule
+from tpu_swirld_torch.net import cluster as net_cluster
 from tpu_swirld_torch.metrics import node_gauges, trace_consensus
 from tpu_swirld_torch.obs import (
     DispatchProfiler, FinalityTracker, FlightRecorder, MemoryMonitor, load_dump,
@@ -429,6 +448,24 @@ CHAOS_ENGINES = ("incremental", "streaming", "streaming-mesh")
 CHAOS_MULTI = ("horizon_storm", "fork_bomb")
 STRAGGLERS = {"delay_prob": 0.02, "max_delay": 3}
 STRAGGLER_RUNS = {"config4": "incremental", "config3": "streaming"}
+
+# The real-process cluster (phase 15).  (a) bench.py --cluster's chaos leg
+# (bench.py:1021-1066), uncut: 5 node processes, 6 s of 300 tx/s of 64-byte
+# txs, node 1 killed at 1.8 s and restarted at 3.0 s; (b) the overload leg of
+# tests/test_cluster.py:145-159; (c) (a)'s union event log through these
+# windowed engines on the card, as chaos._engines_agree replays it.  The
+# incremental engine is cut from (c): on such a union its replay rebases 13
+# times (the restarted node's pruned pre-crash head, then the rebase-storm
+# guard), each a launch-bound columns pass: 87.7-130.7 s on an H100 (700 W)
+# against 19.3-25.2 s for streaming.  The reference's drivers rebase as
+# often on the same union: tests/test_torch_cluster.py::
+# test_cluster_union_replay_matches_reference replays a saved union of this
+# leg through both engines of both packages on the CPU.
+CLUSTER_SPEC = {"n_nodes": 5, "seed": 9, "duration_s": 6.0, "tx_rate": 300,
+                "tx_bytes": 64, "kill_index": 1, "kill_at_s": 1.8, "restart_at_s": 3.0}
+CLUSTER_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
+OVERLOAD_SPEC = {"n_nodes": 3, "seed": 5, "duration_s": 1.5, "tx_rate": 200.0}
+CLUSTER_ENGINES = ("streaming",)
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -2585,6 +2622,139 @@ def run_chaos_phase(dags, columns_evps, failures):
     return launches
 
 
+# ------------------------------------------ phase 15: the real-process cluster
+
+#: the signer a fresh process picks, as every node process of phase 15 does
+#: (main() switches this process to the simulation signer for the goldens)
+DEFAULT_SIGNER = crypto.backend_name()
+
+
+def run_chaos_cluster(tmp, failures):
+    """Phase 15(a): ``CLUSTER_SPEC`` through the port's supervisor and node
+    processes.  Returns the verdict, the verdict's oracle order and the
+    union event log."""
+    tag = "cluster chaos leg"
+    spec = net_cluster.ClusterSpec(
+        workdir=os.path.join(tmp, "cluster"), flightrec_dir=os.path.join(tmp, "flightrec"),
+        net=dict(CLUSTER_NET), **CLUSTER_SPEC,
+    )
+    with oracle_orders(net_cluster) as orders:
+        t0 = time.perf_counter()
+        v = net_cluster.run_cluster(spec)
+        wall = time.perf_counter() - t0
+    _reports, union, _rows = net_cluster.collect_node_state(
+        spec.workdir, spec.managed_indices(), {}, {})
+    victim = v["nodes"][spec.kill_index]
+    tx = v["tx"]
+    print(f"{tag}: {wall} s, ok {v['ok']}; union {len(union)} events, oracle order "
+          f"{v['safety']['oracle_len']}, common prefix {v['safety']['common_prefix_len']}; "
+          f"heal at {v['faults']['heal_wall_s']} s, decided at heal "
+          f"{v['liveness']['decided_at_heal']}, final {v['liveness']['decided_final']}",
+          flush=True)
+    ledger = {k: tx[k] for k in ("submitted", "acked", "shed", "failed", "decided",
+                                 "tx_per_s", "submit_p50", "submit_p99")}
+    row = {k: victim.get(k) for k in ("restarts", "unclean_start", "exit_code",
+                                      "decided", "events")}
+    print(f"{tag}: tx {json.dumps(ledger)}; victim {json.dumps(row)}; "
+          f"counters {json.dumps(v['counters'], sort_keys=True)}", flush=True)
+    checks = {
+        "verdict ok": v["ok"],
+        "prefix_agree": v["safety"]["prefix_agree"],
+        "oracle_agree": v["safety"]["oracle_agree"],
+        "decided past the heal": v["liveness"]["decided_final"] > v["liveness"]["decided_at_heal"],
+        "killed and restarted": v["faults"]["killed"] and v["faults"]["restarted"],
+        "victim restarted once": victim["restarts"] == 1,
+        "victim started unclean": victim.get("unclean_start") is True,
+        "post-mortem on disk": bool(victim.get("flightrec_dump"))
+        and os.path.exists(victim["flightrec_dump"]),
+        "acked and decided txs": tx["acked"] > 0 and tx["decided"] > 0,
+        "one oracle replay": len(orders) == 1,
+    }
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag}: {name} failed")
+    return v, (orders[-1] if orders else []), union
+
+
+def run_overload_cluster(tmp, failures):
+    """Phase 15(b): ``OVERLOAD_SPEC`` with a zero undecided-window budget."""
+    tag = "cluster overload leg"
+    spec = net_cluster.ClusterSpec(
+        workdir=os.path.join(tmp, "overload"), net=dict(CLUSTER_NET, max_undecided=0),
+        **OVERLOAD_SPEC,
+    )
+    t0 = time.perf_counter()
+    v = net_cluster.run_cluster(spec)
+    wall = time.perf_counter() - t0
+    tx = v["tx"]
+    print(f"{tag}: {wall} s, ok {v['ok']}; submitted {tx['submitted']}, acked {tx['acked']}, "
+          f"shed {tx['shed']} (tx_shed_window {v['counters']['tx_shed_window']})", flush=True)
+    if not (v["ok"] and tx["acked"] == 0 and tx["shed"] > 0
+            and v["counters"]["tx_shed_window"] == tx["shed"]
+            and v["counters"]["tx_accepted"] == 0):
+        failures.append(f"{tag}: not ok or not shed: {json.dumps(tx)} "
+                        f"{json.dumps(v['counters'])}")
+
+
+def run_union_replays(v, oracle, union, failures):
+    """Phase 15(c): the chaos leg's union event log replayed into an observer
+    in ``oracle_replay``'s topological order, then ``chaos._engines_agree``
+    on the card for each of ``CLUSTER_ENGINES``: a batch ``run_consensus``
+    at block 64 and the windowed driver in 64-event chunks.  Returns each
+    replay's kernel launches."""
+    n = CLUSTER_SPEC["n_nodes"]
+    seed = CLUSTER_SPEC["seed"]
+    t0 = time.perf_counter()
+    observer = chaos.oracle_observer(
+        union, [pk for pk, _ in net_cluster.member_keys(n, seed)],
+        SwirldConfig(n_members=n, seed=seed), net_cluster.observer_keypair(seed),
+    )
+    host_s = time.perf_counter() - t0
+    print(f"cluster union replay: observer {len(observer.order_added)} events, "
+          f"{len(observer.consensus)} decided, {host_s} s on the host", flush=True)
+    if observer.consensus != oracle or len(oracle) != v["safety"]["oracle_len"]:
+        failures.append("cluster union replay: the observer's order is not the verdict's")
+    out = {}
+    for engine in CLUSTER_ENGINES:
+        tag = f"cluster union replay {engine}"
+        reset_launches()
+        row = chaos._engines_agree(observer, engine=engine, device="cuda")
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        print(f"{tag}: {row['seconds']} s for {len(observer.order_added)} events; "
+              f"{json.dumps(_no_times(row), sort_keys=True)}; launches {json.dumps(launches)}",
+              flush=True)
+        if not (row["batch_oracle_parity"] and row["incremental_batch_parity"]):
+            failures.append(f"{tag}: engines disagree: {json.dumps(_no_times(row))}")
+        check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+        out[engine] = launches
+    return out
+
+
+def run_cluster_phase(failures):
+    """Phase 15, under the machine's default signer (the node processes'),
+    restored to the simulation signer after.  Returns the replays'
+    launches."""
+    t_phase = time.perf_counter()
+    crypto.set_backend(DEFAULT_SIGNER)
+    print(f"cluster: signer {crypto.backend_name()} in the supervisor and every node "
+          "process", flush=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            v, oracle, union = run_chaos_cluster(tmp, failures)
+            t_a = time.perf_counter()
+            run_overload_cluster(tmp, failures)
+            t_b = time.perf_counter()
+        launches = run_union_replays(v, oracle, union, failures) if union else {}
+        if not union:
+            failures.append("cluster: the chaos leg left no event log")
+    finally:
+        crypto.set_backend("sim")
+    t_c = time.perf_counter()
+    print(f"real-process cluster: {t_c - t_phase} s ((a) {t_a - t_phase} s, (b) "
+          f"{t_b - t_a} s, (c) {t_c - t_b} s)", flush=True)
+    return {"cluster": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2682,6 +2852,7 @@ def main() -> int:
     base[("streaming", "config3")] = launches["streaming"]["config3"]
     launches.update(run_observability(dags, packs, untraced, base, c4, smi, failures))
     launches.update(run_chaos_phase(dags, columns_evps, failures))
+    launches.update(run_cluster_phase(failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

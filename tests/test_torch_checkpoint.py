@@ -258,6 +258,22 @@ def test_packed_checkpoint_loads_in_either_package(sim_signer, tmp_path, directi
     assert back.ids == want.ids and back.sigs == want.sigs
 
 
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_python_checkpoint_loads_without_a_device(sim_signer, tmp_path, writer):
+    """A ``backend="python"`` checkpoint, written by either package, loads
+    through the port's ``load_node`` with no ``device=`` on a host without
+    a GPU, to the state the reference's ``load_node`` restores."""
+    got, want = _node_pair("node")
+    p = str(tmp_path / "python.swck")
+    (save_node if writer == "port" else ref_ckpt.save_node)(
+        p, got if writer == "port" else want)
+    mine = load_node(p, sk=got.sk, pk=got.pk, network={})
+    theirs = ref_ckpt.load_node(p, sk=want.sk, pk=want.pk, network={})
+    assert mine.config.backend == "python" and mine._tpu_engine is None
+    assert mine.state_digest() == theirs.state_digest() == want.state_digest()
+    assert mine.consensus == theirs.consensus
+
+
 def test_tpu_node_restores_on_the_given_device(sim_signer, tmp_path):
     sim = make_simulation(4, seed=5)
     sim.run(160)

@@ -22,6 +22,8 @@ from tpu_swirld_torch.sim import generate_gossip_dag
 ROOT = Path(__file__).resolve().parents[1]
 OBS_MODULES = ("__init__", "__main__", "registry", "tracer", "profile",
                "memory", "finality", "flightrec", "report", "cluster_trace")
+NET_MODULES = ("__init__", "frame", "wal", "ingest", "transport", "traffic",
+               "proxy", "node_proc", "cluster")
 
 
 def _port_files():
@@ -63,6 +65,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "tpu_swirld_torch/membership/sim.py",
         "tpu_swirld_torch/membership/txs.py",
         *(f"tpu_swirld_torch/obs/{m}.py" for m in OBS_MODULES),
+        *(f"tpu_swirld_torch/net/{m}.py" for m in NET_MODULES),
+        "tpu_swirld_torch/cluster_run.py",
     } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -73,12 +77,41 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_import_leaves_jax_unloaded():
     obs = ", ".join(f"tpu_swirld_torch.obs.{m}" for m in OBS_MODULES[2:])
+    net = ", ".join(f"tpu_swirld_torch.net.{m}" for m in NET_MODULES[1:])
     code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
             "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, "
             "tpu_swirld_torch.chaos, tpu_swirld_torch.adversary, "
-            "tpu_swirld_torch.chaos_run, "
-            f"tpu_swirld_torch.metrics, {obs}, sys; "
+            "tpu_swirld_torch.chaos_run, tpu_swirld_torch.cluster_run, "
+            f"tpu_swirld_torch.metrics, {obs}, {net}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["tpu_swirld_torch.net.node_proc",
+                                    "tpu_swirld_torch.net.cluster"])
+def test_cluster_processes_leave_torch_unloaded(module):
+    """A node process and the cluster supervisor run the oracle and the
+    verdict on the host: their import chains load no torch (a node
+    process restarts inside a kill/restart schedule of a few seconds)."""
+    code = f"import {module}, sys; assert 'torch' not in sys.modules"
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_python_checkpoint_restores_without_torch(tmp_path):
+    """A restarted node process's ``load_node`` of its oracle node's
+    checkpoint, with no ``device=``: no torch, no GPU needed."""
+    code = (
+        "import sys\n"
+        "from tpu_swirld_torch.checkpoint import load_node, save_node\n"
+        "from tpu_swirld_torch.sim import make_simulation\n"
+        "sim = make_simulation(4, seed=2)\n"
+        "sim.run(120)\n"
+        "node = sim.nodes[1]\n"
+        f"save_node({str(tmp_path / 'n.swck')!r}, node)\n"
+        f"back = load_node({str(tmp_path / 'n.swck')!r}, sk=node.sk, pk=node.pk, network={{}})\n"
+        "assert back.state_digest() == node.state_digest() and node.consensus\n"
+        "assert 'torch' not in sys.modules\n"
+    )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 

@@ -141,6 +141,24 @@ def test_visibility_matches_reference():
     assert np.array_equal(got_sees.numpy(), np.asarray(want_sees))
 
 
+def test_ancestry_shape_contract_error_matches_reference():
+    """An N that is not a multiple of ``block``: both packages raise their
+    ``ShapeContractError`` (a ``ValueError``) with the same message, and
+    each counts the trip in its module's ``shape_guard_trips``."""
+    parents = np.full((40, 2), -1, np.int32)
+    before = pipeline.shape_guard_trips, ref.shape_guard_trips
+    with pytest.raises(ref.ShapeContractError) as want:
+        ref.ancestry(jnp.asarray(parents), block=16, matmul_dtype=jnp.float32)
+    with pytest.raises(pipeline.ShapeContractError) as got:
+        pipeline.ancestry(torch.from_numpy(parents), block=16)
+    assert issubclass(pipeline.ShapeContractError, ValueError)
+    assert str(got.value) == str(want.value)
+    assert pipeline.shape_guard_trips == before[0] + 1
+    assert ref.shape_guard_trips == before[1] + 1
+    pipeline.ancestry(torch.from_numpy(parents[:32]), block=16)   # no trip
+    assert pipeline.shape_guard_trips == before[0] + 1
+
+
 def test_mesh_still_raises():
     """What the mesh path still refuses, as the reference does (the
     member-sharded path itself: tests/test_torch_parallel.py)."""

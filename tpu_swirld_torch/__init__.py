@@ -65,92 +65,69 @@ present unless the caller asks for ``device="cpu"``.  On a CUDA device the
 boolean hops run through the hand-written kernels of
 :mod:`tpu_swirld_torch.gpu.kernels`; on the CPU the same wrappers take their
 plain PyTorch versions.
+
+:mod:`tpu_swirld_torch.net` is the real-process cluster: node processes
+gossiping over TCP, client transactions, ``kill -9`` and restart from a
+checkpoint and an own-event WAL, judged against an oracle replay of the
+union event log (``python -m tpu_swirld_torch.cluster_run``).  A node
+process runs the oracle and never imports ``torch``; so every name below is
+exported lazily (PEP 562), and importing this package loads nothing heavy
+until a name is first used.
 """
 
-from tpu_swirld_torch.adversary import SCENARIOS  # noqa: E402
-from tpu_swirld_torch.backend import TorchEngine  # noqa: E402
-from tpu_swirld_torch.chaos import (  # noqa: E402
-    ChaosScenario,
-    ChaosSimulation,
-    run_chaos,
-)
-from tpu_swirld_torch.checkpoint import (  # noqa: E402
-    load_archive,
-    load_node,
-    load_packed,
-    save_archive,
-    save_node,
-    save_packed,
-)
-from tpu_swirld_torch.gpu.incremental import IncrementalConsensus  # noqa: E402
-from tpu_swirld_torch.membership.dynamic import DynamicNode  # noqa: E402
-from tpu_swirld_torch.membership.engine import (  # noqa: E402
-    run_all_engines,
-    run_dynamic,
-)
-from tpu_swirld_torch.membership.repack import repack_packer  # noqa: E402
-from tpu_swirld_torch.oracle import Node  # noqa: E402
-from tpu_swirld_torch.parallel import (  # noqa: E402
-    Mesh,
-    MeshStreamingConsensus,
-    consensus_fn_for_mesh,
-    make_mesh,
-    make_ssm_block_fn_for_mesh,
-    ssm_matrix_sharded,
-    streaming_consensus_for_mesh,
-)
-from tpu_swirld_torch.sim import (  # noqa: E402
-    make_simulation,
-    run_with_divergent_forkers,
-    run_with_forkers,
-)
-from tpu_swirld_torch.store import (  # noqa: E402
-    SlabArchive,
-    SlabStore,
-    StreamingConsensus,
-    TileBudgetExceeded,
-)
-from tpu_swirld_torch.transport import (  # noqa: E402
-    FaultPlan,
-    FaultyTransport,
-    LinkFaults,
-    Partition,
-)
+import importlib
 
-__all__ = [
-    "ChaosScenario",
-    "ChaosSimulation",
-    "DynamicNode",
-    "FaultPlan",
-    "FaultyTransport",
-    "IncrementalConsensus",
-    "LinkFaults",
-    "Mesh",
-    "MeshStreamingConsensus",
-    "Node",
-    "Partition",
-    "SCENARIOS",
-    "SlabArchive",
-    "SlabStore",
-    "StreamingConsensus",
-    "TileBudgetExceeded",
-    "TorchEngine",
-    "consensus_fn_for_mesh",
-    "load_archive",
-    "load_node",
-    "load_packed",
-    "make_mesh",
-    "make_simulation",
-    "make_ssm_block_fn_for_mesh",
-    "repack_packer",
-    "run_all_engines",
-    "run_chaos",
-    "run_dynamic",
-    "run_with_divergent_forkers",
-    "run_with_forkers",
-    "save_archive",
-    "save_node",
-    "save_packed",
-    "ssm_matrix_sharded",
-    "streaming_consensus_for_mesh",
-]
+#: exported name -> the module that defines it
+_EXPORTS = {
+    "SCENARIOS": "adversary",
+    "TorchEngine": "backend",
+    "ChaosScenario": "chaos",
+    "ChaosSimulation": "chaos",
+    "run_chaos": "chaos",
+    "load_archive": "checkpoint",
+    "load_node": "checkpoint",
+    "load_packed": "checkpoint",
+    "save_archive": "checkpoint",
+    "save_node": "checkpoint",
+    "save_packed": "checkpoint",
+    "IncrementalConsensus": "gpu.incremental",
+    "DynamicNode": "membership.dynamic",
+    "run_all_engines": "membership.engine",
+    "run_dynamic": "membership.engine",
+    "repack_packer": "membership.repack",
+    "Node": "oracle",
+    "Mesh": "parallel",
+    "MeshStreamingConsensus": "parallel",
+    "consensus_fn_for_mesh": "parallel",
+    "make_mesh": "parallel",
+    "make_ssm_block_fn_for_mesh": "parallel",
+    "ssm_matrix_sharded": "parallel",
+    "streaming_consensus_for_mesh": "parallel",
+    "make_simulation": "sim",
+    "run_with_divergent_forkers": "sim",
+    "run_with_forkers": "sim",
+    "SlabArchive": "store",
+    "SlabStore": "store",
+    "StreamingConsensus": "store",
+    "TileBudgetExceeded": "store",
+    "FaultPlan": "transport",
+    "FaultyTransport": "transport",
+    "LinkFaults": "transport",
+    "Partition": "transport",
+}
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
+
+__all__ = sorted(_EXPORTS)

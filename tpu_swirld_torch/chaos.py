@@ -58,11 +58,19 @@ from typing import Callable, Dict, List, Optional
 
 from tpu_swirld_torch.checkpoint import load_node, save_node
 from tpu_swirld_torch.config import SwirldConfig
-from tpu_swirld_torch.device import resolve_device
 from tpu_swirld_torch.oracle.graph import toposort
 from tpu_swirld_torch.oracle.node import Node
 from tpu_swirld_torch.sim import DivergentForker, attach_obs, build_population
 from tpu_swirld_torch.transport import FaultPlan, FaultyTransport, Partition
+
+
+def resolve_device(device):
+    """:func:`tpu_swirld_torch.device.resolve_device`, imported at its first
+    call: the verdict helpers below load no ``torch`` (the cluster
+    supervisor of :mod:`tpu_swirld_torch.net.cluster` runs them)."""
+    from tpu_swirld_torch.device import resolve_device as _resolve
+
+    return _resolve(device)
 
 
 def oracle_replay(
@@ -77,6 +85,18 @@ def oracle_replay(
     recomputes consensus from scratch.  Consensus is a pure function of
     the DAG, so this is the order every honest participant must have
     decided a prefix of."""
+    return oracle_observer(union, members, config, observer_key, node_cls).consensus
+
+
+def oracle_observer(
+    union: Dict[bytes, "object"],
+    members: List[bytes],
+    config: SwirldConfig,
+    observer_key,
+    node_cls: type = None,
+) -> Node:
+    """The observer node of :func:`oracle_replay`, after its one pass (the
+    DAG that :func:`_engines_agree` replays on the card)."""
     ordered = toposort(
         sorted(union, key=lambda e: (union[e].t, e)),
         lambda e: [p for p in union[e].p],
@@ -94,7 +114,7 @@ def oracle_replay(
         if observer.add_event(union[eid]):
             new_ids.append(eid)
     observer.consensus_pass(new_ids)
-    return observer.consensus
+    return observer
 
 
 def safety_section(

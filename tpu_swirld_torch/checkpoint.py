@@ -15,7 +15,9 @@ Two granularities:
   the purity of the consensus functions reconstructs bit-identical
   ``round`` / ``witness`` / ``famous`` / order state; the node then
   resumes gossiping.  A ``backend="tpu"`` node's pass runs
-  :class:`~tpu_swirld_torch.backend.TorchEngine` on ``device``.
+  :class:`~tpu_swirld_torch.backend.TorchEngine` on ``device``; restoring
+  any other node imports no ``torch`` and needs no device (a cluster's node
+  process restores its oracle node this way).
 
 The replay-purity contract is only sound because the expiry horizon is
 deterministic (the :mod:`tpu_swirld_torch.oracle.node` module docstring).
@@ -37,11 +39,9 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from tpu_swirld_torch import crypto
 from tpu_swirld_torch.config import SwirldConfig
-from tpu_swirld_torch.device import resolve_device
 from tpu_swirld_torch.event import decode_event, encode_event
 from tpu_swirld_torch.oracle.node import Node
 from tpu_swirld_torch.packing import PackedDAG
@@ -185,13 +185,14 @@ def load_node(
     ``device`` (default ``"cuda"``, which raises without a GPU) is where a
     ``backend="tpu"`` node's :class:`~tpu_swirld_torch.backend.TorchEngine`
     runs the replay's pass and every later one; there is no CPU fallback
-    unless the caller passes ``device="cpu"``.  ``transport`` re-attaches
-    the restored node to a shared delivery layer.  The node's
+    unless the caller passes ``device="cpu"``.  It is resolved only for
+    such a node: any other checkpoint restores on a host without a GPU.
+    ``transport`` re-attaches the restored node to a shared delivery
+    layer.  The node's
     ``restore_seconds`` holds the wall seconds of the log's replay into the
     store (``"replay"``) and of the consensus pass (``"pass"``, which waits
     for the device).
     """
-    dev = resolve_device(device)
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != MAGIC:
@@ -220,9 +221,12 @@ def load_node(
         clock=clock, create_genesis=False, network_want=network_want,
         transport=transport,
     )
+    dev = None
     if cfg.backend == "tpu":
         from tpu_swirld_torch.backend import TorchEngine
+        from tpu_swirld_torch.device import resolve_device
 
+        dev = resolve_device(device)
         node._tpu_engine = TorchEngine(node, device=dev)
     t0 = time.perf_counter()
     off = 8 + hlen
@@ -237,7 +241,9 @@ def load_node(
         # a backend='tpu' node with a lazy-batch threshold must still come
         # back fully computed — the restore contract is bit-identical state
         node._tpu_engine.flush()
-        if dev.type == "cuda":
+        if dev is not None and dev.type == "cuda":
+            import torch
+
             torch.cuda.synchronize(dev)
     node.restore_seconds = {"replay": t1 - t0, "pass": time.perf_counter() - t1}
     # horizon integrity (older checkpoints without the fields skip this):

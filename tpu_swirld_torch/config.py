@@ -4,7 +4,8 @@ SwirldConfig``, every field with the same name and default.
 The streaming and archive knobs resolve as the reference's do: an explicit
 ``SwirldConfig`` field wins, then the ``SWIRLD_*`` environment variable,
 then the built-in default (:func:`resolve_stream_settings`,
-:func:`resolve_archive_settings`, :func:`resolve_flightrec_settings`).
+:func:`resolve_archive_settings`, :func:`resolve_flightrec_settings`,
+:func:`resolve_net_settings`).
 """
 
 from __future__ import annotations
@@ -37,6 +38,23 @@ _STREAM_ENV = {
     "fuse_chunks": ("SWIRLD_FUSE_CHUNKS", 8, int),
     "decode_overlap": ("SWIRLD_DECODE_OVERLAP", True, _env_flag),
     "decode_queue_depth": ("SWIRLD_DECODE_QUEUE_DEPTH", 2, int),
+}
+
+
+#: built-in socket/cluster defaults (field -> (env var, default, parser)),
+#: in wall seconds except the byte and count caps
+_NET_ENV = {
+    "net_connect_timeout_s": ("SWIRLD_NET_CONNECT_TIMEOUT", 5.0, float),
+    "net_call_timeout_s": ("SWIRLD_NET_CALL_TIMEOUT", 10.0, float),
+    "net_max_frame_bytes": ("SWIRLD_NET_MAX_FRAME", (1 << 24) + (1 << 16), int),
+    "net_tx_batch_bytes": ("SWIRLD_NET_TX_BATCH_BYTES", 64 << 10, int),
+    "net_tx_max_bytes": ("SWIRLD_NET_TX_MAX_BYTES", 16 << 10, int),
+    "net_tx_pool_txs": ("SWIRLD_NET_TX_POOL", 4096, int),
+    "net_max_undecided": ("SWIRLD_NET_MAX_UNDECIDED", 2048, int),
+    "net_gossip_interval_s": ("SWIRLD_NET_GOSSIP_INTERVAL", 0.01, float),
+    "net_checkpoint_every_s": ("SWIRLD_NET_CHECKPOINT_EVERY", 1.0, float),
+    "net_retry_tick_s": ("SWIRLD_NET_RETRY_TICK", 0.02, float),
+    "net_redial_probe_s": ("SWIRLD_NET_REDIAL_PROBE", 0.05, float),
 }
 
 
@@ -82,6 +100,18 @@ def resolve_flightrec_settings(config: Optional["SwirldConfig"] = None) -> Dict:
     })
 
 
+def resolve_net_settings(config: Optional["SwirldConfig"] = None) -> Dict:
+    """Concrete socket/cluster settings (:mod:`tpu_swirld_torch.net`),
+    ``{"connect_timeout_s", "call_timeout_s", "max_frame_bytes",
+    "tx_batch_bytes", "tx_max_bytes", "tx_pool_txs", "max_undecided",
+    "gossip_interval_s", "checkpoint_every_s", "retry_tick_s",
+    "redial_probe_s"}`` (plain values, never ``None``).  ``retry_tick_s``
+    turns the retry policy's logical backoff ticks into real sleep seconds;
+    ``redial_probe_s`` bounds the one re-probe after a failed transparent
+    redial (a peer mid-restart whose new listener is not bound yet)."""
+    return _resolve(config, _NET_ENV, {f: f[len("net_"):] for f in _NET_ENV})
+
+
 @dataclasses.dataclass(frozen=True)
 class SwirldConfig:
     """Attributes:
@@ -124,11 +154,9 @@ class SwirldConfig:
       quarantine_forkers: a detected equivocator opens its breaker at once.
       max_fork_branches: branch tails walked per forked creator per reply.
       flightrec_capacity, flightrec_max_dumps, flightrec_dir: the flight
-        recorder's settings (:func:`resolve_flightrec_settings`), and
-        ``net_*``: the socket transport's.  They are carried so that a
-        config, and a checkpoint header that holds one, means the same in
-        both packages; the port has no socket transport yet (ROADMAP
-        ``net/``) and reads no ``net_*`` field.
+        recorder's settings (:func:`resolve_flightrec_settings`).
+      net_*: the socket transport's and the cluster's settings
+        (:func:`resolve_net_settings`, :mod:`tpu_swirld_torch.net`).
       membership_delay: rounds between a membership transaction's decision
         (the round received of its carrier event) and the first round its
         epoch governs (:mod:`tpu_swirld_torch.membership`).

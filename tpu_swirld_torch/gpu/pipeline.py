@@ -86,6 +86,23 @@ def _bucket(v: int, m: int) -> int:
     return ((max(v, 1) + m - 1) // m) * m
 
 
+class ShapeContractError(ValueError):
+    """A device-kernel shape precondition was violated by the caller (the
+    reference's class of the same name).  Raised explicitly, never by
+    ``assert``, and counted in :data:`shape_guard_trips`."""
+
+
+#: lifetime count of ShapeContractError raises in this process
+shape_guard_trips = 0
+
+
+def _shape_guard(ok: bool, message: str) -> None:
+    if not ok:
+        global shape_guard_trips
+        shape_guard_trips += 1
+        raise ShapeContractError(message)
+
+
 def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
@@ -106,8 +123,10 @@ def ancestry(parents: torch.Tensor, *, block: int) -> torch.Tensor:
     log2(B) in-block squarings, then one (B, B) @ (B, N) hop propagating the
     external parents' rows; the slab is written in place."""
     n = parents.shape[0]
-    if n % block:
-        raise ValueError(f"ancestry: N={n} must be padded to a multiple of block={block}")
+    _shape_guard(
+        n % block == 0,
+        f"ancestry: N={n} must be padded to a multiple of block={block}",
+    )
     dev = parents.device
     n_sq = max(1, math.ceil(math.log2(block)))
     eye = torch.eye(block, dtype=torch.bool, device=dev)

@@ -132,9 +132,9 @@ class LinkFaults:
     stashed one; ``delay`` holds the fresh reply back entirely (the caller
     times out; the reply arrives stale later).
 
-    The last three knobs only have meaning on a real wire, where a socket
-    proxy applies them (the port has no socket transport yet); the
-    in-process :class:`FaultyTransport` never does: ``reset`` is the
+    The last three knobs only have meaning on a real wire and are applied
+    by the socket interposer (:mod:`tpu_swirld_torch.net.proxy`), never by
+    the in-process :class:`FaultyTransport`: ``reset`` is the
     probability of a hard connection teardown after the server already
     processed the request (the redial-after-success hazard), ``delay_s`` is
     the hold applied when a ``delay`` fault fires on a stream (an
