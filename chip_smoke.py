@@ -194,10 +194,36 @@
    one is cut for time, see ``CLUSTER_ENGINES``): every comparison true,
    ``bmm_or`` and ``ssm_block`` launched, ``ssm_matrix`` not; prints each
    replay's seconds beside the union's event count.
-16. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+16. The model checker, the production-day soak and viz
+   (``tpu_swirld_torch.analysis.mc``, ``soak``, ``viz``).  (a) Under the
+   simulation signer: ``mc_smoke()`` ok (exhaustive, clean, reduced), the
+   ``fork-blind`` mutation caught by ``fork-budget`` with a minimized
+   document that replays with all three flags true, and ``chaos_run --mc``'s
+   parity document through ``replay_counterexample(engine="incremental",
+   device="cuda")``: reproduced, digests and trace equal, both parities
+   true, ``bmm_or`` and ``ssm_block`` launched, ``ssm_matrix`` not.  (b)
+   Under the machine's default signer, ``bench.py --soak``'s setting
+   (``SOAK_SPEC``: 4 node processes behind per-link fault proxies, seed 3,
+   8 s of 150 tx/s from 3 clients, ``smoke_schedule``: an equivocation
+   storm in member 3's slot, member 1 killed at 25% and restarted at 45% of
+   the horizon, member 0 partitioned at 55-75%) through ``run_soak``: the
+   checks of ``tests/test_soak_run.py``'s smoke (verdict ok, 3 of 3
+   disruptions survived, proxies relayed, the partition blocked, the storm
+   stepped and was detected, the victim restarted unclean, the books
+   balanced with nothing leaked); prints tx/s, the submit p99, the union's
+   events and fork pairs and the counters.  Its union event log, replayed
+   into an observer in ``oracle_replay``'s order (its order must be the
+   verdict's), then through ``chaos._engines_agree(engine="streaming",
+   device="cuda")``: both parities true, ``bmm_or`` and ``ssm_block``
+   launched, ``ssm_matrix`` not.  (c) ``viz.export_state`` of (b)'s
+   observer against the export of ``run_consensus(pack_node(observer),
+   device="cuda")``: equal, and ``to_json`` of the card's result loads back
+   to the same rows.
+17. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
-   live node, dynamic pin, restore, phase 13's, phase 14's and phase 15's
-   ``cluster`` replays), the card's name and power limit, then ``{"ok":
+   live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
+   ``cluster`` replays and phase 16's ``mc``, ``soak`` and ``viz`` runs),
+   the card's name and power limit, then ``{"ok":
    true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
@@ -228,7 +254,8 @@ from tpu_swirld_torch import (
     make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
     save_packed, ssm_matrix_sharded,
 )
-from tpu_swirld_torch import chaos, obs, transport
+from tpu_swirld_torch import chaos, chaos_run, obs, soak, transport, viz
+from tpu_swirld_torch.analysis.mc import mc_smoke, run_mc
 from tpu_swirld_torch.adversary import SCENARIOS
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock
@@ -466,6 +493,17 @@ CLUSTER_SPEC = {"n_nodes": 5, "seed": 9, "duration_s": 6.0, "tx_rate": 300,
 CLUSTER_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
 OVERLOAD_SPEC = {"n_nodes": 3, "seed": 5, "duration_s": 1.5, "tx_rate": 200.0}
 CLUSTER_ENGINES = ("streaming",)
+
+# The model checker, the soak and viz (phase 16).  (b) runs bench.py --soak's
+# setting (bench.py:1152-1168) through the port's run_soak: 4 node processes
+# behind per-link fault proxies, seed 3, an 8 s horizon of 150 tx/s of
+# 64-byte txs from 3 clients, smoke_schedule's three windows, gossip every
+# 5 ms and a checkpoint every 0.5 s; its union (forked by the storm's member)
+# replays through this windowed engine on the card.
+SOAK_SPEC = {"n_nodes": 4, "seed": 3, "horizon_s": 8.0, "tx_rate": 150.0,
+             "n_clients": 3, "tx_bytes": 64}
+SOAK_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
+SOAK_ENGINE = "streaming"
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -2755,6 +2793,183 @@ def run_cluster_phase(failures):
     return {"cluster": launches}
 
 
+# ------------------------ phase 16: the model checker, the soak and viz
+
+
+def run_checker(failures):
+    """Phase 16(a), under the simulation signer.  Returns the parity
+    replay's launches."""
+    tag = "mc"
+    t0 = time.perf_counter()
+    smoke = mc_smoke()
+    t_smoke = time.perf_counter() - t0
+    print(f"{tag} smoke: {t_smoke} s; {json.dumps(smoke, sort_keys=True)}", flush=True)
+    if not smoke["ok"]:
+        failures.append(f"{tag} smoke: not ok: {json.dumps(smoke)}")
+    t0 = time.perf_counter()
+    cex = run_mc(mutate="fork-blind").get("counterexample") or {}
+    print(f"{tag} fork-blind: {time.perf_counter() - t0} s; caught "
+          f"{cex.get('violation', {}).get('invariant')} (expected "
+          f"{cex.get('expected_invariant')}), minimized {cex.get('schedule_len')} -> "
+          f"{cex.get('minimized_len')} actions, replay reproduced "
+          f"{cex.get('replay_reproduced')} digests {cex.get('replay_digests_match')} "
+          f"trace {cex.get('replay_trace_match')}", flush=True)
+    if not (cex.get("caught_expected") and cex.get("replay_reproduced")
+            and cex.get("replay_digests_match") and cex.get("replay_trace_match")):
+        failures.append(f"{tag} fork-blind: not caught or not replayed")
+    doc = chaos_run.parity_document(0)
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = chaos.replay_counterexample(doc, engine="incremental", device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    print(f"{tag} parity replay: {wall} s; {json.dumps(_no_times(rep), sort_keys=True)}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if not (rep["ok"] and rep["reproduced"] and rep["digests_match"]
+            and rep["trace_match"] and "error" not in rep["engines"]
+            and rep["engines"]["batch_oracle_parity"]
+            and rep["engines"]["incremental_batch_parity"]):
+        failures.append(f"{tag} parity replay: {json.dumps(_no_times(rep))}")
+    check_launches(f"{tag} parity replay", launches, ("bmm_or", "ssm_block"),
+                   ("ssm_matrix",), failures)
+    return launches
+
+
+def fork_pairs(node) -> int:
+    """Seq groups of two or more events by one creator in ``node``'s store."""
+    return sum(1 for m in node.members for g in node.by_seq[m].values() if len(g) >= 2)
+
+
+def run_soak_leg(tmp, failures):
+    """Phase 16(b)'s cluster: ``SOAK_SPEC`` through the port's ``run_soak``.
+    Returns the verdict, its oracle order and the union event log."""
+    tag = "soak"
+    spec = soak.default_spec(os.path.join(tmp, "soak"), net=dict(SOAK_NET), **SOAK_SPEC)
+    spec = dataclasses.replace(spec, schedule=soak.smoke_schedule(spec))
+    with oracle_orders(soak) as orders:
+        t0 = time.perf_counter()
+        v = soak.run_soak(spec)
+        wall = time.perf_counter() - t0
+    honest = [i for i in range(spec.n_nodes)
+              if i not in v["adversary"]["byzantine_indices"]]
+    _reports, union, _rows = net_cluster.collect_node_state(spec.workdir, honest, {}, {})
+    victims = [row for row in v["nodes"] if row["restarts"] >= 1]
+    print(f"{tag}: {wall} s, ok {v['ok']}; {v['disruptions_survived']} of "
+          f"{v['disruptions_total']} disruptions survived; tx_per_s {v['tx_per_s']}, "
+          f"submit_p99_s {v['submit_p99_s']}; union {len(union)} events, oracle order "
+          f"{v['safety']['oracle_len']}; proxy {json.dumps(v['proxy'], sort_keys=True)}; "
+          f"adversary {json.dumps(v['adversary'], sort_keys=True)}", flush=True)
+    print(f"{tag}: counters {json.dumps(v['counters'], sort_keys=True)}; accounting "
+          f"{json.dumps({k: v['accounting'].get(k) for k in ('submitted', 'leaked', 'balance_ok', 'shed_rate')})}; "
+          f"victims {json.dumps([{k: r.get(k) for k in ('index', 'restarts', 'unclean_start', 'exit_code')} for r in victims])}",
+          flush=True)
+    checks = {
+        "verdict ok": v["ok"],
+        "oracle_agree and prefix_agree": v["safety"]["oracle_agree"]
+        and v["safety"]["prefix_agree"],
+        "3 of 3 disruptions survived": v["disruptions_survived"] == v["disruptions_total"] == 3,
+        "proxies relayed": v["proxy"].get("relayed", 0) > 0,
+        "partition blocked": v["proxy"].get("partition_blocked", 0) > 0,
+        "attack stepped": v["adversary"]["attack_steps"] > 0,
+        "equivocations detected": v["adversary"]["equivocations_detected"] > 0,
+        "victim restarted unclean": bool(victims)
+        and all(r["unclean_start"] for r in victims),
+        "books balance": bool(v["accounting"]["balance_ok"]),
+        "0 leaked": v["accounting"]["leaked"] == 0,
+        "txs submitted": v["accounting"]["submitted"] > 0,
+        "one oracle replay": len(orders) == 1,
+    }
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag}: {name} failed")
+    return v, (orders[-1] if orders else []), union
+
+
+def run_soak_replay(v, oracle, union, failures):
+    """Phase 16(b)'s card leg: the union into an observer in
+    ``oracle_replay``'s order, then ``_engines_agree(engine=SOAK_ENGINE)``.
+    Returns the observer and the replay's launches."""
+    tag = f"soak union replay {SOAK_ENGINE}"
+    n, seed = SOAK_SPEC["n_nodes"], SOAK_SPEC["seed"]
+    t0 = time.perf_counter()
+    observer = chaos.oracle_observer(
+        union, [pk for pk, _ in net_cluster.member_keys(n, seed)],
+        SwirldConfig(n_members=n, seed=seed), net_cluster.observer_keypair(seed),
+    )
+    host_s = time.perf_counter() - t0
+    print(f"{tag}: observer {len(observer.order_added)} events, "
+          f"{len(observer.consensus)} decided, {fork_pairs(observer)} fork pairs, "
+          f"{observer.equivocations_detected} equivocations, {host_s} s on the host",
+          flush=True)
+    if observer.consensus != oracle or len(oracle) != v["safety"]["oracle_len"]:
+        failures.append(f"{tag}: the observer's order is not the verdict's")
+    if fork_pairs(observer) == 0:
+        failures.append(f"{tag}: the union holds no fork pair")
+    reset_launches()
+    row = chaos._engines_agree(observer, engine=SOAK_ENGINE, device="cuda")
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    print(f"{tag}: {row['seconds']} s for {len(observer.order_added)} events; "
+          f"{json.dumps(_no_times(row), sort_keys=True)}; launches {json.dumps(launches)}",
+          flush=True)
+    if not (row["batch_oracle_parity"] and row["incremental_batch_parity"]):
+        failures.append(f"{tag}: engines disagree: {json.dumps(_no_times(row))}")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return observer, launches
+
+
+def run_viz(observer, failures):
+    """Phase 16(c): the observer's export against its DAG's batch result on
+    the card.  Returns the batch pass's launches."""
+    tag = "viz"
+    t0 = time.perf_counter()
+    rows = viz.export_state(node=observer)
+    reset_launches()
+    packed = pack_node(observer)
+    result = run_consensus(packed, observer.config, block=64, device="cuda")
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    card_rows = viz.export_state(packed=packed, result=result)
+    back = json.loads(viz.to_json(packed=packed, result=result))
+    print(f"{tag}: {time.perf_counter() - t0} s; {len(rows)} rows, "
+          f"{sum(r['order'] is not None for r in card_rows)} ordered, "
+          f"{sum(r['witness'] for r in card_rows)} witnesses; export equal "
+          f"{card_rows == rows}, json round trip {back == rows}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if card_rows != rows or back != rows:
+        failures.append(f"{tag}: the card's export is not the oracle node's")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_analysis_phase(failures):
+    """Phase 16: (a) under the simulation signer, (b) and (c) under the
+    machine's default signer (the node processes'), restored to the
+    simulation signer after.  Returns the launches by leg."""
+    t_phase = time.perf_counter()
+    crypto.set_backend("sim")
+    out = {"mc": {"parity": run_checker(failures)}}
+    t_a = time.perf_counter()
+    crypto.set_backend(DEFAULT_SIGNER)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            v, oracle, union = run_soak_leg(tmp, failures)
+        t_cluster = time.perf_counter()
+        if union:
+            observer, replay_launches = run_soak_replay(v, oracle, union, failures)
+            out["soak"] = {SOAK_ENGINE: replay_launches}
+            t_b = time.perf_counter()
+            out["viz"] = {"columns": run_viz(observer, failures)}
+        else:
+            failures.append("soak: the run left no event log")
+            t_b = time.perf_counter()
+    finally:
+        crypto.set_backend("sim")
+    t_c = time.perf_counter()
+    print(f"model checker, soak and viz: {t_c - t_phase} s ((a) {t_a - t_phase} s, "
+          f"(b) {t_b - t_a} s: cluster {t_cluster - t_a} s, replay {t_b - t_cluster} s; "
+          f"(c) {t_c - t_b} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2853,6 +3068,7 @@ def main() -> int:
     launches.update(run_observability(dags, packs, untraced, base, c4, smi, failures))
     launches.update(run_chaos_phase(dags, columns_evps, failures))
     launches.update(run_cluster_phase(failures))
+    launches.update(run_analysis_phase(failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

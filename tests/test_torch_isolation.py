@@ -24,6 +24,8 @@ OBS_MODULES = ("__init__", "__main__", "registry", "tracer", "profile",
                "memory", "finality", "flightrec", "report", "cluster_trace")
 NET_MODULES = ("__init__", "frame", "wal", "ingest", "transport", "traffic",
                "proxy", "node_proc", "cluster")
+MC_MODULES = ("__init__", "world", "encode", "invariants", "explore",
+              "mutations", "counterexample", "cli")
 
 
 def _port_files():
@@ -67,6 +69,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         *(f"tpu_swirld_torch/obs/{m}.py" for m in OBS_MODULES),
         *(f"tpu_swirld_torch/net/{m}.py" for m in NET_MODULES),
         "tpu_swirld_torch/cluster_run.py",
+        "tpu_swirld_torch/analysis/__init__.py",
+        "tpu_swirld_torch/analysis/__main__.py",
+        *(f"tpu_swirld_torch/analysis/mc/{m}.py" for m in MC_MODULES),
+        "tpu_swirld_torch/soak.py", "tpu_swirld_torch/soak_run.py",
+        "tpu_swirld_torch/viz.py",
     } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -78,21 +85,28 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_import_leaves_jax_unloaded():
     obs = ", ".join(f"tpu_swirld_torch.obs.{m}" for m in OBS_MODULES[2:])
     net = ", ".join(f"tpu_swirld_torch.net.{m}" for m in NET_MODULES[1:])
+    mc = ", ".join(f"tpu_swirld_torch.analysis.mc.{m}" for m in MC_MODULES[1:])
     code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
             "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, "
             "tpu_swirld_torch.chaos, tpu_swirld_torch.adversary, "
             "tpu_swirld_torch.chaos_run, tpu_swirld_torch.cluster_run, "
-            f"tpu_swirld_torch.metrics, {obs}, {net}, sys; "
+            "tpu_swirld_torch.analysis.__main__, tpu_swirld_torch.soak_run, "
+            "tpu_swirld_torch.viz, "
+            f"tpu_swirld_torch.metrics, {obs}, {net}, {mc}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 @pytest.mark.parametrize("module", ["tpu_swirld_torch.net.node_proc",
-                                    "tpu_swirld_torch.net.cluster"])
+                                    "tpu_swirld_torch.net.cluster",
+                                    "tpu_swirld_torch.soak",
+                                    "tpu_swirld_torch.analysis.mc",
+                                    "tpu_swirld_torch.viz"])
 def test_cluster_processes_leave_torch_unloaded(module):
-    """A node process and the cluster supervisor run the oracle and the
-    verdict on the host: their import chains load no torch (a node
-    process restarts inside a kill/restart schedule of a few seconds)."""
+    """A node process, the cluster supervisor, the soak orchestrator, the
+    model checker and viz run on the host: their import chains load no
+    torch (a node process restarts inside a kill/restart schedule of a few
+    seconds)."""
     code = f"import {module}, sys; assert 'torch' not in sys.modules"
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

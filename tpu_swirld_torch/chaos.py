@@ -1080,3 +1080,57 @@ def run_membership_churn(
         "checkpoint": ckpt,
         "flightrec_dump": dump,
     }
+
+
+def replay_counterexample(doc_or_path, engine: str = "incremental",
+                          device="cuda") -> Dict:
+    """Ingest a model-checker counterexample document (the JSON that
+    ``python -m tpu_swirld_torch.analysis mc --out ...`` writes, or the
+    reference's: the format is shared) into the chaos harness: replay the
+    minimized schedule bit-deterministically through the real node and
+    transport seam, confirm the recorded violation and per-node state
+    digests reproduce exactly, and, for UNMUTATED documents, where the
+    consensus core is the shipping code, fold in a cross-engine parity row
+    (:func:`_engines_agree` on ``device``, default ``"cuda"``) for the
+    densest honest node of the final state.  Mutated documents skip the
+    parity probe (a seeded bug is EXPECTED to diverge) and gate only on
+    replay fidelity.  ``device`` is resolved first, so without a GPU the
+    default raises for any document unless the caller passes
+    ``device="cpu"``; an exception inside the parity probe is reported in
+    the row and fails the replay."""
+    from tpu_swirld_torch.analysis.mc import counterexample as _ce
+
+    dev = resolve_device(device)
+    doc = (
+        _ce.load(doc_or_path) if isinstance(doc_or_path, (str, os.PathLike))
+        else doc_or_path
+    )
+    rep = _ce.replay(doc)
+    out: Dict = {
+        "kind": "mc-replay",
+        "mutate": doc["world"].get("mutate"),
+        "schedule_len": len(doc["schedule"]),
+        "violation": doc.get("violation"),
+        "reproduced": rep["reproduced"],
+        "digests_match": rep["digests_match"],
+        "trace_match": rep["trace_match"],
+    }
+    ok = bool(rep["reproduced"] and rep["digests_match"] and rep["trace_match"])
+    if out["mutate"] is None:
+        world, nodes = rep["_world"], rep["_nodes"]
+        probe = max(
+            (nodes[r] for r in world.honest_roles), key=lambda n: len(n.hg)
+        )
+        try:
+            engines = _engines_agree(probe, engine=engine, device=dev)
+        except Exception as exc:  # the device path failed: report, fail
+            engines = {"engine": engine, "error": repr(exc)}
+            ok = False
+        else:
+            ok = ok and bool(
+                engines["batch_oracle_parity"]
+                and engines["incremental_batch_parity"]
+            )
+        out["engines"] = engines
+    out["ok"] = ok
+    return out

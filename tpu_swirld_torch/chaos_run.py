@@ -19,8 +19,13 @@ kernels' plain versions.  Named scenarios (``--scenario``) come from
 ``fork_bomb``, ``fork_bomb_overbudget``) and the storms (``horizon_storm``,
 ``overflow_storm``, ``membership_churn``).  ``--scenario list`` prints the
 registry; ``--all`` runs every scenario and writes one verdict gated on
-all of them.  The reference's ``--sanitize`` and ``--mc`` sections need its
-race sanitizer and model checker, which the port does not have.
+all of them.  ``--mc`` folds in a model-checker section
+(:mod:`tpu_swirld_torch.analysis.mc`): the exhaustive smoke world, one
+seeded mutation with its minimized counterexample, and a clean schedule
+document replayed through
+:func:`~tpu_swirld_torch.chaos.replay_counterexample`, whose cross-engine
+row runs on ``--device``.  The reference's ``--sanitize`` section waits for
+the port of its race sanitizer, ``analysis/races.py``.
 
 The default schedule scales with ``--turns``: a partition cuts the first
 two members off during the middle third; the last member crashes at 1/4
@@ -164,6 +169,71 @@ def run_scenario(args, ckpt_dir, o) -> dict:
     return verdict
 
 
+def run_mc_section(args) -> dict:
+    """--mc: fold a model-checker section into the verdict, three legs:
+
+    - *smoke*: exhaustive BFS of the small vanilla world (every invariant
+      must hold over the whole space, the POR+symmetry reduction must
+      beat the naive baseline);
+    - *mutation*: one seeded bug (``fork-blind``) must be caught by its
+      expected invariant with a minimized, bit-deterministically
+      replaying counterexample;
+    - *parity*: a clean replayable schedule document round-trips through
+      :func:`tpu_swirld_torch.chaos.replay_counterexample`, which gates the
+      final state on a cross-engine ``_engines_agree`` row under the same
+      ``--engine`` and ``--device`` the acceptance scenario used.
+    """
+    from tpu_swirld_torch.analysis.mc.cli import mc_smoke, run_mc
+    from tpu_swirld_torch.chaos import replay_counterexample
+
+    smoke = mc_smoke()
+    mut = run_mc(mutate="fork-blind")
+    cex = mut.get("counterexample") or {}
+    mutation = {
+        "name": "fork-blind",
+        "caught_expected": bool(cex.get("caught_expected")),
+        "minimized_len": cex.get("minimized_len"),
+        "replay_ok": bool(
+            cex.get("replay_reproduced")
+            and cex.get("replay_digests_match")
+            and cex.get("replay_trace_match")
+        ),
+    }
+    doc = parity_document(args.seed or 0)
+    parity = replay_counterexample(doc, engine=args.engine, device=args.device)
+    parity.pop("violation", None)
+    return {
+        "smoke": smoke,
+        "mutation": mutation,
+        "parity": parity,
+        "ok": bool(
+            smoke["ok"] and mutation["caught_expected"]
+            and mutation["replay_ok"] and parity["ok"]
+        ),
+    }
+
+
+def parity_document(seed: int = 0) -> dict:
+    """The ``--mc`` parity probe's clean schedule document: a 3-member world
+    (budget 3 events, ``seed``) after three syncs and two pulls, emitted
+    under the simulation signer (restored after)."""
+    from tpu_swirld_torch import crypto
+    from tpu_swirld_torch.analysis.mc import counterexample as ce
+    from tpu_swirld_torch.analysis.mc.world import World
+
+    prev = crypto.backend_name()
+    crypto.set_backend("sim")
+    try:
+        w = World(n_honest=3, n_forkers=0, events=3, seed=seed)
+        sched = [
+            ("sync", 1, 0), ("sync", 0, 1), ("sync", 2, 0),
+            ("pull", 0, 2), ("pull", 1, 2),
+        ]
+        return ce.emit(w, sched, ce.run_checked(w, sched))
+    finally:
+        crypto.set_backend(prev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -216,6 +286,14 @@ def main(argv=None) -> int:
     ap.add_argument("--delay", type=float, default=0.05)
     ap.add_argument("--checkpoint-every", type=int, default=40)
     ap.add_argument(
+        "--mc", action="store_true",
+        help="fold a model-checker section into the verdict: exhaustive "
+        "smoke world (all invariants over every interleaving, reduction "
+        "ratio vs naive), one seeded-bug mutation with a minimized "
+        "replaying counterexample, and a clean replayable schedule "
+        "document gated on cross-engine parity under --engine and --device",
+    )
+    ap.add_argument(
         "--flightrec-dir", default=None, metavar="DIR",
         help="enable the black-box flight recorder: every node keeps a "
         "bounded ring of recent activity and a failing verdict (or an "
@@ -242,6 +320,8 @@ def main(argv=None) -> int:
         args.seed = 0
 
     if args.all:
+        if args.mc:
+            ap.error("--all and --mc are mutually exclusive")
         results = {}
         for name in RUNNERS:
             sub = argparse.Namespace(**{**vars(args), "scenario": name})
@@ -280,13 +360,16 @@ def main(argv=None) -> int:
             verdict = run_scenario(args, ckpt_dir, o)
         trace_path = os.path.splitext(args.out)[0] + ".trace.jsonl"
         o.save(trace_path)
+    if args.mc:
+        verdict["mc"] = run_mc_section(args)
+        verdict["ok"] = bool(verdict["ok"] and verdict["mc"]["ok"])
     if args.flightrec_dir:
         verdict["flightrec_dumps_by_trace"] = \
             flightrec_dumps_by_trace(args.flightrec_dir)
     with open(args.out, "w") as f:
         json.dump(verdict, f, indent=2, sort_keys=True)
     for key in ("safety", "liveness", "horizon", "fork_storm", "round_clamp",
-                "adversary", "engines", "flightrec_dump",
+                "adversary", "engines", "mc", "flightrec_dump",
                 "flightrec_dumps_by_trace"):
         if key in verdict:
             print(json.dumps({key: verdict[key]}, sort_keys=True))

@@ -5,7 +5,7 @@ The streaming and archive knobs resolve as the reference's do: an explicit
 ``SwirldConfig`` field wins, then the ``SWIRLD_*`` environment variable,
 then the built-in default (:func:`resolve_stream_settings`,
 :func:`resolve_archive_settings`, :func:`resolve_flightrec_settings`,
-:func:`resolve_net_settings`).
+:func:`resolve_net_settings`, :func:`resolve_soak_settings`).
 """
 
 from __future__ import annotations
@@ -55,6 +55,20 @@ _NET_ENV = {
     "net_checkpoint_every_s": ("SWIRLD_NET_CHECKPOINT_EVERY", 1.0, float),
     "net_retry_tick_s": ("SWIRLD_NET_RETRY_TICK", 0.02, float),
     "net_redial_probe_s": ("SWIRLD_NET_REDIAL_PROBE", 0.05, float),
+}
+
+#: built-in production-day-soak defaults (field -> (env var, default,
+#: parser)), in wall seconds like the net knobs.  ``SwirldConfig`` has no
+#: ``soak_*`` field (neither has the reference's), so a config passed in
+#: only wins where a caller's object carries one.
+_SOAK_ENV = {
+    "soak_horizon_s": ("SWIRLD_SOAK_HORIZON", 8.0, float),
+    "soak_nodes": ("SWIRLD_SOAK_NODES", 4, int),
+    "soak_tx_rate": ("SWIRLD_SOAK_TX_RATE", 150.0, float),
+    "soak_clients": ("SWIRLD_SOAK_CLIENTS", 3, int),
+    "soak_tx_bytes": ("SWIRLD_SOAK_TX_BYTES", 64, int),
+    "soak_pareto_alpha": ("SWIRLD_SOAK_PARETO_ALPHA", 1.5, float),
+    "soak_finality_budget_s": ("SWIRLD_SOAK_FINALITY_BUDGET", 6.0, float),
 }
 
 
@@ -110,6 +124,16 @@ def resolve_net_settings(config: Optional["SwirldConfig"] = None) -> Dict:
     ``redial_probe_s`` bounds the one re-probe after a failed transparent
     redial (a peer mid-restart whose new listener is not bound yet)."""
     return _resolve(config, _NET_ENV, {f: f[len("net_"):] for f in _NET_ENV})
+
+
+def resolve_soak_settings(config: Optional["SwirldConfig"] = None) -> Dict:
+    """Concrete production-day-soak settings (:mod:`tpu_swirld_torch.soak`),
+    ``{"horizon_s", "nodes", "tx_rate", "clients", "tx_bytes",
+    "pareto_alpha", "finality_budget_s"}`` (plain values, never ``None``).
+    ``finality_budget_s`` is the composite verdict's p99 submission to
+    decided latency ceiling; ``pareto_alpha`` shapes the traffic
+    generator's heavy-tailed inter-arrival draw."""
+    return _resolve(config, _SOAK_ENV, {f: f[len("soak_"):] for f in _SOAK_ENV})
 
 
 @dataclasses.dataclass(frozen=True)
