@@ -219,12 +219,33 @@
    observer against the export of ``run_consensus(pack_node(observer),
    device="cuda")``: equal, and ``to_json`` of the card's result loads back
    to the same rows.
-17. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+17. The analysis gates (``tpu_swirld_torch.analysis``), under the
+   simulation signer.  (a) ``races.run_archive_schedules(**ARCHIVE_FUZZ,
+   device="cuda")``: 32 seeded yield-injection schedules of the archive's
+   spill / fetch / checkpoint workload, every spill's rows an owned tensor
+   on the card that the pack worker pulls: digests identical, equal to the
+   synchronous run's and to ``ARCHIVE_FUZZ_DIGEST`` (the JAX reference's),
+   no fetch or checkpoint error, the lock graph acyclic; then the same fuzz
+   over :class:`ViewSpillArchive` (a view of a slab spilled, the slab then
+   overwritten in place), which the sanitizer must report as not ok.  (b)
+   ``chaos_run --sanitize 2 --device cuda`` with ``SANITIZE_ARGS``: the
+   verdict ok, both re-runs stable and ok, the archive fuzz's digests
+   identical, equal to the synchronous run's and acyclic, the safety section
+   equal to ``SANITIZE_SAFETY``; ``bmm_or`` and ``ssm_block`` launched,
+   ``ssm_matrix`` not.  (c) ``jit_audit.runtime_audit(engine=AUDIT_ENGINE,
+   device="cuda")`` at the reference's defaults: no kernel library built or
+   loaded in the steady window, no signature drift, the stages observed
+   equal to ``AUDIT_STAGES`` (the CPU's), ``bmm_or`` and ``ssm_block``
+   launched, ``ssm_matrix`` not; prints the steady window's seconds.  (d) On
+   the host: ``lint_paths`` over the checkout's ``tpu_swirld_torch`` finds
+   nothing, and ``jit_audit.static_audit`` finds exactly
+   ``STATIC_AUDIT_FINDINGS``.  Prints each leg's seconds.
+18. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
-   ``cluster`` replays and phase 16's ``mc``, ``soak`` and ``viz`` runs),
-   the card's name and power limit, then ``{"ok":
-   true, ...}`` as the last line.
+   ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs and
+   phase 17's ``sanitize`` and ``jit_audit`` runs), the card's name and
+   power limit, then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -255,6 +276,7 @@ from tpu_swirld_torch import (
     save_packed, ssm_matrix_sharded,
 )
 from tpu_swirld_torch import chaos, chaos_run, obs, soak, transport, viz
+from tpu_swirld_torch.analysis import jit_audit, lint_paths, races
 from tpu_swirld_torch.analysis.mc import mc_smoke, run_mc
 from tpu_swirld_torch.adversary import SCENARIOS
 from tpu_swirld_torch.config import SwirldConfig
@@ -504,6 +526,30 @@ SOAK_SPEC = {"n_nodes": 4, "seed": 3, "horizon_s": 8.0, "tx_rate": 150.0,
              "n_clients": 3, "tx_bytes": 64}
 SOAK_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
 SOAK_ENGINE = "streaming"
+# The analysis gates (phase 17).  (a) The archive fuzz: the reference's
+# acceptance setting (tests/test_analysis.py:317), rows as owned tensors on
+# the card; its digest is the JAX reference's run_archive_schedules digest
+# for the same seed and rows, recomputed by tests/test_torch_races.py.
+ARCHIVE_FUZZ = {"n_schedules": 32, "seed": 0, "rows": 96}
+ARCHIVE_FUZZ_DIGEST = "31e01c02aabca818517de27c15e3e0dca4720e897834ae91e970aa675ff6cada"
+# (b) chaos_run --sanitize with tests/test_analysis.py:408-426's arguments
+SANITIZE_ARGS = ["--seed", "3", "--plan-seed", "3", "--nodes", "4", "--turns", "120",
+                 "--forkers", "0", "--checkpoint-every", "40", "--sanitize", "2"]
+# and the safety section of its verdict: the JAX reference's
+# scripts/chaos_run.py on the same arguments under the simulation signer,
+# recomputed by tests/test_torch_races.py
+SANITIZE_SAFETY = {"common_prefix_len": 12, "oracle_agree": True, "oracle_len": 12,
+                   "prefix_agree": True}
+# (c) runtime_audit at the reference's defaults through this engine: the
+# stages it observes, as the same audit observes them on the CPU
+# (tests/test_torch_jit_audit.py recomputes the set)
+AUDIT_ENGINE = "streaming"
+AUDIT_STAGES = ["pipeline.inc_extend_vis", "pipeline.inc_fame", "pipeline.inc_order",
+                "pipeline.inc_prune", "pipeline.inc_ssm_update",
+                "pipeline.rounds_span_stage", "pipeline.ssm_block_stage"]
+# (d) the static audit's findings on this tree, (path, stage, message), as
+# PERF.md records them (tests/test_torch_jit_audit.py holds the list)
+STATIC_AUDIT_FINDINGS = []
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -725,6 +771,20 @@ CHAOS_GOLDEN = {
         "scenario": {"name": "overflow_storm", "seed": 4},
     },
 }
+
+
+class ViewSpillArchive(races.SanitizedArchive):
+    """Phase 17(a)'s sensitivity fixture: each spill hands the archive a
+    view of a slab and then overwrites that slab in place, the hazard
+    ``StreamingConsensus._on_prune`` clones to avoid.  The pack worker pulls
+    the rows after the overwrite, so the sanitizer must report the fuzz as
+    not ok."""
+
+    def spill(self, lo, parents, rows):
+        slab = rows.clone()
+        added = super().spill(lo, parents, slab[:, :])
+        slab.zero_()
+        return added
 
 
 def reset_launches():
@@ -2970,6 +3030,143 @@ def run_analysis_phase(failures):
     return out
 
 
+# ------------------------------------ phase 17: the analysis gates on the card
+
+
+def run_archive_fuzz(failures):
+    """Phase 17(a): the archive fuzz with rows on the card, then the same
+    fuzz over :class:`ViewSpillArchive`, which the sanitizer must catch.
+    Returns the fuzz's launches (the archive runs no kernel)."""
+    tag = "races"
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = races.run_archive_schedules(**ARCHIVE_FUZZ, device="cuda")
+    t1 = time.perf_counter()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    print(f"{tag}: {t1 - t0} s for {rep['schedules']} schedules on {rep['device']}; "
+          f"digest {rep['digest']}, identical {rep['digests_identical']}, sync match "
+          f"{rep['matches_sync']}, lock edges {rep['lock_edges']}, acyclic "
+          f"{rep['acyclic']}, errors {rep['errors']}", flush=True)
+    checks = {
+        "ok": rep["ok"],
+        "digests identical": rep["digests_identical"],
+        "matches the synchronous run": rep["matches_sync"],
+        "digest golden": rep["digest"] == rep["sync_digest"] == ARCHIVE_FUZZ_DIGEST,
+        "lock graph acyclic": rep["acyclic"],
+        "no fetch or checkpoint error": rep["errors"] == [],
+    }
+    bad = races.run_archive_schedules(
+        **ARCHIVE_FUZZ, device="cuda", archive_cls=ViewSpillArchive
+    )
+    print(f"{tag} view-race fixture: {time.perf_counter() - t1} s; ok {bad['ok']}, "
+          f"identical {bad['digests_identical']}, sync match {bad['matches_sync']}, "
+          f"{len(bad['errors'])} schedules reported", flush=True)
+    checks.update({
+        "view race reported": not bad["ok"] and not bad["matches_sync"]
+        and bad["digest"] != bad["sync_digest"],
+        "view race's synchronous run golden": bad["sync_digest"] == ARCHIVE_FUZZ_DIGEST,
+    })
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag}: {name} failed")
+    return launches
+
+
+def run_sanitize(failures):
+    """Phase 17(b): ``chaos_run --sanitize 2 --device cuda``.  Returns its
+    launches (the base run and both re-runs)."""
+    tag = "chaos_run --sanitize"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "verdict.json")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = chaos_run.main([*SANITIZE_ARGS, "--device", "cuda", "--out", out])
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        with open(out) as f:
+            v = json.load(f)
+    san = v.get("sanitizer", {})
+    print(f"{tag}: {wall} s, rc {rc}; sanitizer {json.dumps(san, sort_keys=True)}; "
+          f"safety {json.dumps(v.get('safety'), sort_keys=True)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    checks = {
+        "exit 0": rc == 0,
+        "verdict ok": v.get("ok") is True,
+        "2 schedules": san.get("schedules") == 2,
+        "verdicts stable": san.get("verdicts_stable") is True,
+        "every re-run ok": san.get("all_ok") is True,
+        "archive digests identical": san.get("archive", {}).get("digests_identical") is True,
+        "archive matches sync": san.get("archive", {}).get("matches_sync") is True,
+        "archive lock graph acyclic": san.get("archive", {}).get("acyclic") is True,
+        "safety golden": v.get("safety") == SANITIZE_SAFETY,
+    }
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag}: {name} failed")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_jit_audit(failures):
+    """Phase 17(c): ``runtime_audit`` at the reference's defaults through
+    ``AUDIT_ENGINE`` on the card.  Returns its launches."""
+    tag = f"jit-audit {AUDIT_ENGINE}"
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = jit_audit.runtime_audit(engine=AUDIT_ENGINE, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    print(f"{tag}: {wall} s, the steady window {rep['steady_seconds']} s; steady "
+          f"builds {rep['steady_compiles']}, drift {rep['signature_drift']}, fused span "
+          f"{rep['fused_span_audited']} (fuse_chunks {rep['fuse_chunks']}); calls "
+          f"{json.dumps(rep['steady_calls'])}; launches {json.dumps(launches)}", flush=True)
+    checks = {
+        "on the card": rep["device"] == "cuda",
+        "no steady kernel build": rep["steady_compiles"] == {},
+        "no signature drift": rep["signature_drift"] == [],
+        "the CPU's stages": rep["stages_observed"] == AUDIT_STAGES,
+        "ok": rep["ok"],
+    }
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f"{tag}: {name} failed")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_static_gates(failures):
+    """Phase 17(d), on the host: the port lints clean and the static stage
+    audit finds exactly ``STATIC_AUDIT_FINDINGS``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    findings = lint_paths([os.path.join(root, "tpu_swirld_torch")])
+    t1 = time.perf_counter()
+    static = [(f["path"], f["stage"], f["message"]) for f in jit_audit.static_audit(root)]
+    print(f"lint: {t1 - t0} s, {len(findings)} findings; static stage audit: "
+          f"{time.perf_counter() - t1} s, {json.dumps(static)}", flush=True)
+    for f in findings:
+        failures.append(f"lint: {f.render()}")
+    if static != STATIC_AUDIT_FINDINGS:
+        failures.append(f"static stage audit: {static} is not the recorded list")
+
+
+def run_gates_phase(failures):
+    """Phase 17, under the simulation signer.  Returns the launches by leg."""
+    t_phase = time.perf_counter()
+    fuzz = run_archive_fuzz(failures)
+    t_a = time.perf_counter()
+    sanitize = run_sanitize(failures)
+    t_b = time.perf_counter()
+    audit = run_jit_audit(failures)
+    t_c = time.perf_counter()
+    run_static_gates(failures)
+    t_d = time.perf_counter()
+    print(f"analysis gates: {t_d - t_phase} s ((a) {t_a - t_phase} s, (b) {t_b - t_a} s, "
+          f"(c) {t_c - t_b} s, (d) {t_d - t_c} s)", flush=True)
+    return {"sanitize": {"archive": fuzz, "chaos_run": sanitize},
+            "jit_audit": {AUDIT_ENGINE: audit}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3069,6 +3266,7 @@ def main() -> int:
     launches.update(run_chaos_phase(dags, columns_evps, failures))
     launches.update(run_cluster_phase(failures))
     launches.update(run_analysis_phase(failures))
+    launches.update(run_gates_phase(failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

@@ -26,6 +26,9 @@ NET_MODULES = ("__init__", "frame", "wal", "ingest", "transport", "traffic",
                "proxy", "node_proc", "cluster")
 MC_MODULES = ("__init__", "world", "encode", "invariants", "explore",
               "mutations", "counterexample", "cli")
+ANALYSIS_MODULES = ("lint", "races", "jit_audit", "rules/__init__",
+                    "rules/determinism", "rules/asserts", "rules/locks",
+                    "rules/dtype", "rules/donation")
 
 
 def _port_files():
@@ -72,6 +75,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "tpu_swirld_torch/analysis/__init__.py",
         "tpu_swirld_torch/analysis/__main__.py",
         *(f"tpu_swirld_torch/analysis/mc/{m}.py" for m in MC_MODULES),
+        *(f"tpu_swirld_torch/analysis/{m}.py" for m in ANALYSIS_MODULES),
         "tpu_swirld_torch/soak.py", "tpu_swirld_torch/soak_run.py",
         "tpu_swirld_torch/viz.py",
     } <= names
@@ -86,13 +90,15 @@ def test_import_leaves_jax_unloaded():
     obs = ", ".join(f"tpu_swirld_torch.obs.{m}" for m in OBS_MODULES[2:])
     net = ", ".join(f"tpu_swirld_torch.net.{m}" for m in NET_MODULES[1:])
     mc = ", ".join(f"tpu_swirld_torch.analysis.mc.{m}" for m in MC_MODULES[1:])
+    analysis = ", ".join(f"tpu_swirld_torch.analysis.{m.replace('/', '.')}"
+                         for m in ANALYSIS_MODULES)
     code = ("import tpu_swirld_torch, tpu_swirld_torch.gpu.pipeline, "
             "tpu_swirld_torch.checkpoint, tpu_swirld_torch.membership.sim, "
             "tpu_swirld_torch.chaos, tpu_swirld_torch.adversary, "
             "tpu_swirld_torch.chaos_run, tpu_swirld_torch.cluster_run, "
             "tpu_swirld_torch.analysis.__main__, tpu_swirld_torch.soak_run, "
             "tpu_swirld_torch.viz, "
-            f"tpu_swirld_torch.metrics, {obs}, {net}, {mc}, sys; "
+            f"tpu_swirld_torch.metrics, {obs}, {net}, {mc}, {analysis}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -101,11 +107,13 @@ def test_import_leaves_jax_unloaded():
                                     "tpu_swirld_torch.net.cluster",
                                     "tpu_swirld_torch.soak",
                                     "tpu_swirld_torch.analysis.mc",
+                                    "tpu_swirld_torch.analysis.lint",
+                                    "tpu_swirld_torch.analysis.jit_audit",
                                     "tpu_swirld_torch.viz"])
 def test_cluster_processes_leave_torch_unloaded(module):
     """A node process, the cluster supervisor, the soak orchestrator, the
-    model checker and viz run on the host: their import chains load no
-    torch (a node process restarts inside a kill/restart schedule of a few
+    model checker, the linter, the stage audit's static pass and viz run on
+    the host: their import chains load no torch (a node process restarts inside a kill/restart schedule of a few
     seconds)."""
     code = f"import {module}, sys; assert 'torch' not in sys.modules"
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -2,12 +2,15 @@
 
 Subcommands::
 
+    lint        [paths...] [--json] [--rules ...] [--list-rules]
+    jit-audit   [--static-only] [--members N] [--events N] [--engine E] [--device D] [--json]
+    races       [--schedules N] [--seed S] [--rows N] [--device D] [--json]
     mc          [--n N] [--events N] [--forkers N] [--mutate NAME] [--json]
 
-The reference's other subcommands are not in the port yet: each prints
-the ROADMAP item that brings it and exits 2, as an unknown subcommand
-does.  ``mc`` exits non-zero on invariant violations, so it slots
-directly into CI.
+Each exits non-zero on findings / audit failures / schedule divergence /
+invariant violations, so all four slot directly into CI.  The reference's
+``scale-audit`` is not in the port yet: it prints its ROADMAP item and
+exits 2, as an unknown subcommand does.
 """
 
 from __future__ import annotations
@@ -16,9 +19,6 @@ import sys
 
 #: the reference's subcommands the port lacks -> the ROADMAP item for each
 NOT_PORTED = {
-    "lint": "ROADMAP A4 (analysis/lint.py and rules/)",
-    "races": "ROADMAP A4 (analysis/races.py)",
-    "jit-audit": "ROADMAP A5 (analysis/jit_audit.py)",
     "scale-audit": "ROADMAP A5 (analysis/flow/)",
 }
 
@@ -29,13 +29,19 @@ def main(argv=None) -> int:
         print(__doc__.strip())
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd == "mc":
+    if cmd == "lint":
+        from tpu_swirld_torch.analysis.lint import main as m
+    elif cmd == "jit-audit":
+        from tpu_swirld_torch.analysis.jit_audit import main as m
+    elif cmd == "races":
+        from tpu_swirld_torch.analysis.races import main as m
+    elif cmd == "mc":
         from tpu_swirld_torch.analysis.mc.cli import main as m
     elif cmd in NOT_PORTED:
         print(f"subcommand {cmd!r} is not in the port yet: {NOT_PORTED[cmd]}")
         return 2
     else:
-        print(f"unknown subcommand {cmd!r} (mc)")
+        print(f"unknown subcommand {cmd!r} (lint | jit-audit | races | mc)")
         return 2
     return m(rest)
 

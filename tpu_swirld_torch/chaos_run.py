@@ -24,8 +24,10 @@ all of them.  ``--mc`` folds in a model-checker section
 seeded mutation with its minimized counterexample, and a clean schedule
 document replayed through
 :func:`~tpu_swirld_torch.chaos.replay_counterexample`, whose cross-engine
-row runs on ``--device``.  The reference's ``--sanitize`` section waits for
-the port of its race sanitizer, ``analysis/races.py``.
+row runs on ``--device``.  ``--sanitize [N]`` re-runs the scenario under N
+seeded yield-injection schedules (:mod:`tpu_swirld_torch.analysis.races`),
+each of which must reproduce the base verdict's safety fingerprint, and
+fuzzes the archive's pack worker with rows on ``--device``.
 
 The default schedule scales with ``--turns``: a partition cuts the first
 two members off during the middle third; the last member crashes at 1/4
@@ -161,12 +163,63 @@ RUNNERS.update({name: _adapt(fn) for name, fn in SCENARIOS.items()})
 
 def run_scenario(args, ckpt_dir, o) -> dict:
     """One full scenario run under the ambient Obs ``o``; returns the
-    verdict dict (shared by the main run and --all).
+    verdict dict (shared by the main run, --all, and --sanitize re-runs).
     Every verdict carries a ``flightrec_dump`` key: the post-mortem path
     when a recorder was active and the verdict failed, else ``None``."""
     verdict = RUNNERS[args.scenario](args, ckpt_dir, o)
     verdict.setdefault("flightrec_dump", None)
     return verdict
+
+
+def _verdict_fingerprint(verdict: dict) -> tuple:
+    """The schedule-stable view of a verdict: the ok bit plus the safety
+    section (fault counters and timings vary run to run and are not
+    determinism claims)."""
+    return (
+        bool(verdict.get("ok")),
+        json.dumps(verdict.get("safety"), sort_keys=True),
+    )
+
+
+def run_sanitized(args, base_verdict: dict) -> dict:
+    """--sanitize: re-run the scenario under N seeded yield-injection
+    schedules (every run must reproduce the base verdict's safety
+    fingerprint) and fuzz the archive worker protocol with rows on
+    ``--device``; the returned section folds into the verdict and its
+    ``ok`` gates the exit code."""
+    from tpu_swirld_torch.analysis import races
+
+    def rerun(i: int) -> tuple:
+        with tempfile.TemporaryDirectory(prefix="chaos-san-") as d:
+            with obs.enabled() as o:
+                return _verdict_fingerprint(run_scenario(args, d, o))
+
+    rep = races.run_schedules(
+        rerun, n_schedules=args.sanitize, seed=args.seed
+    )
+    base = _verdict_fingerprint(base_verdict)
+    stable = bool(
+        rep["deterministic"]
+        and rep["results"]
+        and rep["results"][0] == base
+    )
+    arch = races.run_archive_schedules(
+        n_schedules=max(8, args.sanitize), rows=64, seed=args.seed,
+        device=args.device,
+    )
+    return {
+        "schedules": rep["schedules"],
+        "verdicts_stable": stable,
+        "all_ok": all(r[0] for r in rep["results"]),
+        "archive": {
+            k: arch[k]
+            for k in (
+                "schedules", "digests_identical", "matches_sync", "acyclic",
+            )
+        },
+        "ok": bool(stable and all(r[0] for r in rep["results"])
+                   and arch["ok"]),
+    }
 
 
 def run_mc_section(args) -> dict:
@@ -286,6 +339,15 @@ def main(argv=None) -> int:
     ap.add_argument("--delay", type=float, default=0.05)
     ap.add_argument("--checkpoint-every", type=int, default=40)
     ap.add_argument(
+        "--sanitize", type=int, nargs="?", const=4, default=0,
+        metavar="N",
+        help="re-run the scenario under N seeded yield-injection "
+        "schedules (race sanitizer) and fuzz the archive worker with rows "
+        "on --device; folds a 'sanitizer' section into the verdict and "
+        "fails it on any schedule-dependent outcome (default N=4; "
+        "multiplies runtime)",
+    )
+    ap.add_argument(
         "--mc", action="store_true",
         help="fold a model-checker section into the verdict: exhaustive "
         "smoke world (all invariants over every interleaving, reduction "
@@ -320,6 +382,8 @@ def main(argv=None) -> int:
         args.seed = 0
 
     if args.all:
+        if args.sanitize:
+            ap.error("--all and --sanitize are mutually exclusive")
         if args.mc:
             ap.error("--all and --mc are mutually exclusive")
         results = {}
@@ -360,6 +424,9 @@ def main(argv=None) -> int:
             verdict = run_scenario(args, ckpt_dir, o)
         trace_path = os.path.splitext(args.out)[0] + ".trace.jsonl"
         o.save(trace_path)
+    if args.sanitize:
+        verdict["sanitizer"] = run_sanitized(args, verdict)
+        verdict["ok"] = bool(verdict["ok"] and verdict["sanitizer"]["ok"])
     if args.mc:
         verdict["mc"] = run_mc_section(args)
         verdict["ok"] = bool(verdict["ok"] and verdict["mc"]["ok"])
@@ -369,7 +436,7 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(verdict, f, indent=2, sort_keys=True)
     for key in ("safety", "liveness", "horizon", "fork_storm", "round_clamp",
-                "adversary", "engines", "mc", "flightrec_dump",
+                "adversary", "engines", "sanitizer", "mc", "flightrec_dump",
                 "flightrec_dumps_by_trace"):
         if key in verdict:
             print(json.dumps({key: verdict[key]}, sort_keys=True))

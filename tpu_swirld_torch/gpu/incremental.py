@@ -108,7 +108,7 @@ def ancestry_extend(anc, parents, b0: int, b1: int, *, block: int, bmm):
     dev = parents.device
     n_sq = max(1, math.ceil(math.log2(block)))
     eye = torch.eye(block, dtype=torch.bool, device=dev)
-    jj = torch.arange(block, device=dev)
+    jj = torch.arange(block, dtype=torch.int64, device=dev)
     for k in range(b0, b1):
         s = k * block
         sc = kernels.slice_start(s, block, n)      # every slice of this block
@@ -148,7 +148,8 @@ def extend_visibility_forked_stage(anc, sees, parents, fork_pairs, creator,
     a = fork_pairs[:, 1].clamp(0, n - 1)
     b = fork_pairs[:, 2].clamp(0, n - 1)
     hit = anc_rows[:, a] & anc_rows[:, b] & (mcol >= 0)[None, :]   # rows,G
-    onehot = mcol[:, None] == torch.arange(n_members, device=anc.device)[None, :]
+    members = torch.arange(n_members, dtype=torch.int64, device=anc.device)
+    onehot = mcol[:, None] == members[None, :]
     fseen = bmm(hit, onehot.contiguous())                           # rows,M
     sees[r0 : r0 + rows] = anc_rows & ~fseen[:, creator]
     return anc, sees
@@ -184,7 +185,7 @@ def prune_stage(anc, sees, ssm_c, d, n_used, keep_cols):
     vacated tail, and gather the surviving witness columns (``keep_cols``
     indexes the old column slots, -1 = vacate).  Capacities are kept."""
     n = anc.shape[0]
-    live = torch.arange(n, device=anc.device) < (n_used - d)
+    live = torch.arange(n, dtype=torch.int64, device=anc.device) < (n_used - d)
     ssm_c = _gather_cols(torch.roll(ssm_c, -d, dims=0), keep_cols) & live[:, None]
     return _roll2(anc, d, live), _roll2(sees, d, live), ssm_c
 
@@ -193,7 +194,7 @@ def prune_noforks_stage(anc, ssm_c, d, n_used, keep_cols):
     """:func:`prune_stage` for the fork-free path: ``sees`` aliases
     ``anc``, so only two slabs roll."""
     n = anc.shape[0]
-    live = torch.arange(n, device=anc.device) < (n_used - d)
+    live = torch.arange(n, dtype=torch.int64, device=anc.device) < (n_used - d)
     ssm_c = _gather_cols(torch.roll(ssm_c, -d, dims=0), keep_cols) & live[:, None]
     return _roll2(anc, d, live), ssm_c
 

@@ -316,7 +316,7 @@ def ssm_tally_reference(sees_shard, member_table, stake, b, row_lo, *, rows,
     n_members, k = member_table.shape
     idx = member_table.reshape(-1)
     valid = idx >= 0
-    ridx = int(row_lo) + torch.arange(rows, device=sees_shard.device)
+    ridx = int(row_lo) + torch.arange(rows, dtype=torch.int64, device=sees_shard.device)
     rown = (ridx >= 0) & (ridx < n_loc)
     a = (
         sees_shard[ridx.clamp(0, n_loc - 1)[:, None], idx.clamp(0, n - 1)[None, :]]

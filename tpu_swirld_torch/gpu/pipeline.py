@@ -130,7 +130,7 @@ def ancestry(parents: torch.Tensor, *, block: int) -> torch.Tensor:
     dev = parents.device
     n_sq = max(1, math.ceil(math.log2(block)))
     eye = torch.eye(block, dtype=torch.bool, device=dev)
-    jj = torch.arange(block, device=dev)
+    jj = torch.arange(block, dtype=torch.int64, device=dev)
     anc = torch.zeros((n, n), dtype=torch.bool, device=dev)
     for s in range(0, n, block):
         pb = parents[s : s + block]                              # B,2
@@ -161,7 +161,8 @@ def forkseen_matrix(anc: torch.Tensor, fork_pairs: torch.Tensor,
     a = fork_pairs[:, 1].clamp(0, n - 1)
     b = fork_pairs[:, 2].clamp(0, n - 1)
     hit = anc[:, a] & anc[:, b] & (mcol >= 0)[None, :]           # N,G
-    onehot = mcol[:, None] == torch.arange(n_members, device=anc.device)[None, :]
+    members = torch.arange(n_members, dtype=torch.int64, device=anc.device)
+    onehot = mcol[:, None] == members[None, :]
     return kernels.bmm_or(hit, onehot.contiguous())
 
 
@@ -235,7 +236,7 @@ def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
     n = ssm_c.shape[0]
     n_cols = ssm_c.shape[1]
     dev = ssm_c.device
-    marange = torch.arange(stake.shape[0], device=dev)
+    marange = torch.arange(stake.shape[0], dtype=torch.int64, device=dev)
     round0 = torch.zeros((1,), dtype=torch.int32, device=dev)
     witness = torch.ones((1,), dtype=torch.bool, device=dev)
 
@@ -296,8 +297,21 @@ def rounds_scan(parents, ssm, creator, stake, tot_stake, n_valid, *, r_max,
     matrix, every event in topological order.  Returns ``(round int32[N],
     is_witness bool[N], wit_table int32[r_max, s_max], wit_count
     int32[r_max], overflow int32[1])``, ``overflow`` an OVF_ROUND |
-    OVF_SLOT bitmask.  Slot order within a round is registration order."""
-    n = parents.shape[0]
+    OVF_SLOT bitmask.  Slot order within a round is registration order.
+    Pulls ``parents`` and ``n_valid`` to the host, then runs
+    :func:`rounds_scan_stage`."""
+    return rounds_scan_stage(
+        to_host(parents), ssm, creator, stake, tot_stake, int(n_valid),
+        r_max=r_max, s_max=s_max, has_forks=has_forks,
+    )
+
+
+def rounds_scan_stage(parents_np, ssm, creator, stake, tot_stake, n_valid, *,
+                      r_max, s_max, has_forks):
+    """:func:`rounds_scan` with its parents already on the host (int32[N,
+    2]) and ``n_valid`` an int, as :func:`rounds_chunk_stage` takes them:
+    the full path's rounds stage, which waits for no value on the card."""
+    n = parents_np.shape[0]
     dev = ssm.device
     carry = (
         torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -307,7 +321,7 @@ def rounds_scan(parents, ssm, creator, stake, tot_stake, n_valid, *, r_max,
         torch.zeros((1,), dtype=torch.int32, device=dev),
     )
     step = _make_rounds_step(
-        to_host(parents), ssm, None, creator, stake, tot_stake, int(n_valid),
+        parents_np, ssm, None, creator, stake, tot_stake, n_valid,
         r_max=r_max, s_max=s_max, has_forks=has_forks,
     )
     for i in range(n):
@@ -357,8 +371,8 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
     x_valid = x_event >= 0
     xe = x_event.clamp(0, n - 1)
     x_round = torch.arange(w_max, dtype=torch.int32, device=dev) // s_max
-    marange = torch.arange(n_members, device=dev)
-    w_range = torch.arange(w_max, device=dev)
+    marange = torch.arange(n_members, dtype=torch.int64, device=dev)
+    w_range = torch.arange(w_max, dtype=torch.int64, device=dev)
 
     v_prev = torch.zeros((s_max, w_max), dtype=torch.bool, device=dev)
     famous = torch.full((w_max,), -1, dtype=torch.int8, device=dev)
@@ -450,7 +464,7 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     decided = (famous_grid >= 0) | ~wvalid
     complete = (
         decided.all(dim=1)
-        & (max_round >= torch.arange(r_max, device=dev) + 2)
+        & (max_round >= torch.arange(r_max, dtype=torch.int64, device=dev) + 2)
         & (wit_count > 0)
     )
     # maximal prefix of fame-complete rounds (cumulative AND)
@@ -465,7 +479,7 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     go = to_host(prefix & ufw.any(dim=1))
     nv_all = to_host(ufw.sum(dim=1))
 
-    ev_valid = torch.arange(n, device=dev) < n_valid
+    ev_valid = torch.arange(n, dtype=torch.int64, device=dev) < n_valid
     received = (
         received0.clone() if received0 is not None
         else torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -560,11 +574,14 @@ def rounds_body(parents, creator, stake, fork_pairs, member_table, n_valid, *,
         tot_stake,
     )
     rnd, wits, tab, cnt, overflow = stages.stage_call(
-        "pipeline.rounds_scan_stage", rounds_scan, parents, ssm, creator,
-        stake, tot_stake, n_valid, r_max=r_max, s_max=s_max,
-        has_forks=has_forks,
+        "pipeline.rounds_scan_stage", rounds_scan_stage, to_host(parents),
+        ssm, creator, stake, tot_stake, int(n_valid), r_max=r_max,
+        s_max=s_max, has_forks=has_forks,
     )
-    ev_valid = torch.arange(rnd.shape[0], device=rnd.device) < int(n_valid)
+    ev_valid = (
+        torch.arange(rnd.shape[0], dtype=torch.int64, device=rnd.device)
+        < int(n_valid)
+    )
     return {
         "anc": anc, "sees": sees, "ssm": ssm, "round": rnd,
         "is_witness": wits, "wit_table": tab, "wit_count": cnt,
@@ -576,11 +593,14 @@ def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
                     stake, self_parent, t_rank, max_round, n_valid, *,
                     tot_stake, coin_period, r_max, s_max, chain, has_forks):
     """Stage B: fame fixed point + order extraction over rounds [0, r_max),
-    on the used witness slots only (:func:`_pad_slots`)."""
+    on the witness slots ``wit_table`` holds, its outputs padded back to
+    ``s_max`` slots (:func:`_pad_slots`).  Callers pass the table cut to its
+    used slots (:func:`_used_slots`, pulled before the stage), so the body
+    waits for no host value."""
     cnt = wit_count[:r_max]
-    s_used = max(int(to_host(cnt).max(initial=0)), 1)
+    s_used = wit_table.shape[1]
     out = fame_order_cols_stage(
-        anc, sees, ssm, None, wit_table[:r_max, :s_used].contiguous(), cnt,
+        anc, sees, ssm, None, wit_table[:r_max].contiguous(), cnt,
         creator, coin, stake, self_parent, t_rank, max_round, n_valid,
         tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
         s_max=s_used, chain=chain, has_forks=has_forks,
@@ -588,6 +608,13 @@ def fame_order_body(anc, sees, ssm, wit_table, wit_count, creator, coin,
     for key in _SLOT_GRIDS:
         out[key] = _pad_slots(out[key], r_max, s_used, s_max)
     return out
+
+
+def _used_slots(wit_table, wit_count, r_max):
+    """``wit_table`` cut to the witness slots used in rounds [0, r_max) (at
+    least one): one host pull of the counts, made between stage calls."""
+    s_used = max(int(to_host(wit_count[:r_max]).max(initial=0)), 1)
+    return wit_table[:, :s_used]
 
 
 def consensus_body(parents, creator, t_rank, coin, stake, fork_pairs,
@@ -609,7 +636,8 @@ def consensus_body(parents, creator, t_rank, coin, stake, fork_pairs,
     )
     b = stages.stage_call(
         "pipeline.fame_order_stage", fame_order_body,
-        a["anc"], a["sees"], a["ssm"], a["wit_table"], a["wit_count"],
+        a["anc"], a["sees"], a["ssm"],
+        _used_slots(a["wit_table"], a["wit_count"], r_max), a["wit_count"],
         creator, coin, stake, parents[:, 0], t_rank, a["max_round"], n_valid,
         tot_stake=tot_stake, coin_period=coin_period, r_max=r_max,
         s_max=s_max, chain=chain, has_forks=has_forks,
@@ -908,7 +936,8 @@ def _run_consensus_full(
     r_tight = min(r_rounds, _bucket(max_round + 3, 8))
     stage_b = stages.stage_call(
         "pipeline.fame_order_stage", fame_order_body,
-        stage_a["anc"], stage_a["sees"], stage_a["ssm"], stage_a["wit_table"],
+        stage_a["anc"], stage_a["sees"], stage_a["ssm"],
+        _used_slots(stage_a["wit_table"], stage_a["wit_count"], r_tight),
         stage_a["wit_count"], creator_d, _to_device(coin, device), stake_d,
         _to_device(parents[:, 0], device), _to_device(t_rank, device),
         max_round, n, tot_stake=tot, coin_period=config.coin_period,

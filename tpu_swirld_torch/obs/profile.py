@@ -33,7 +33,7 @@ import numpy as np
 
 def _wall() -> float:
     """The profiler's single wall read (monotonic seconds)."""
-    return time.perf_counter()
+    return time.perf_counter()   # swirld-lint: disable=SW003 -- the dispatch profiler's one timing callsite: measuring real host/device wall cost is its entire purpose; it observes, never steers, consensus
 
 #: ranked stage list length in summaries
 DEFAULT_TOP_K = 3

@@ -43,7 +43,11 @@ Decompressed rows are kept in a bounded LRU cache, which
 rebase.  The archive checkpoints to one ``.npz`` (no pickle) carrying a
 running BLAKE2b digest that :meth:`~SlabArchive.load` verifies; a file
 saved by either package loads in the other.  The reference's
-schedule-fuzz seam (``_injector``, for ``analysis.races``) is not ported.
+schedule-fuzz seams are ported at its sites: :func:`set_injector` installs
+the yield injector of :mod:`tpu_swirld_torch.analysis.races` at the five
+tagged points (``archive.cache.miss``, ``archive.append``,
+``archive.worker.item``, ``archive.drain``, ``archive.enqueue``), and
+``_make_queue`` lets its sanitized subclass track the spill queue's lock.
 Its ``obs`` hooks are, at the same sites: the ``store_spill_queue_depth`` /
 ``store_archived_rows`` gauges, the ``store_spills_total`` /
 ``store_prefetches_total`` / ``store_fetches_total`` /
@@ -72,6 +76,22 @@ from tpu_swirld_torch.device import to_host
 #: LRU capacity (decompressed rows) for the reconstruction/fetch cache
 _ROW_CACHE_ENTRIES = 1024
 
+# Schedule-fuzz seam: tpu_swirld_torch.analysis.races installs a yield
+# injector here to perturb client/worker interleavings at the tagged points
+# below.  None in production: each point costs one global read and a check.
+_injector = None
+
+
+def set_injector(inj) -> None:
+    global _injector
+    _injector = inj
+
+
+def _yp(tag: str) -> None:
+    inj = _injector
+    if inj is not None:
+        inj.point(tag)
+
 
 def _host_rows(rows) -> np.ndarray:
     """Rows as a host array: a tensor is pulled (blocking, default stream),
@@ -86,6 +106,16 @@ class SlabArchive:
 
     #: archive format version (bump on layout changes)
     FORMAT_VERSION = 1
+
+    #: every mutable attribute the pack worker shares with the client
+    #: thread (SW006 lock-discipline): the spill queue itself, the blob
+    #: list, byte counter and row cache it packs into behind the drain
+    #: barrier, the failure slot and the busy-time counter.  Audit any
+    #: addition here against the queue/barrier protocol in the module doc.
+    GUARDED_ATTRS = frozenset({
+        "_q", "_rows", "_cache", "_committed_bytes", "_worker_err",
+        "busy_seconds",
+    })
 
     def __init__(
         self,
@@ -155,6 +185,7 @@ class SlabArchive:
         if cached is not None:
             self._cache.move_to_end(e)
             return cached
+        _yp("archive.cache.miss")
         raw = np.frombuffer(zlib.decompress(self._rows[e]), dtype=np.uint8)
         row = np.unpackbits(raw, count=e + 1).astype(bool)
         row.flags.writeable = False
@@ -164,15 +195,21 @@ class SlabArchive:
         return row
 
     def _append_bool(self, row: np.ndarray) -> None:
+        _yp("archive.append")
         blob = zlib.compress(np.packbits(row).tobytes(), self._level)
         self._rows.append(blob)
         self._committed_bytes += len(blob)
 
     # ------------------------------------------------- background worker
 
+    def _make_queue(self, maxsize: int) -> queue.Queue:
+        """Seam for analysis.races: the sanitized subclass returns a queue
+        whose internal lock takes part in the lock-order graph."""
+        return queue.Queue(maxsize=maxsize)
+
     def _ensure_worker(self) -> queue.Queue:
         if self._q is None:
-            self._q = queue.Queue(maxsize=max(1, int(self.queue_depth)))
+            self._q = self._make_queue(max(1, int(self.queue_depth)))
             self._worker = threading.Thread(
                 target=self._worker_loop, name="slab-archive-pack",
                 daemon=True,
@@ -186,6 +223,7 @@ class SlabArchive:
             try:
                 if item is None:
                     return
+                _yp("archive.worker.item")
                 t0 = time.perf_counter()
                 kind, args = item
                 if kind == "spill":
@@ -206,6 +244,7 @@ class SlabArchive:
     def _drain(self) -> None:
         """Barrier: wait until every queued batch is packed, then re-raise
         any worker failure."""
+        _yp("archive.drain")
         if self._q is not None and (
             self._q.unfinished_tasks or not self._q.empty()
         ):
@@ -218,6 +257,7 @@ class SlabArchive:
 
     def _enqueue(self, item) -> None:
         q = self._ensure_worker()
+        _yp("archive.enqueue")
         self.max_queue_depth = max(self.max_queue_depth, q.qsize() + 1)
         o = obs.current()
         if o is not None:
