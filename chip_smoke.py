@@ -240,12 +240,35 @@
    the host: ``lint_paths`` over the checkout's ``tpu_swirld_torch`` finds
    nothing, and ``jit_audit.static_audit`` finds exactly
    ``STATIC_AUDIT_FINDINGS``.  Prints each leg's seconds.
-18. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+18. The scale-envelope audit (``tpu_swirld_torch.analysis.flow``).  Its
+   two host audits start first, each in a process of its own
+   (``python -m tpu_swirld_torch.analysis scale-audit --envelope
+   baseline|1m --no-coverage --json``), and run beside (a) and (b).  (a)
+   The soundness property on the card: for each engine of ``FLOW_ENGINES``,
+   ``soundness_check(engine, device="cuda")``: a small real run (6
+   members, 420 events, seed 3; ``batch`` through both batch paths, ``mesh``
+   on the ``pallas=True`` route), the first call of every stage
+   snapshotted, re-run on the card and replayed through the interpreter at
+   its concrete arguments' intervals: every card output inside its
+   abstract interval, the stages observed equal to ``FLOW_STAGES`` (the
+   CPU's), and over the four runs ``bmm_or``, ``ssm_block``, ``ssm_matrix``
+   and ``ssm_tally`` each launched.  (b) The tally contract on the card:
+   ``ssm_tally`` at (a)'s mesh block shapes and at the stake envelope's
+   edge (``FLOW_EDGE``: 4 members x 178 956 970, rows that see every
+   member): every tally in ``[0, tot_stake]``, the all-seeing rows'
+   exactly ``tot_stake``, equal to its plain version; ``ssm_block`` and
+   ``ssm_matrix`` at both shapes equal to their plain versions on the
+   card's inputs moved to the CPU.  (c) On the host: both envelopes exit 0
+   and proven clean, with (a)'s observed stages all covered by the
+   catalog; both mutations caught with their rules.  Prints the stamp,
+   each leg's seconds and the pull sites with their assumed values.
+19. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
-   ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs and
-   phase 17's ``sanitize`` and ``jit_audit`` runs), the card's name and
-   power limit, then ``{"ok": true, ...}`` as the last line.
+   ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
+   phase 17's ``sanitize`` and ``jit_audit`` runs and phase 18's ``flow``
+   runs), the card's name and power limit, then ``{"ok": true, ...}`` as
+   the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -277,6 +300,8 @@ from tpu_swirld_torch import (
 )
 from tpu_swirld_torch import chaos, chaos_run, obs, soak, transport, viz
 from tpu_swirld_torch.analysis import jit_audit, lint_paths, races
+from tpu_swirld_torch.analysis.flow import audit as flow_audit
+from tpu_swirld_torch.analysis.flow import stages as flow_stages
 from tpu_swirld_torch.analysis.mc import mc_smoke, run_mc
 from tpu_swirld_torch.adversary import SCENARIOS
 from tpu_swirld_torch.config import SwirldConfig
@@ -550,6 +575,29 @@ AUDIT_STAGES = ["pipeline.inc_extend_vis", "pipeline.inc_fame", "pipeline.inc_or
 # (d) the static audit's findings on this tree, (path, stage, message), as
 # PERF.md records them (tests/test_torch_jit_audit.py holds the list)
 STATIC_AUDIT_FINDINGS = []
+# The scale-envelope audit (phase 18).  (a) The engines of the soundness
+# property and the stages each one's small run observes, as the same run
+# observes them on the CPU (tests/test_torch_flow.py recomputes them).
+FLOW_ENGINES = ("batch", "incremental", "streaming", "mesh")
+_INC_STAGES = ["pipeline.fame_order_cols_stage", "pipeline.inc_extend_vis",
+               "pipeline.inc_fame", "pipeline.inc_order", "pipeline.inc_prune",
+               "pipeline.inc_ssm_update", "pipeline.rounds_chunk_stage",
+               "pipeline.rounds_span_stage", "pipeline.ssm_block_stage",
+               "pipeline.visibility_stage"]
+FLOW_STAGES = {
+    "batch": ["pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
+              "pipeline.rounds_chunk_stage", "pipeline.rounds_scan_stage",
+              "pipeline.ssm_block_stage", "pipeline.ssm_matrix_stage",
+              "pipeline.visibility_stage"],
+    "incremental": _INC_STAGES,
+    "streaming": _INC_STAGES,
+    "mesh": sorted(s.replace("ssm_block_stage", "ssm_block_mesh") for s in _INC_STAGES),
+}
+# (b) the stake envelope's edge: 4 members at the stake that
+# tests/test_torch_envelope.py pins (3 * tot_stake <= INT32_MAX, one more
+# and every entry point raises)
+FLOW_EDGE = {"members": 4, "stake": 178_956_970, "n": 256, "k": 64, "cols": 64,
+             "seeing_rows": 8, "density": 0.05}
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -3167,6 +3215,206 @@ def run_gates_phase(failures):
             "jit_audit": {AUDIT_ENGINE: audit}}
 
 
+# -------------------------------- phase 18: the scale-envelope audit on the card
+
+
+def start_flow_audits():
+    """Phase 18(c)'s two host audits, each in a process of its own, started
+    before (a) so they run beside it: ``envelope -> (process, t0)``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for env in ("baseline", "1m"):
+        procs[env] = (subprocess.Popen(
+            [sys.executable, "-m", "tpu_swirld_torch.analysis", "scale-audit",
+             "--envelope", env, "--no-coverage", "--json"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ), time.perf_counter())
+    return procs
+
+
+def run_flow_soundness(failures):
+    """Phase 18(a): the soundness property for every engine on the card.
+    Returns the launches of each engine's own run, the snapshotted first
+    calls of the mesh run, the pulls assumed and the stages observed."""
+    launches, mesh_calls, pulls, observed = {}, {}, {}, {}
+    for engine in FLOW_ENGINES:
+        tag = f"flow soundness {engine}"
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = flow_audit.soundness_check(
+            engine, device="cuda",
+            launches=lambda: {k: fn.launches for k, fn in KERNELS.items()},
+        )
+        launches[engine] = rep["launches"]
+        observed[engine] = rep["stages"]
+        pulls.update(rep["pulls"])
+        if engine == "mesh":
+            mesh_calls = rep["calls"]
+        print(f"{tag}: {time.perf_counter() - t0} s, {len(rep['replayed'])} stages "
+              f"replayed, {len(rep['violations'])} outside their intervals; launches "
+              f"{json.dumps(rep['launches'])}", flush=True)
+        for v in rep["violations"]:
+            failures.append(f"{tag}: {v}")
+        if rep["stages"] != FLOW_STAGES[engine]:
+            failures.append(f"{tag}: stages {rep['stages']} are not the CPU's")
+    total = {k: sum(per[k] for per in launches.values()) for k in KERNELS}
+    check_launches("flow soundness", total,
+                   ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally"), (), failures)
+    return launches, mesh_calls, pulls, observed
+
+
+def _edge_inputs():
+    """``FLOW_EDGE``'s slab: 4 members of 64 events each at stake
+    178 956 970 (the int32 envelope's edge), sparse random sees (so the
+    other rows' tallies vary) with its first rows and each member's first
+    event seeing every event, every member slot and column valid."""
+    e = FLOW_EDGE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    n, m, k = e["n"], e["members"], e["k"]
+    sees = random_bool((n, n), e["density"], gen)
+    mt = torch.arange(m * k, dtype=torch.int32, device="cuda").reshape(m, k)
+    # the first rows see every event, and each member's first event sees
+    # every event too: an all-seeing row reaches every column through
+    # every member
+    sees[: e["seeing_rows"]] = True
+    sees[mt[:, 0].long()] = True
+    stake = torch.full((m,), e["stake"], dtype=torch.int32, device="cuda")
+    cols = torch.arange(n - e["cols"], n, dtype=torch.int32, device="cuda")
+    return sees, mt, stake, cols
+
+
+def _tally_operand(sees, mt, cols):
+    """The ``b`` operand of ``ssm_tally``: each member slot's row of
+    ``sees`` at the columns, invalid slots and columns zero."""
+    n = sees.shape[0]
+    idx = mt.reshape(-1)
+    b = sees[idx.clamp(0, n - 1)[:, None], cols.clamp(0, n - 1)[None, :]]
+    return (b & (idx >= 0)[:, None] & (cols >= 0)[None, :]).contiguous()
+
+
+def run_tally_contract(mesh_calls, failures):
+    """Phase 18(b): ``ssm_tally`` at (a)'s mesh block shapes and at the
+    stake envelope's edge, in ``[0, tot_stake]`` and equal to its plain
+    version, the edge's all-seeing rows exactly ``tot_stake``; ``ssm_block``
+    and ``ssm_matrix`` equal to their plain versions at both shapes on the
+    card's own inputs moved to the CPU."""
+    tag = "flow tally contract"
+    cases = {}
+    if "pipeline.ssm_block_mesh" in mesh_calls:
+        args, kw = mesh_calls["pipeline.ssm_block_mesh"]
+        sees, mt, stake, cols, row0 = args
+        cases["mesh block"] = (sees, mt, stake, cols, int(row0), kw["rows"],
+                               int(kw["tot_stake"]), 0)
+    else:
+        failures.append(f"{tag}: the mesh run made no ssm_block_mesh call")
+    sees, mt, stake, cols = _edge_inputs()
+    tot_edge = kernels.check_stake_envelope(int(stake.sum()))
+    cases["envelope edge"] = (sees, mt, stake, cols, 0, sees.shape[0], tot_edge,
+                              FLOW_EDGE["seeing_rows"])
+    for label, (sees, mt, stake, cols, row0, rows, tot, seeing) in cases.items():
+        n = sees.shape[0]
+        row0 = min(max(row0, 0), n - rows)
+        b = _tally_operand(sees, mt, cols)
+        tally = kernels.ssm_tally(sees, mt, stake, b, row0, rows=rows)
+        torch.cuda.synchronize()
+        cpu = [x.cpu() for x in (sees, mt, stake, b)]
+        plain = kernels.ssm_tally_reference(*cpu, row0, rows=rows)
+        blk = kernels.ssm_block(sees, mt, stake, cols, row0, rows=rows, tot_stake=tot)
+        blk_plain = kernels.ssm_block_reference(sees.cpu(), mt.cpu(), stake.cpu(),
+                                                cols.cpu(), row0, rows=rows, tot_stake=tot)
+        mat = kernels.ssm_matrix(sees, mt, stake, tot_stake=tot)
+        mat_plain = kernels.ssm_matrix_reference(sees.cpu(), mt.cpu(), stake.cpu(),
+                                                 tot_stake=tot)
+        t = tally.cpu().to(torch.int64)
+        checks = {
+            "every tally in [0, tot_stake]": int(t.min()) >= 0 and int(t.max()) <= tot,
+            "ssm_tally equal to its plain version": torch.equal(tally.cpu(), plain),
+            "ssm_block equal to its plain version": torch.equal(blk.cpu(), blk_plain),
+            "ssm_matrix equal to its plain version": torch.equal(mat.cpu(), mat_plain),
+        }
+        if seeing:
+            rows_seen = t[: seeing - row0]
+            checks["the all-seeing rows' tally is tot_stake, no wrap"] = bool(
+                (rows_seen == tot).all())
+        print(f"{tag} {label}: sees {tuple(sees.shape)}, member table "
+              f"{tuple(mt.shape)}, {cols.shape[0]} columns, rows [{row0}, {row0 + rows}), "
+              f"tot_stake {tot}; tally in [{int(t.min())}, {int(t.max())}]; "
+              f"{json.dumps(checks)}", flush=True)
+        for name, ok in checks.items():
+            if not ok:
+                failures.append(f"{tag} {label}: {name} failed")
+
+
+def finish_flow_audits(procs, observed, failures):
+    """Phase 18(c): the two host audits' verdicts (exit 0, proven clean,
+    every suppression justified), (a)'s observed stages covered by the
+    catalog, both mutations caught.  Returns the audits' seconds and
+    pulls."""
+    cmap = flow_stages.coverage_map()
+    gaps = sorted({s for names in observed.values() for s in names if s not in cmap})
+    if gaps:
+        failures.append(f"flow coverage: stages {gaps} are not in the catalog")
+    seconds, pulls = {}, {}
+    for env, (proc, t0) in procs.items():
+        out, err = proc.communicate(timeout=600)
+        seconds[env] = time.perf_counter() - t0
+        try:
+            doc = json.loads(out)
+        except ValueError:
+            failures.append(f"scale-audit {env}: rc {proc.returncode}, no report: "
+                            f"{err[-2000:]}")
+            continue
+        stamp = {"envelope": doc["envelope"], "engines": doc["engines"],
+                 "clean": doc["clean"],
+                 "findings": len(doc["findings"]) + len(doc["unjustified"]),
+                 "suppressed": len(doc["suppressed"]), "errors": len(doc["errors"])}
+        pulls.update(doc["pulls"])
+        print(f"scale-audit {env}: rc {proc.returncode}, {seconds[env]} s (its own "
+              f"process), {len(doc['specs'])} specs, stamp {json.dumps(stamp)}, "
+              f"coverage gaps {gaps}", flush=True)
+        if proc.returncode != 0 or not doc["clean"] or stamp["findings"] or stamp["errors"]:
+            failures.append(f"scale-audit {env}: rc {proc.returncode}, "
+                            f"{json.dumps(doc['findings'] + doc['errors'])[:2000]}")
+        if not all(f["justification"] for f in doc["suppressed"]):
+            failures.append(f"scale-audit {env}: a suppression lacks its reason")
+    want = {"ssm-acc-int16": {"SW010", "SW008"}, "dropped-clip": {"SW009"}}
+    for mutation, rules in want.items():
+        rep = flow_audit.scale_audit("baseline", mutate=mutation, check_coverage=False)
+        got = {f.rule for f in rep.findings}
+        print(f"scale-audit --mutate {mutation}: exit {rep.exit_code}, rules "
+              f"{sorted(got)} at {sorted({(f.path, f.line) for f in rep.findings})}",
+              flush=True)
+        if rep.exit_code != 1 or got != rules:
+            failures.append(f"scale-audit --mutate {mutation}: exit {rep.exit_code}, "
+                            f"rules {sorted(got)}")
+    return seconds, pulls
+
+
+def run_flow_phase(failures):
+    """Phase 18.  Returns the launches of each engine's soundness run."""
+    t_phase = time.perf_counter()
+    procs = start_flow_audits()
+    try:
+        launches, mesh_calls, pulls, observed = run_flow_soundness(failures)
+        t_a = time.perf_counter()
+        run_tally_contract(mesh_calls, failures)
+        t_b = time.perf_counter()
+        seconds, host_pulls = finish_flow_audits(procs, observed, failures)
+    finally:
+        for proc, _t0 in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_c = time.perf_counter()
+    pulls.update(host_pulls)
+    print(f"flow pulls: {json.dumps(pulls, sort_keys=True)}", flush=True)
+    print(f"scale-envelope audit: {t_c - t_phase} s ((a) {t_a - t_phase} s, (b) "
+          f"{t_b - t_a} s, (c) {t_c - t_b} s after (a) and (b); the host audits "
+          f"{json.dumps(seconds)} s in their own processes)", flush=True)
+    return {"flow": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3267,6 +3515,7 @@ def main() -> int:
     launches.update(run_cluster_phase(failures))
     launches.update(run_analysis_phase(failures))
     launches.update(run_gates_phase(failures))
+    launches.update(run_flow_phase(failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

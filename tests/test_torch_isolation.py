@@ -28,7 +28,9 @@ MC_MODULES = ("__init__", "world", "encode", "invariants", "explore",
               "mutations", "counterexample", "cli")
 ANALYSIS_MODULES = ("lint", "races", "jit_audit", "rules/__init__",
                     "rules/determinism", "rules/asserts", "rules/locks",
-                    "rules/dtype", "rules/donation")
+                    "rules/dtype", "rules/donation", "flow/__init__",
+                    "flow/lattice", "flow/envelope", "flow/transfer",
+                    "flow/interpret", "flow/stages", "flow/audit")
 
 
 def _port_files():

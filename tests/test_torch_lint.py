@@ -244,12 +244,15 @@ def test_lint_cli_smoke(tmp_path):
 
 
 def test_scale_audit_names_its_roadmap_item():
-    """The reference's flow audit is not in the port: asking the package
-    for it names ROADMAP A5."""
+    """The reference's flow audit is in the port since ROADMAP A5 closed:
+    the package exports the port's ``scale_audit`` and
+    ``scale_audit_stamp`` (``analysis/flow/``), and an unknown name still
+    raises."""
     import tpu_swirld_torch.analysis as analysis
+    from tpu_swirld_torch.analysis.flow import audit
 
     for name in ("scale_audit", "scale_audit_stamp"):
-        with pytest.raises(AttributeError, match="ROADMAP A5"):
-            getattr(analysis, name)
+        assert getattr(analysis, name) is getattr(audit, name)
+        assert name in analysis.__all__
     with pytest.raises(AttributeError, match="no attribute"):
         analysis.no_such_tool

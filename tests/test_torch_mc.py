@@ -171,9 +171,9 @@ def test_catalog_is_well_formed():
 
 
 def test_analysis_dispatcher(capsys):
-    """``python -m tpu_swirld_torch.analysis``: ``mc``, ``lint``, ``races``
-    and ``jit-audit`` run; ``scale-audit``, which the port lacks, names its
-    ROADMAP item and exits 2."""
+    """``python -m tpu_swirld_torch.analysis``: ``mc``, ``lint``, ``races``,
+    ``jit-audit`` and ``scale-audit`` run; an unknown subcommand exits
+    2."""
     assert analysis_main(["mc", "--events", "1", "--no-compare"]) == 0
     assert analysis_main(["lint", "--list-rules"]) == 0
     assert analysis_main(["races", "--schedules", "2", "--rows", "16",
@@ -181,8 +181,8 @@ def test_analysis_dispatcher(capsys):
     assert analysis_main(["jit-audit", "--static-only", "--root",
                           str(ROOT / "tests" / "data")]) == 0
     capsys.readouterr()
-    assert analysis_main(["scale-audit"]) == 2
-    assert "ROADMAP A5" in capsys.readouterr().out
+    assert analysis_main(["scale-audit", "--list-rules"]) == 0
+    assert "SW009 unproven-bounds" in capsys.readouterr().out
     assert analysis_main(["no-such"]) == 2
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_swirld_torch.analysis", "mc", "--events", "1",

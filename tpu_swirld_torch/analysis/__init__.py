@@ -27,6 +27,8 @@ What the port has:
 - :mod:`tpu_swirld_torch.analysis.races`: the schedule-fuzzing race
   sanitizer of the archive's worker protocol, rows on a device.
 - :mod:`tpu_swirld_torch.analysis.mc`: the explicit-state model checker.
+- :mod:`tpu_swirld_torch.analysis.flow`: the scale-envelope abstract
+  interpreter over the stage bodies (SW008-SW011 at a declared envelope).
 
 CLI::
 
@@ -34,9 +36,11 @@ CLI::
     python -m tpu_swirld_torch.analysis jit-audit [--device cpu]
     python -m tpu_swirld_torch.analysis races --schedules 32 [--device cpu]
     python -m tpu_swirld_torch.analysis mc
+    python -m tpu_swirld_torch.analysis scale-audit --envelope 1m [--device cpu]
 
-The reference's scale-envelope audit (``scale-audit``, its ``flow``
-package) is not in the port yet (ROADMAP A5).
+The flow package imports ``torch``; it loads on first use of
+``scale_audit`` / ``scale_audit_stamp`` here, so the linter stays
+torch-free.
 """
 
 from tpu_swirld_torch.analysis.lint import (  # noqa: F401
@@ -51,13 +55,14 @@ __all__ = [
     "check_source",
     "lint_paths",
     "lint_summary",
+    "scale_audit",
+    "scale_audit_stamp",
 ]
 
 
 def __getattr__(name):
     if name in ("scale_audit", "scale_audit_stamp"):
-        raise AttributeError(
-            f"{name} is the reference's flow audit, not in the port yet "
-            "(ROADMAP A5)"
-        )
+        from tpu_swirld_torch.analysis.flow import audit
+
+        return getattr(audit, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

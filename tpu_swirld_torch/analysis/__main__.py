@@ -6,11 +6,11 @@ Subcommands::
     jit-audit   [--static-only] [--members N] [--events N] [--engine E] [--device D] [--json]
     races       [--schedules N] [--seed S] [--rows N] [--device D] [--json]
     mc          [--n N] [--events N] [--forkers N] [--mutate NAME] [--json]
+    scale-audit [--envelope E] [--engine E] [--mutate NAME] [--device D] [--json] [--list-rules]
 
 Each exits non-zero on findings / audit failures / schedule divergence /
-invariant violations, so all four slot directly into CI.  The reference's
-``scale-audit`` is not in the port yet: it prints its ROADMAP item and
-exits 2, as an unknown subcommand does.
+invariant violations / unproven envelopes, so all five slot directly
+into CI.
 """
 
 from __future__ import annotations
@@ -18,9 +18,7 @@ from __future__ import annotations
 import sys
 
 #: the reference's subcommands the port lacks -> the ROADMAP item for each
-NOT_PORTED = {
-    "scale-audit": "ROADMAP A5 (analysis/flow/)",
-}
+NOT_PORTED: dict = {}
 
 
 def main(argv=None) -> int:
@@ -37,11 +35,13 @@ def main(argv=None) -> int:
         from tpu_swirld_torch.analysis.races import main as m
     elif cmd == "mc":
         from tpu_swirld_torch.analysis.mc.cli import main as m
+    elif cmd == "scale-audit":
+        from tpu_swirld_torch.analysis.flow.audit import main as m
     elif cmd in NOT_PORTED:
         print(f"subcommand {cmd!r} is not in the port yet: {NOT_PORTED[cmd]}")
         return 2
     else:
-        print(f"unknown subcommand {cmd!r} (lint | jit-audit | races | mc)")
+        print(f"unknown subcommand {cmd!r} (lint | jit-audit | races | mc | scale-audit)")
         return 2
     return m(rest)
 

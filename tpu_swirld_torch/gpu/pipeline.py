@@ -502,7 +502,7 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
             cur = torch.where(nxt >= 0, nxt, cur)
         # non-UFW rows become the sort sentinel: they sort last, and the
         # median index stays below them
-        tsw = torch.where(u[:, None], tsw, INT32_MAX)
+        tsw = torch.where(u[:, None], tsw, INT32_MAX)  # swirld-lint: disable=SW011 -- masking non-UFW rows TO the sort sentinel is the point, as in the reference's order scan: they sort last, and med_i < nv keeps the median strictly below any masked row (the packer bounds live timestamps under INT32_MAX)
         ts_sorted = torch.sort(tsw, dim=0).values       # S,N ascending
         med_i = min(max((int(nv_all[r]) - 1) // 2, 0), s_max - 1)
         med = ts_sorted[med_i]                           # N
