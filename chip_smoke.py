@@ -262,13 +262,40 @@
    and proven clean, with (a)'s observed stages all covered by the
    catalog; both mutations caught with their rules.  Prints the stamp,
    each leg's seconds and the pull sites with their assumed values.
-19. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+19. Meshes over several processes (``tpu_swirld_torch.multichip.start``:
+   spawned ranks in one ``torch.distributed`` group through a file store,
+   every rank on this one card; gloo when ranks share it, nccl for one
+   rank; the three groups start at once, and the references they are
+   held against are computed while they run).  (a) ``dryrun_multichip`` (``multichip.dryrun_rank``) over 2 and
+   4 gloo ranks and 1 nccl rank: every rank at bit-parity with the oracle,
+   ``ssm_tally`` launched on every rank, the ranks' digests equal.  (b) The
+   member-sharded batch pass on config 3 over 2 gloo ranks
+   (``multichip.batch_rank``): digests golden on every rank, ``ssm_tally``
+   launched once a rank an attempt, ``ssm_matrix`` and ``ssm_block`` never;
+   each rank's events/s and stage seconds.  (c) The row-sharded block at
+   the extension shape of phase 9 (config-3 slab, rows 1024 from 4096, 256
+   columns) over 1 nccl and 2 gloo ranks, each rank holding only its own
+   rows (``multichip.row_block_rank``, both routes): every rank's block
+   equal to ``ssm_block``'s and its plain version's.  (d) The streaming
+   driver with its window row-sharded over 2 gloo ranks
+   (``multichip.streaming_rank``, ``pallas=True``) through
+   ``tests/test_mesh_stream.py:170``'s forked schedule (12 members, 1 000
+   events, 4 forkers, ingests of 250) and its smoke (:61, 6 members, 300
+   events, ingests of 100, whose prunes move rows across the shards):
+   every rank's slabs its own ``W / D``
+   rows after every ingest, its digests and archive digest equal to the
+   one-process ``StreamingConsensus``'s on the card, no repin; each rank's
+   bytes handed to collectives a pass, own slab bytes and peak device
+   bytes, in all and by stage (``multichip.watch_stage_peaks``), beside
+   the one-process driver's.  Prints when each group was done and the
+   seconds of the phase.
+20. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
    ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
-   phase 17's ``sanitize`` and ``jit_audit`` runs and phase 18's ``flow``
-   runs), the card's name and power limit, then ``{"ok": true, ...}`` as
-   the last line.
+   phase 17's ``sanitize`` and ``jit_audit`` runs, phase 18's ``flow``
+   runs and phase 19's ranks), the card's name and power limit, then
+   ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
 phase fails.
@@ -298,7 +325,7 @@ from tpu_swirld_torch import (
     make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
     save_packed, ssm_matrix_sharded,
 )
-from tpu_swirld_torch import chaos, chaos_run, obs, soak, transport, viz
+from tpu_swirld_torch import chaos, chaos_run, multichip, obs, soak, transport, viz
 from tpu_swirld_torch.analysis import jit_audit, lint_paths, races
 from tpu_swirld_torch.analysis.flow import audit as flow_audit
 from tpu_swirld_torch.analysis.flow import stages as flow_stages
@@ -598,6 +625,23 @@ FLOW_STAGES = {
 # and every entry point raises)
 FLOW_EDGE = {"members": 4, "stake": 178_956_970, "n": 256, "k": 64, "cols": 64,
              "seeing_rows": 8, "density": 0.05}
+# Meshes over several processes (phase 19): the groups, (backend, ranks),
+# and what each runs; every rank on this one card
+GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke"),
+              ("gloo", 4): ("dryrun",), ("nccl", 1): ("dryrun", "block")}
+GROUP_BATCH_CONFIG = "config3"
+GROUP_BLOCK = {"row0": 4096, "rows": 1024, "cols": 256}   # phase 9's extension block
+# (d) tests/test_mesh_stream.py:170's forked window and :61's smoke (its
+# prunes move rows across the shards), on the ssm_tally route
+GROUP_STREAMS = {
+    "forks": {"members": 12, "events": 1000, "seed": 4, "forkers": 4, "ingest": 250,
+              "driver": {"chunk": 64, "window_bucket": 512, "prune_min": 128,
+                         "ingest_chunk": 256}},
+    "smoke": {"members": 6, "events": 300, "seed": 9, "forkers": 0, "ingest": 100,
+              "driver": {"chunk": 64, "window_bucket": 256, "prune_min": 64,
+                         "ingest_chunk": 128}},
+}
+GROUP_TIMEOUT = 300
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -3415,6 +3459,215 @@ def run_flow_phase(failures):
     return {"flow": launches}
 
 
+def group_block_inputs(packed, path):
+    """Phase 19(c)'s inputs, as phase 9 draws its extension block (stake
+    1-5, 256 columns in [2048, 5120)): the config-3 sees slab, member
+    table, stake and columns, saved at ``path`` for the ranks.  Returns
+    ``(args, kw)`` of the same block on the card, for ``ssm_block`` and its
+    plain version."""
+    sees = sees_slab(packed)
+    rng = np.random.default_rng(SEED)
+    stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
+    cols_np = np.sort(rng.choice(np.arange(2048, 5120), GROUP_BLOCK["cols"],
+                                 replace=False)).astype(np.int32)
+    np.savez(path, sees=sees.cpu().numpy(), member_table=packed.member_table,
+             stake=stake_np, cols=cols_np)
+    dev = sees.device
+    args = (sees, torch.as_tensor(packed.member_table, device=dev),
+            torch.as_tensor(stake_np, device=dev), torch.as_tensor(cols_np, device=dev),
+            GROUP_BLOCK["row0"])
+    return args, dict(rows=GROUP_BLOCK["rows"], tot_stake=int(stake_np.sum()))
+
+
+def check_group_dryrun(tag, reports, out_i, failures):
+    """Phase 19(a) on one group: the dryrun's report on every rank
+    (parity was asserted in the rank; the launcher compared digests)."""
+    for rank, rep in enumerate(reports):
+        out = rep["result"]["results"][out_i]
+        used = rep["result"]["launches"][out_i]
+        print(f"{tag} rank {rank} ({rep['device']}): dryrun {out['events']} events, "
+              f"{out['ordered']} ordered, max_round {out['max_round']}, bit-parity "
+              f"with the oracle; launches {json.dumps(used)}", flush=True)
+        if used["ssm_tally"] < 1:
+            failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally")
+
+
+def check_group_batch(tag, reports, out_i, packed, failures):
+    """Phase 19(b): the config-3 member-sharded pass on every rank."""
+    for rank, rep in enumerate(reports):
+        out = rep["result"]["results"][out_i]
+        used = rep["result"]["launches"][out_i]
+        timings = out["timings"]
+        attempts = 1 + timings["overflow_retries"]
+        print(f"{tag} rank {rank} batch {GROUP_BATCH_CONFIG}: {packed.n / out['wall']} "
+              f"events/s ({out['wall']} s), {attempts} attempt(s); stage seconds "
+              f"{json.dumps(timings['stage_seconds'])}; launches {json.dumps(used)}",
+              flush=True)
+        digests = result_digests(packed, out["result"])
+        for key, want in GOLDEN[GROUP_BATCH_CONFIG].items():
+            if digests[key] != want:
+                failures.append(f"{tag} rank {rank}: {key} digest {digests[key]} != golden")
+        if used["ssm_tally"] != attempts:
+            failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally launches "
+                            f"for {attempts} attempt(s)")
+        for kname in ("ssm_matrix", "ssm_block"):
+            if used[kname]:
+                failures.append(f"{tag} rank {rank}: {kname} launched {used[kname]} times")
+
+
+def check_group_block(tag, reports, out_i, single, plain, failures):
+    """Phase 19(c): every rank's block, both routes, against ``ssm_block``
+    and its plain version."""
+    if not np.array_equal(single, plain):
+        failures.append(f"{tag}: ssm_block != its plain version")
+    for rank, rep in enumerate(reports):
+        out = rep["result"]["results"][out_i]
+        used = rep["result"]["launches"][out_i]
+        lo, hi = out["shard_rows"]
+        same = {route: bool(np.array_equal(block, single))
+                for (route, _row0), block in out["blocks"].items()}
+        print(f"{tag} rank {rank}: rows [{lo}, {hi}) of the slab, block rows "
+              f"{GROUP_BLOCK['rows']} from {GROUP_BLOCK['row0']} x {GROUP_BLOCK['cols']}; "
+              f"equal to ssm_block {json.dumps(same)}; launches {json.dumps(used)}",
+              flush=True)
+        if not all(same.values()):
+            failures.append(f"{tag} rank {rank}: a row-sharded block != ssm_block")
+        owns = lo < GROUP_BLOCK["row0"] + GROUP_BLOCK["rows"] and GROUP_BLOCK["row0"] < hi
+        if used["ssm_tally"] != int(owns) or used["make_mesh_row_block_fn"] != 1:
+            failures.append(f"{tag} rank {rank}: launches {used} for one block a route")
+
+
+def group_stream_schedule(name):
+    """Phase 19(d)'s schedule ``name``: ``(members, stake, chunks)``."""
+    g = GROUP_STREAMS[name]
+    members, stake, events, _keys = generate_gossip_dag(
+        g["members"], g["events"], seed=g["seed"], n_forkers=g["forkers"])
+    return members, stake, [events[i : i + g["ingest"]]
+                            for i in range(0, len(events), g["ingest"])]
+
+
+def group_stream_reference(name, schedule):
+    """The one-process streaming driver's run of schedule ``name`` on the
+    card: its digests, archive digest, and peak device bytes above what
+    was held, in all and by stage (``multichip.stage_peaks``)."""
+    members, stake, chunks = schedule
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    single = StreamingConsensus(members, stake,
+                                SwirldConfig(n_members=GROUP_STREAMS[name]["members"]),
+                                device="cuda", **GROUP_STREAMS[name]["driver"])
+    monitor = multichip.watch_stage_peaks(single)
+    try:
+        for chunk in chunks:
+            single.ingest(chunk)
+        torch.cuda.synchronize()
+        events = [e for c in chunks for e in c]
+        peaks = multichip.stage_peaks(monitor, base)
+        return {"digests": result_digests(pack_events(events, members, stake),
+                                          single.result()),
+                "archive": single.store.archive.digest(),
+                "stage_peaks": peaks, "peak_bytes": max(peaks.values())}
+    finally:
+        single.store.close()
+
+
+def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
+    """Phase 19(d): every rank's streaming run of schedule ``name`` against
+    the one-process driver's (each rank checked its slabs' rows after
+    every ingest)."""
+    members, stake, chunks = schedule
+    packed = pack_events([e for c in chunks for e in c], members, stake)
+    for rank, rep in enumerate(reports):
+        out = rep["result"]["results"][out_i]
+        used = rep["result"]["launches"][out_i]
+        digests = result_digests(packed, out["result"])
+        print(f"{tag} rank {rank} stream {name}: collectives a pass "
+              f"{[st['group_calls'] for st in out['passes']]}, bytes to them "
+              f"{[st['group_bytes'] for st in out['passes']]}, own slab bytes "
+              f"{[st['rank_resident_bytes'] for st in out['passes']]} of "
+              f"{[st['resident_bytes'] for st in out['passes']]}; peak {out['peak_bytes']} "
+              f"device bytes (one process: {want['peak_bytes']}); counters "
+              f"{json.dumps(out['counters'])}; launches {json.dumps(used)}", flush=True)
+        print(f"{tag} rank {rank} stream {name}: peak device bytes by stage "
+              f"{json.dumps(out['stage_peaks'])}; one process "
+              f"{json.dumps(want['stage_peaks'])}", flush=True)
+        if digests != want["digests"] or out["archive"]["digest"] != want["archive"]:
+            failures.append(f"{tag} rank {rank}: the streaming run's digests != the "
+                            "one-process driver's")
+        c = out["counters"]
+        if c["repins"] or c["forked"] != (GROUP_STREAMS[name]["forkers"] > 0) or (
+                name == "smoke" and not c["pruned_prefix"]):
+            failures.append(f"{tag} rank {rank} stream {name}: counters {c}")
+        if used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["ssm_block"]:
+            failures.append(f"{tag} rank {rank}: stream launches {used}")
+
+
+def run_multichip_phase(packs, failures):
+    """Phase 19.  Every group starts at once, sharing the card; the
+    references they are held against are computed while the ranks run.
+    Returns each rank's launches, by group."""
+    t_phase = time.perf_counter()
+    packed = packs[GROUP_BATCH_CONFIG]
+    by_rank = {}
+    with tempfile.TemporaryDirectory(prefix="swirld-multichip-") as tmp:
+        packed_path = os.path.join(tmp, "packed.npz")
+        save_packed(packed_path, packed)
+        block_path = os.path.join(tmp, "block.npz")
+        block_args, block_kw = group_block_inputs(packed, block_path)
+        schedules = {name: group_stream_schedule(name) for name in GROUP_STREAMS}
+        cfg = SwirldConfig(n_members=N_MEMBERS)
+        tasks = {"dryrun": (multichip.dryrun_rank, ()),
+                 "batch": (multichip.batch_rank, (packed_path, cfg)),
+                 "block": (multichip.row_block_rank, (block_path, (GROUP_BLOCK["row0"],),
+                                                      GROUP_BLOCK["rows"])),
+                 **{name: (multichip.streaming_rank, (
+                     members, stake, SwirldConfig(n_members=GROUP_STREAMS[name]["members"]),
+                     chunks, {**GROUP_STREAMS[name]["driver"], "pallas": True}))
+                    for name, (members, stake, chunks) in schedules.items()}}
+        groups = {}
+        for (backend, world), legs in GROUP_RUNS.items():
+            tag = f"multichip {backend} x{world}"
+            try:
+                groups[tag] = (legs, multichip.start(
+                    multichip.tasks_rank, world, args=([tasks[leg] for leg in legs],),
+                    device="cuda", backend=backend, timeout=GROUP_TIMEOUT,
+                ))
+            except (ValueError, RuntimeError) as e:
+                failures.append(f"{tag}: did not start: {e}")
+        t_started = time.perf_counter()
+        single = kernels.ssm_block(*block_args, **block_kw).cpu().numpy()
+        plain = kernels.ssm_block_reference(*block_args, **block_kw).cpu().numpy()
+        del block_args
+        torch.cuda.empty_cache()
+        wants = {name: group_stream_reference(name, schedules[name])
+                 for name in GROUP_STREAMS}
+        print(f"multichip references: {time.perf_counter() - t_started} s, "
+              f"while the groups ran", flush=True)
+        for tag, (legs, group) in groups.items():
+            try:
+                reports = group.wait()
+            except multichip.RankFailure as e:
+                failures.append(f"{tag}: {str(e)[-3000:]}")
+                continue
+            print(f"{tag}: done by {time.perf_counter() - t_started} s after the "
+                  f"groups started, for {list(legs)}", flush=True)
+            for i, leg in enumerate(legs):
+                if leg == "dryrun":
+                    check_group_dryrun(tag, reports, i, failures)
+                elif leg == "batch":
+                    check_group_batch(tag, reports, i, packed, failures)
+                elif leg == "block":
+                    check_group_block(tag, reports, i, single, plain, failures)
+                else:
+                    check_group_stream(tag, reports, i, leg, schedules[leg], wants[leg],
+                                       failures)
+            for rank, rep in enumerate(reports):
+                by_rank[f"{rep['backend']} x{len(reports)} rank {rank}"] = rep["launches"]
+    print(f"meshes over several processes: {time.perf_counter() - t_phase} s", flush=True)
+    return {"multichip": by_rank}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3516,6 +3769,7 @@ def main() -> int:
     launches.update(run_analysis_phase(failures))
     launches.update(run_gates_phase(failures))
     launches.update(run_flow_phase(failures))
+    launches.update(run_multichip_phase(packs, failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

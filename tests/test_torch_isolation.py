@@ -79,7 +79,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         *(f"tpu_swirld_torch/analysis/mc/{m}.py" for m in MC_MODULES),
         *(f"tpu_swirld_torch/analysis/{m}.py" for m in ANALYSIS_MODULES),
         "tpu_swirld_torch/soak.py", "tpu_swirld_torch/soak_run.py",
-        "tpu_swirld_torch/viz.py",
+        "tpu_swirld_torch/viz.py", "tpu_swirld_torch/parallel.py",
+        "tpu_swirld_torch/multichip.py",
     } <= names
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -99,7 +100,7 @@ def test_import_leaves_jax_unloaded():
             "tpu_swirld_torch.chaos, tpu_swirld_torch.adversary, "
             "tpu_swirld_torch.chaos_run, tpu_swirld_torch.cluster_run, "
             "tpu_swirld_torch.analysis.__main__, tpu_swirld_torch.soak_run, "
-            "tpu_swirld_torch.viz, "
+            "tpu_swirld_torch.viz, tpu_swirld_torch.multichip, "
             f"tpu_swirld_torch.metrics, {obs}, {net}, {mc}, {analysis}, sys; "
             "assert 'jax' not in sys.modules and 'tpu_swirld' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -17,6 +17,7 @@ test; the real-process cluster is in ``tests/test_torch_cluster.py``.
 
 import collections
 import dataclasses
+import errno
 import os
 import random
 import socket
@@ -39,7 +40,8 @@ from tpu_swirld.transport import Transport as RefTransport
 from tpu_swirld_torch import crypto
 from tpu_swirld_torch.config import SwirldConfig, resolve_net_settings
 from tpu_swirld_torch.net import frame
-from tpu_swirld_torch.net.frame import FrameError, allocate_ports
+from tpu_swirld_torch.net.frame import (FrameError, allocate_ports, listen_socket,
+                                        reserve_ports)
 from tpu_swirld_torch.net.ingest import TxPool, decode_batch, encode_batch
 from tpu_swirld_torch.net.transport import SocketTransport
 from tpu_swirld_torch.net.wal import MAGIC, TAG_EVENT, OwnEventWal
@@ -270,6 +272,34 @@ def test_allocate_ports_distinct_and_bindable():
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", p))
         s.close()
+
+
+def test_reserved_ports_are_held_for_their_nodes():
+    """A reserved port (what a cluster supervisor holds for its nodes): no
+    plain bind takes it, a node's listener binds it and binds it again
+    after a restart, a connection while no node listens is refused, and
+    it is free once released."""
+    res = reserve_ports(2)
+    port = res.ports[0]
+    try:
+        assert len(set(res.ports)) == 2
+        plain = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        with pytest.raises(OSError) as err:
+            plain.bind(("127.0.0.1", port))
+        plain.close()
+        assert err.value.errno == errno.EADDRINUSE
+        for _launch in range(2):
+            ls = listen_socket("127.0.0.1", port, 4)
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()
+            ls.close()
+        with pytest.raises(ConnectionRefusedError):
+            socket.create_connection(("127.0.0.1", port), timeout=2)
+    finally:
+        res.close()
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", port))
+    s.close()
 
 
 # ------------------------------------------------------- own-event WAL

@@ -26,9 +26,11 @@ driver's device memory by the undecided window: decided rows retire into a
 compressed host archive, and a delta naming pruned history widens the
 window back by re-fetching archived rows.  :class:`MeshStreamingConsensus`
 (``tpu_swirld_torch.parallel``) row-shards that window over a mesh of
-shards on one device; ``run_consensus(mesh=)`` splits the strongly-sees
-matrix over the member axis instead (:func:`ssm_matrix_sharded`,
-:func:`make_ssm_block_fn_for_mesh`, :func:`consensus_fn_for_mesh`).
+shards on one device, or over a :class:`GroupMesh` of processes, one a
+card (:func:`init_group`; ``python -m tpu_swirld_torch.multichip``);
+``run_consensus(mesh=)`` splits the strongly-sees matrix over the member
+axis instead (:func:`ssm_matrix_sharded`, :func:`make_ssm_block_fn_for_mesh`,
+:func:`consensus_fn_for_mesh`).
 
 :class:`Node` (``tpu_swirld_torch.oracle``) is a live gossip member, the
 pure-Python consensus oracle with the reference's wire format, and
@@ -96,9 +98,13 @@ _EXPORTS = {
     "run_dynamic": "membership.engine",
     "repack_packer": "membership.repack",
     "Node": "oracle",
+    "GroupMesh": "parallel",
+    "GroupStreamingConsensus": "parallel",
     "Mesh": "parallel",
     "MeshStreamingConsensus": "parallel",
     "consensus_fn_for_mesh": "parallel",
+    "init_group": "parallel",
+    "make_group_mesh": "parallel",
     "make_mesh": "parallel",
     "make_ssm_block_fn_for_mesh": "parallel",
     "ssm_matrix_sharded": "parallel",

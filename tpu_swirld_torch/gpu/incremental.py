@@ -698,6 +698,13 @@ class IncrementalConsensus:
         if need <= self._w_pad:
             return
         new_pad = self._next_row_pad(need, self._window_bucket)
+        self._grow_slabs(new_pad)
+        self._grow_mirrors(new_pad)
+        self._w_pad = new_pad
+
+    def _grow_slabs(self, new_pad: int) -> None:
+        """Zero-extend the carried slabs to ``new_pad`` rows (and ``anc`` /
+        ``sees`` to as many columns)."""
         aliased = self._sees_d is self._anc_d
 
         def grow(slab, cols):
@@ -708,8 +715,6 @@ class IncrementalConsensus:
         self._anc_d = grow(self._anc_d, new_pad)
         self._sees_d = self._anc_d if aliased else grow(self._sees_d, new_pad)
         self._ssm_d = grow(self._ssm_d, self._ssm_d.shape[1])
-        self._grow_mirrors(new_pad)
-        self._w_pad = new_pad
 
     def _grow_mirrors(self, new_pad: int) -> None:
         def regrow(a, fill):
@@ -825,9 +830,10 @@ class IncrementalConsensus:
         for j, e in enumerate(events):
             self._colpos_w[e] = self._n_cols + j
             self._col_events[self._n_cols + j] = e
-        self._ssm_d = self.stages.stage_call(
+        # written in place (through a row view over a group)
+        self.stages.stage_call(
             "pipeline.inc_ssm_update", update_block_stage,
-            self._ssm_d, part, row0, self._n_cols,
+            self._rows(self._ssm_d), part, row0, self._n_cols,
         )
         self._n_cols += len(events)
 
@@ -869,7 +875,7 @@ class IncrementalConsensus:
             for _attempt in range(span_len + 1):
                 out = self.stages.stage_call_fused(
                     "pipeline.rounds_span_stage", k, rounds_span_stage,
-                    self._parents_w, self._ssm_d,
+                    self._parents_w, self._rows(self._ssm_d, (start, start + span_len)),
                     _upload(self._colpos_w, self.device), creator_d, stake_d,
                     n_valid, *fresh, overflow0,
                     start, self._r_base, tot_stake=self._tot,
@@ -909,7 +915,7 @@ class IncrementalConsensus:
             for _attempt in range(chunk + 1):
                 out = self.stages.stage_call(
                     "pipeline.rounds_chunk_stage", rounds_chunk_stage,
-                    self._parents_w, self._ssm_d,
+                    self._parents_w, self._rows(self._ssm_d, (start, start + chunk)),
                     _upload(self._colpos_w, dev), creator_d, stake_d,
                     n_valid, *state, start, self._r_base,
                     tot_stake=self._tot, r_max=self._r_cap,
@@ -941,6 +947,13 @@ class IncrementalConsensus:
             else:
                 raise RuntimeError("witness-column chunk did not converge")
         return state
+
+    def _rows(self, slab, prefetch=None):
+        """A carried slab as a stage reads and writes it by global row: the
+        slab itself (a group rank's row view, ``parallel.RowGather``, over
+        its own rows; ``prefetch`` = ``(start, stop)``, the rows a scan
+        reads one by one)."""
+        return slab
 
     def _extend_pass(self, n_new: int) -> Tuple[List[int], bool]:
         """One incremental pass over the ``n_new`` freshly packed events.
@@ -998,18 +1011,19 @@ class IncrementalConsensus:
         # every new row x every live column
         b0 = w0 // self._block
         b1 = -(-(w0 + n_new) // self._block)
+        # the new rows are written in place (through row views over a group)
         if has_forks:
-            self._anc_d, self._sees_d = self.stages.stage_call(
+            self.stages.stage_call(
                 "pipeline.inc_extend_vis", extend_visibility_forked_stage,
-                self._anc_d, self._sees_d, parents_d,
+                self._rows(self._anc_d), self._rows(self._sees_d), parents_d,
                 _upload(self._fork_pairs_padded(), dev), creator_d, b0, b1,
                 w0, block=self._block, rows=n_pad_new, n_members=self._m,
                 bmm=self._bmm,
             )
         else:
-            self._anc_d = self.stages.stage_call(
+            self.stages.stage_call(
                 "pipeline.inc_extend_vis", extend_visibility_stage,
-                self._anc_d, parents_d, b0, b1, block=self._block,
+                self._rows(self._anc_d), parents_d, b0, b1, block=self._block,
                 bmm=self._bmm,
             )
             self._sees_d = self._anc_d
@@ -1045,9 +1059,9 @@ class IncrementalConsensus:
             part = self._ssm_block(
                 self._col_events[col_lo : col_lo + c_eff], w0, n_pad_new
             )
-            self._ssm_d = self.stages.stage_call(
+            self.stages.stage_call(
                 "pipeline.inc_ssm_update", update_block_stage,
-                self._ssm_d, part, w0, col_lo,
+                self._rows(self._ssm_d), part, w0, col_lo,
             )
         self._rows_hi = w0 + n_pad_new
 
@@ -1097,8 +1111,8 @@ class IncrementalConsensus:
         colpos_d = _upload(self._colpos_w, dev)
         famous_d, dec_d = self.stages.stage_call(
             "pipeline.inc_fame", fame_window_stage,
-            self._sees_d, self._ssm_d, colpos_d, state[2], creator_d,
-            _upload(self._coin_w, dev), stake_d, tot_stake=self._tot,
+            self._rows(self._sees_d), self._rows(self._ssm_d), colpos_d, state[2],
+            creator_d, _upload(self._coin_w, dev), stake_d, tot_stake=self._tot,
             coin_period=self.config.coin_period, r_max=self._r_fame,
             s_max=self._s_cap, has_forks=has_forks,
         )
@@ -1132,7 +1146,7 @@ class IncrementalConsensus:
             t_rank = t_rank.astype(np.int32).reshape(self._t_w.shape)
             rr_d, ts_d, recv_d = self.stages.stage_call(
                 "pipeline.inc_order", order_window_stage,
-                self._anc_d, state[2], state[3],
+                self._rows(self._anc_d), state[2], state[3],
                 _upload(fam.reshape(-1), dev), creator_d, parents_d[:, 0],
                 _upload(t_rank, dev), self._max_round - self._r_base,
                 n_valid, _upload(self._recv_w, dev),
@@ -1254,18 +1268,7 @@ class IncrementalConsensus:
         )
         pos_live = np.where(live)[0]
         kept_events = self._col_events[pos_live] - d
-        keep = self._keep_cols(pos_live)
-        if self._fork_np.shape[0]:
-            self._anc_d, self._sees_d, self._ssm_d = self.stages.stage_call(
-                "pipeline.inc_prune", prune_stage,
-                self._anc_d, self._sees_d, self._ssm_d, d, w_used, keep,
-            )
-        else:
-            self._anc_d, self._ssm_d = self.stages.stage_call(
-                "pipeline.inc_prune", prune_noforks_stage,
-                self._anc_d, self._ssm_d, d, w_used, keep,
-            )
-            self._sees_d = self._anc_d
+        self._prune_slabs(d, w_used, self._keep_cols(pos_live))
         # host mirrors
         w2 = w_used - d
         pw = self._parents_w[d:w_used]
@@ -1298,6 +1301,26 @@ class IncrementalConsensus:
 
     # ------------------------------------------------------------ rebase
 
+    def _prune_slabs(self, d: int, w_used: int, keep) -> None:
+        """Shift the carried slabs by ``d`` pruned rows and columns and
+        gather the surviving witness columns ``keep``."""
+        if self._fork_np.shape[0]:
+            self._anc_d, self._sees_d, self._ssm_d = self.stages.stage_call(
+                "pipeline.inc_prune", prune_stage,
+                self._anc_d, self._sees_d, self._ssm_d, d, w_used, keep,
+            )
+        else:
+            self._anc_d, self._ssm_d = self.stages.stage_call(
+                "pipeline.inc_prune", prune_noforks_stage,
+                self._anc_d, self._ssm_d, d, w_used, keep,
+            )
+            self._sees_d = self._anc_d
+
+    def _rebase_block_fn(self):
+        """The strongly-sees block a batch rebase runs over the whole DAG's
+        slab."""
+        return self._ssm_block_fn
+
     def _rebase(self) -> List[int]:
         """Full-recompute fallback: run the batch columns pipeline over the
         whole packed DAG, commit its outputs, and slice its device slabs into
@@ -1324,7 +1347,7 @@ class IncrementalConsensus:
             arrays["member_table"],
             n=n, tot=self._tot, block=self._block, r_rounds=r_rounds,
             s_max=self._s_cap, chain=chain, device=dev, stages=self.stages,
-            ssm_block_fn=self._ssm_block_fn, block_stage=self._block_stage,
+            ssm_block_fn=self._rebase_block_fn(), block_stage=self._block_stage,
         )
         # adopt any self-healed capacities (the carried window table must
         # match the batch table's slot shape)

@@ -795,8 +795,11 @@ def run_consensus(
     ``device``) runs the full-matrix path with the strongly-sees matrix
     member-sharded over it (:func:`_run_consensus_mesh`); it does not combine
     with ``use_pallas_ssm`` or ``ssm_mode="columns"`` (as in the reference,
-    ``NotImplementedError``), and a mesh that is not the port's ``Mesh``, or
-    whose device is not ``device``, raises ``ValueError``.
+    ``NotImplementedError``), and a mesh that is not the port's ``Mesh`` or
+    ``GroupMesh``, or whose device is not ``device``, raises ``ValueError``.
+    A :class:`~tpu_swirld_torch.parallel.GroupMesh` runs the pass on every
+    rank of its group, ``device`` the rank's own: each rank tallies its
+    member shard and all-reduces, and every rank returns the same result.
     """
     if ssm_mode not in (None, "columns", "full"):
         raise ValueError(f"unknown ssm_mode {ssm_mode!r}")
@@ -814,12 +817,12 @@ def run_consensus(
         ssm_mode = "full" if (mesh is not None or use_pallas_ssm) else "columns"
     dev = resolve_device(device)
     if mesh is not None:
-        from tpu_swirld_torch.parallel import Mesh, _canonical
+        from tpu_swirld_torch.parallel import GroupMesh, Mesh, _canonical
 
-        if not isinstance(mesh, Mesh):
+        if not isinstance(mesh, (Mesh, GroupMesh)):
             raise ValueError(
-                f"mesh must be a tpu_swirld_torch.parallel.Mesh, got "
-                f"{type(mesh).__name__}"
+                f"mesh must be a tpu_swirld_torch.parallel.Mesh or GroupMesh, "
+                f"got {type(mesh).__name__}"
             )
         if mesh.device != _canonical(dev):
             raise ValueError(

@@ -58,7 +58,7 @@ from tpu_swirld_torch.chaos import (
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.event import Event, MalformedEvent, decode_event
 from tpu_swirld_torch.net import frame
-from tpu_swirld_torch.net.frame import allocate_ports
+from tpu_swirld_torch.net.frame import reserve_ports
 from tpu_swirld_torch.net.node_proc import derive_paths
 from tpu_swirld_torch.net.proxy import ProxyFleet
 from tpu_swirld_torch.net.traffic import classify_reply
@@ -250,7 +250,10 @@ class ClusterSupervisor:
         os.makedirs(spec.workdir, exist_ok=True)
         if spec.flightrec_dir:
             os.makedirs(spec.flightrec_dir, exist_ok=True)
-        self.ports = allocate_ports(spec.n_nodes, spec.host)
+        # held until stop_all, so no other process takes a node's port
+        # between its launches (a restart binds it again)
+        self._reserved = reserve_ports(spec.n_nodes, spec.host)
+        self.ports = self._reserved.ports
         # socket-level fault injection: one TCP interposer per directed
         # gossip link, sharing the in-process FaultPlan vocabulary
         self.fleet: Optional[ProxyFleet] = None
@@ -446,6 +449,7 @@ class ClusterSupervisor:
         self.client.close()
         if self.fleet is not None:
             self.fleet.close()
+        self._reserved.close()
         for log in self._logs:
             try:
                 log.close()

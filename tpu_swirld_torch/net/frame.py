@@ -186,3 +186,52 @@ def allocate_ports(n: int, host: str = "127.0.0.1") -> List[int]:
     finally:
         for s in socks:
             s.close()
+
+
+class PortReservation:
+    """Ports held for a run: :func:`reserve_ports`.  ``ports`` lists them;
+    :meth:`close` releases them."""
+
+    def __init__(self, socks: List[socket.socket]):
+        self._socks = socks
+        self.ports: List[int] = [s.getsockname()[1] for s in socks]
+
+    def close(self) -> None:
+        for s in self._socks:
+            s.close()
+        self._socks = []
+
+
+def reserve_ports(n: int, host: str = "127.0.0.1") -> PortReservation:
+    """``n`` distinct ports held until :meth:`PortReservation.close`: each is
+    bound (never listening) by a socket that stays open, with
+    ``SO_REUSEPORT`` set, so a node process binds it again with the same
+    option (:func:`listen_socket`) as often as it restarts, while no other
+    process takes it meanwhile: a bind of port 0 and an outgoing
+    connection both pass over a bound port.  (:func:`allocate_ports`
+    releases its ports at once, and any process may take one before the
+    node binds it.)  A connection to a port whose node is down is refused,
+    as the reservation does not listen."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            s.bind((host, 0))
+            socks.append(s)
+    except BaseException:
+        for s in socks:
+            s.close()
+        raise
+    return PortReservation(socks)
+
+
+def listen_socket(host: str, port: int, backlog: int) -> socket.socket:
+    """A listening TCP socket on ``(host, port)``; ``SO_REUSEPORT`` lets it
+    bind a port that :func:`reserve_ports` holds."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    sock.bind((host, port))
+    sock.listen(backlog)
+    return sock

@@ -141,10 +141,8 @@ class NodeServer:
         self._dispatch = dispatch
         self._max_frame = max_frame
         self._stopping = threading.Event()
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(32)
+        # the port may be held by the supervisor's reservation
+        self._sock = frame.listen_socket(host, port, 32)
         self._accept_thread = threading.Thread(
             target=self._serve, daemon=True,
         )

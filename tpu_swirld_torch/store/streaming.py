@@ -281,7 +281,7 @@ class StreamingConsensus(IncrementalConsensus):
         if lo + d <= self.store.archive.n_rows:
             return      # re-prune of rows re-admitted by a widening
         # an owned copy: the prune that follows rolls the slab in place
-        rows = self._anc_d[:d, :w_used].clone()
+        rows = self._rows(self._anc_d)[:d][:, :w_used].clone()
         parents = self.packer.window_view(lo, lo + d)[0]
         self.store.spill(lo, parents, rows)
 
@@ -386,6 +386,13 @@ class StreamingConsensus(IncrementalConsensus):
             return None       # nothing pruned is referenced -> full path
         return lo2
 
+    def _host_window(self, has_forks: bool):
+        """Owned host copies of the carried ``anc``, ``sees`` (``anc``'s
+        while fork-free) and ``ssm`` slabs, as a widening rebuilds them."""
+        anc_cur = to_host(self._anc_d, copy=True)
+        sees_cur = to_host(self._sees_d, copy=True) if has_forks else anc_cur
+        return anc_cur, sees_cur, to_host(self._ssm_d, copy=True)
+
     def _try_widen(self, lo2: int) -> bool:
         """Rebuild the carried window at the lower boundary ``lo2``:
         re-fetch archived ancestry / sees rows and rebuild the retained
@@ -407,9 +414,7 @@ class StreamingConsensus(IncrementalConsensus):
         # warm the archive's row cache while the pulls below run
         arch.prefetch(lo2, lo)
         # ---- owned host copies of the live window
-        anc_cur = to_host(self._anc_d, copy=True)
-        sees_cur = to_host(self._sees_d, copy=True) if has_forks else anc_cur
-        ssm_cur = to_host(self._ssm_d, copy=True)
+        anc_cur, sees_cur, ssm_cur = self._host_window(has_forks)
         # ---- archived rows over global columns [lo2, hi), decompressed
         # straight into the widened slab (anc_pre is a view of anc_w)
         creators_g = self.packer.window_view(0, hi)[1]
