@@ -11,7 +11,10 @@
    G_cap @ G_cap x 64) and a ragged one, ``ssm_block`` (non-uniform stake)
    on the sees slabs of the BASELINE config-4 and config-3 DAGs at the
    column-add shapes and the incremental extension block (1024 rows
-   mid-window x 256 and 1024 columns), ``ssm_matrix`` on the full config-4
+   mid-window x 256 and 1024 columns) and on config 5's window at its
+   streaming extension block (256 members, ``C5_BLOCK``: 2048 rows at the
+   end of a 16 384-event window x 768 columns, 678 live; ``bmm_or`` also at
+   config 5's ancestry hop, 128 x 128 @ 128 x 16 384), ``ssm_matrix`` on the full config-4
    slab (non-uniform stake), the full config-3 slab and a ragged N; both
    strongly-sees kernels also at stakes summing to ``INT32_MAX // 3`` (the
    envelope's edge) and on small random shapes (K past 256 and past the
@@ -44,8 +47,10 @@
    reference on the same DAG.
 5. The incremental driver on configs 3 and 4: ``IncrementalConsensus(device=
    "cuda")`` with the reference defaults (block 128, chunk 256, window bucket
-   1024, ``fuse_chunks`` 8) ingests the DAG in 10 chunks of 1000 events, and
-   config 3 once more with ``fuse_chunks=1`` (the per-chunk rounds loop).
+   1024, ``fuse_chunks`` 8) ingests the DAG in chunks of 1000 events, and
+   config 3 once more with ``fuse_chunks=1`` (the per-chunk rounds loop)
+   over its DAG's first ``PREFIX_EVENTS`` (5 000) events, held to
+   ``PREFIX_GOLDEN`` (``PREFIX_RUNS``).
    Per pass: seconds, rebased, window, pruned prefix, rounds-scan probes and
    steps, stage seconds and calls, kernel launches.  Each run's ``result()``
    digests must be golden, its per-pass ``ordered`` lists must concatenate to
@@ -55,7 +60,7 @@
    computes it) beside the same call's warm columns pass.
 6. The streaming driver on configs 3 and 4: ``StreamingConsensus(device=
    "cuda")`` with the reference defaults (``ingest_chunk`` 1024, tile 256, no
-   budget) over the same 10 chunks.  Per pass as in 5, plus the archived
+   budget) over the same chunks.  Per pass as in 5, plus the archived
    rows, resident bytes, overlap ratio and widen / full rebases.  Digests
    golden, per-pass ``ordered`` lists concatenating to the order, ``bmm_or``
    and ``ssm_block`` launched on the non-rebase passes, ``ssm_matrix`` not.
@@ -67,7 +72,7 @@
    "cuda")`` over the same history.  Prints the widen's seconds.
 8. The row-sharded mesh driver on configs 3 and 4:
    ``MeshStreamingConsensus(make_mesh(2), pallas=True, device="cuda")`` (2
-   row shards on one card) over the same chunks.  Digests golden; the
+   row shards on one card) over the same chunks as 6.  Digests golden; the
    archive's digest equal to the streaming driver's (6 and 8 print the
    store's stats after draining its pack worker); ``ssm_block`` and
    ``ssm_matrix`` 0 launches; ``bmm_or``, the mesh block and ``ssm_tally``
@@ -84,7 +89,8 @@
    ``host_us`` and ``card_ms`` as for ``bmm_or``; a member
    hop ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
 10. The member-sharded batch path on configs 3 and 4: ``run_consensus(
-   mesh=make_mesh(MESH_SHARDS), device="cuda")`` (the strongly-sees matrix
+   mesh=make_mesh(MESH_SHARDS), device="cuda")`` (config 3 over its first
+   5 000 events; the strongly-sees matrix
    split over the member axis, one ``ssm_tally`` launch a shard an attempt;
    a warm-up run, then a measured one): digests golden, ``ssm_tally``
    launched exactly ``MESH_SHARDS`` times an attempt, ``ssm_matrix`` and
@@ -173,20 +179,22 @@
    equal to ``CHAOS_GOLDEN``, ``ssm_tally`` launched on the mesh rows,
    ``overflow_storm``'s fork leg retried; prints each scenario's host and
    device seconds.  (c) Config 4 through ``IncrementalConsensus`` and
-   config 3 through ``StreamingConsensus``, fed the port's
+   config 3 through ``StreamingConsensus``, each over its first
+   ``PREFIX_EVENTS`` (5 000) events, fed the port's
    ``chunked_ingest_schedule(events, INC_CHUNK, delay_prob=0.02,
-   max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests golden
-   once moved back to creation order); the schedule must move events.
+   max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests equal to
+   ``PREFIX_GOLDEN`` once moved back to creation order); the schedule must
+   move events.
 15. The real-process cluster (``tpu_swirld_torch.net``), under the
-   machine's default signer, the one every node process uses.  (a)
-   ``bench.py --cluster``'s chaos leg, uncut (``CLUSTER_SPEC``: 5 node
-   processes, 6 s of 300 tx/s, node 1 killed at 1.8 s and restarted at 3.0 s
-   from its checkpoint and WAL) through ``run_cluster``: the verdict ok,
+   machine's default signer, the one every node process uses, through the
+   port's ``bench.run_cluster`` at its defaults.  (a) Its chaos leg, uncut
+   (5 node processes, 6 s of 300 tx/s, node 1 killed at 1.8 s and restarted
+   at 3.0 s from its checkpoint and WAL): bench exit 0, the verdict ok,
    ``prefix_agree`` and ``oracle_agree``, the decided frontier past the
    heal, the victim restarted once with an unclean start and a post-mortem
    on disk; prints the tx ledger, the union's size and the heal time.  (b)
-   The overload leg (3 nodes, ``max_undecided=0``): nothing acked, every
-   submission shed by the window.  The node processes run the oracle, as
+   Its overload leg (3 nodes, 3 s, ``max_undecided=0``): nothing acked,
+   every submission shed by the window.  The node processes run the oracle, as
    the reference's do.  (c) (a)'s union event log,
    replayed into an observer in ``oracle_replay``'s order (its order must be
    the verdict's), through ``chaos._engines_agree(engine=e, device="cuda")``
@@ -202,8 +210,8 @@
    parity document through ``replay_counterexample(engine="incremental",
    device="cuda")``: reproduced, digests and trace equal, both parities
    true, ``bmm_or`` and ``ssm_block`` launched, ``ssm_matrix`` not.  (b)
-   Under the machine's default signer, ``bench.py --soak``'s setting
-   (``SOAK_SPEC``: 4 node processes behind per-link fault proxies, seed 3,
+   Under the machine's default signer, the port's ``bench.run_soak`` at its
+   defaults (4 node processes behind per-link fault proxies, seed 3,
    8 s of 150 tx/s from 3 clients, ``smoke_schedule``: an equivocation
    storm in member 3's slot, member 1 killed at 25% and restarted at 45% of
    the horizon, member 0 partitioned at 55-75%) through ``run_soak``: the
@@ -238,7 +246,8 @@
    equal to ``AUDIT_STAGES`` (the CPU's), ``bmm_or`` and ``ssm_block``
    launched, ``ssm_matrix`` not; prints the steady window's seconds.  (d) On
    the host: ``lint_paths`` over the checkout's ``tpu_swirld_torch`` finds
-   nothing, and ``jit_audit.static_audit`` finds exactly
+   nothing, ``scripts/lint.sh``'s gates 3 and 4 (``lint.suppression_gate``)
+   find nothing, and ``jit_audit.static_audit`` finds exactly
    ``STATIC_AUDIT_FINDINGS``.  Prints each leg's seconds.
 18. The scale-envelope audit (``tpu_swirld_torch.analysis.flow``).  Its
    two host audits start first, each in a process of its own
@@ -289,12 +298,30 @@
    bytes, in all and by stage (``multichip.watch_stage_peaks``), beside
    the one-process driver's.  Prints when each group was done and the
    seconds of the phase.
-20. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+20. The port's bench (``tpu_swirld_torch.bench``) in this process, its
+   ``lint`` / ``mc`` / ``scale_audit`` stamps those of phases 16(a), 17(d) and
+   18(c).  (a) ``--stream`` at config 5's full width (256 members) and a cut
+   depth (``BENCH_STREAM``: 18 432 events in 9 chunks of 2048, no oracle
+   prefix, no profiled passes): exit 0, ``budget_ok``, the decided output's
+   digests and count equal to ``BENCH_STREAM_GOLDEN`` (the JAX reference's
+   ``StreamingConsensus`` on the same stream); prints events/s, the window's
+   and the card's peaks, the archive and the rebases.  (b) The default mode
+   (config 3) cut to its plumbing (``BENCH_DEFAULT``: its first 3 000
+   events, a 1 000-event oracle prefix, two incremental ingests, a
+   1 536-event streaming leg): exit 0, its batch, incremental and streaming
+   parities true, the batch digests ``BENCH_DEFAULT_GOLDEN``'s.  (c) ``--chaos-overhead`` and ``--churn`` at their
+   defaults: exit 0, their counts equal to the reference's
+   (``BENCH_CHAOS_COUNTS``, ``BENCH_CHURN_COUNTS``), the churn's repacks on
+   the card.  Each mode's JSON line is printed; ``bmm_or`` and ``ssm_block``
+   must launch in each but ``--churn`` (a host replay and the repacks), and
+   ``ssm_matrix`` in none.
+21. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
    ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
    phase 17's ``sanitize`` and ``jit_audit`` runs, phase 18's ``flow``
-   runs and phase 19's ranks), the card's name and power limit, then
+   runs, phase 19's ranks and phase 20's bench modes), the card's name and
+   power limit, then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero, printing no result, when no CUDA device is present or any
@@ -309,7 +336,6 @@ import json
 import os
 import re
 import shutil
-import struct
 import dataclasses
 import subprocess
 import sys
@@ -325,8 +351,11 @@ from tpu_swirld_torch import (
     make_ssm_block_fn_for_mesh, run_all_engines, run_dynamic, save_node,
     save_packed, ssm_matrix_sharded,
 )
-from tpu_swirld_torch import chaos, chaos_run, multichip, obs, soak, transport, viz
-from tpu_swirld_torch.analysis import jit_audit, lint_paths, races
+from tpu_swirld_torch import (
+    bench, chaos, chaos_run, multichip, obs, soak, transport, viz,
+)
+from tpu_swirld_torch.analysis import jit_audit, lint_paths, lint_summary, races
+from tpu_swirld_torch.analysis.lint import SUPPRESSION_GATES, suppression_gate
 from tpu_swirld_torch.analysis.flow import audit as flow_audit
 from tpu_swirld_torch.analysis.flow import stages as flow_stages
 from tpu_swirld_torch.analysis.mc import mc_smoke, run_mc
@@ -346,7 +375,9 @@ from tpu_swirld_torch.obs import (
 )
 from tpu_swirld_torch.obs.report import render_report
 from tpu_swirld_torch.packing import pack_events, pack_node
-from tpu_swirld_torch.sim import chunked_ingest_schedule, generate_gossip_dag
+from tpu_swirld_torch.sim import (
+    chunked_ingest_schedule, generate_gossip_dag, stream_gossip_dag,
+)
 
 N_MEMBERS = 64
 N_EVENTS = 10_000
@@ -549,12 +580,40 @@ CHAOS_ENGINES = ("incremental", "streaming", "streaming-mesh")
 CHAOS_MULTI = ("horizon_storm", "fork_bomb")
 STRAGGLERS = {"delay_prob": 0.02, "max_delay": 3}
 STRAGGLER_RUNS = {"config4": "incremental", "config3": "streaming"}
+# Both run over their configuration's first PREFIX_EVENTS events (cut from
+# 10 000 to pay for phase 20: 46.4 s and 22.9 s of launch-bound replays on
+# an H100 at 700 W in full), held to PREFIX_GOLDEN: the JAX reference's
+# run_consensus over the same prefix on the CPU, sim signer
+# (tests/test_torch_bench.py::test_prefix_golden_matches_reference).  A
+# 5 000-event DAG of generate_gossip_dag is the prefix of the 10 000-event
+# one; config 3's order digest is PIN_GOLDEN's.
+PREFIX_EVENTS = 5000
+# Phase 5's per-chunk loop and phase 10's member-sharded batch pass over
+# config 3 run over its first PREFIX_EVENTS events too (cut from 10 000 to
+# fit phase 20; phases 4, 5, 6 and 8 drive config 3 whole through the same
+# stages).  Config 4, the only forked DAG, runs whole everywhere but 14(c).
+PREFIX_RUNS = {("incremental", "config3 fuse_chunks=1"), ("mesh_batch", "config3")}
+PREFIX_GOLDEN = {
+    "config3": {
+        "order": "fa7ef0adc28f7e2f195e4842764aac8e1a61020c545751df4273ba08877f2a83",
+        "round": "1a44c92f4828b6a604e3cf1daa0b60e95848748e849a53f8a26a0e043b43fd46",
+        "famous": "dffdf4bd4adf5db2d7f1a7ae019ddee34a099a0e9b89e3895af1bae88eff0564",
+        "round_received": "119eacec65295b664a639354c750cde6718edddeab0098d282bc0038ccdc2260",
+    },
+    "config4": {
+        "order": "97cc4530e07a901163bbc1e41e13bbdaece550d2ec8ffca7078e5aa1d8bdab24",
+        "round": "59036ae9da33f9cdf9b0c9c9f912ad3cedda9ec2efe78b19053be1137459a962",
+        "famous": "93cb23f84e4dbed3222a83b5e4c78bc6dcbfa5fdbb7482952b16cfce33da1afa",
+        "round_received": "495fe298e55b7ddfbee0cf83bc270e422678df35d80f34c35012cfcc3f0cadbf",
+    },
+}
 
-# The real-process cluster (phase 15).  (a) bench.py --cluster's chaos leg
-# (bench.py:1021-1066), uncut: 5 node processes, 6 s of 300 tx/s of 64-byte
-# txs, node 1 killed at 1.8 s and restarted at 3.0 s; (b) the overload leg of
-# tests/test_cluster.py:145-159; (c) (a)'s union event log through these
-# windowed engines on the card, as chaos._engines_agree replays it.  The
+# The real-process cluster (phase 15).  (a) and (b): the port's bench
+# --cluster at its defaults (bench.py:1021-1081), uncut: the chaos leg, 5
+# node processes, 6 s of 300 tx/s of 64-byte txs, node 1 killed at 1.8 s and
+# restarted at 3.0 s, then the overload leg, 3 nodes with a zero admission
+# window for 3 s; (c) (a)'s union event log through these windowed engines
+# on the card, as chaos._engines_agree replays it.  The
 # incremental engine is cut from (c): on such a union its replay rebases 13
 # times (the restarted node's pruned pre-crash head, then the rebase-storm
 # guard), each a launch-bound columns pass: 87.7-130.7 s on an H100 (700 W)
@@ -562,21 +621,16 @@ STRAGGLER_RUNS = {"config4": "incremental", "config3": "streaming"}
 # often on the same union: tests/test_torch_cluster.py::
 # test_cluster_union_replay_matches_reference replays a saved union of this
 # leg through both engines of both packages on the CPU.
-CLUSTER_SPEC = {"n_nodes": 5, "seed": 9, "duration_s": 6.0, "tx_rate": 300,
-                "tx_bytes": 64, "kill_index": 1, "kill_at_s": 1.8, "restart_at_s": 3.0}
-CLUSTER_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
-OVERLOAD_SPEC = {"n_nodes": 3, "seed": 5, "duration_s": 1.5, "tx_rate": 200.0}
+CLUSTER_SPEC = {"n_nodes": 5, "seed": 9}     # BENCH_CLUSTER_NODES, BENCH_CLUSTER_SEED
 CLUSTER_ENGINES = ("streaming",)
 
-# The model checker, the soak and viz (phase 16).  (b) runs bench.py --soak's
-# setting (bench.py:1152-1168) through the port's run_soak: 4 node processes
+# The model checker, the soak and viz (phase 16).  (b) runs the port's bench
+# --soak at its defaults (bench.py:1152-1168) through run_soak: 4 node processes
 # behind per-link fault proxies, seed 3, an 8 s horizon of 150 tx/s of
 # 64-byte txs from 3 clients, smoke_schedule's three windows, gossip every
 # 5 ms and a checkpoint every 0.5 s; its union (forked by the storm's member)
 # replays through this windowed engine on the card.
-SOAK_SPEC = {"n_nodes": 4, "seed": 3, "horizon_s": 8.0, "tx_rate": 150.0,
-             "n_clients": 3, "tx_bytes": 64}
-SOAK_NET = {"gossip_interval_s": 0.005, "checkpoint_every_s": 0.5}
+SOAK_SPEC = {"n_nodes": 4, "seed": 3}        # BENCH_SOAK_NODES, BENCH_SOAK_SEED
 SOAK_ENGINE = "streaming"
 # The analysis gates (phase 17).  (a) The archive fuzz: the reference's
 # acceptance setting (tests/test_analysis.py:317), rows as owned tensors on
@@ -642,6 +696,69 @@ GROUP_STREAMS = {
                          "ingest_chunk": 128}},
 }
 GROUP_TIMEOUT = 300
+# The port's bench (phase 20), in this process through tpu_swirld_torch.bench.
+# (a) --stream at config 5's full width (256 members, BASELINE.json
+# configs[4]), its depth cut from 100 000 events to the first multiple of
+# the 2048-event chunk at which the stream decides 2048 events or more
+# (16 384 decide 1 573, 18 432 decide 8 671); no oracle prefix (at 256
+# members the pure-Python oracle decides its first event only past ~12 000
+# events, 36 min of host time on the card's host: the goldens below cover
+# the whole decided output instead) and no profiled passes.  BENCH_MEM=0
+# here and in (b): the host's tracemalloc monitor slows the host-bound
+# rounds scan ~1.5-1.8x (config 3's warm columns pass 19.9 s under it in the
+# CLI's default mode, 11.0 s in phase 4); the card's peaks are still read.
+BENCH_STREAM = {"BENCH_STREAM_EVENTS": 18432, "BENCH_STREAM_ORACLE": 0,
+                "BENCH_STREAM_PROFILE": 0, "BENCH_MEM": 0}
+# its decided output: the JAX reference's StreamingConsensus over the same
+# stream with bench.py --stream's driver settings, on the CPU under the
+# simulation signer (tests/test_torch_bench.py::
+# test_bench_stream_golden_matches_reference recomputes it)
+BENCH_STREAM_GOLDEN = {
+    "order": "fbe8519911560cc757ff50b7f80fa9584dc8fb4097943805928cd7529eb84b1c",
+    "round": "379e7f604802444d0e28fd27c04f5399b0dd59700a970bd4fb0b37206b372d90",
+    "famous": "209f28cb443efad124d36705319c4e2909065344180d0e30806790ef06435ff4",
+    "round_received": "eacac681c8dd5d4ddfefa80a46fa90fc7b21f7a7a6a0c1405d8e4ba76da411a4",
+    "ordered": 8671,
+}
+# (b) the default mode (config 3), cut to check the bench's own plumbing
+# (its legs, keys and parities; phases 4-6 drive config 3 whole through the
+# same batch, incremental and streaming drivers): the DAG to its first 3 000
+# events (2 000 and 2 500 decide none, 3 000 decide 1 105), the
+# oracle prefix to 1 000 (the pure-Python pass over 10 000 events, 141 s on
+# the card's host, is host time phase 4's goldens already cover), the
+# incremental leg to two ingests of 1 500 and the streaming leg to one
+# gossip batch of four 384-event chunks (1 536 events decide 288; four
+# 256-event chunks decide none).  Its batch output is held to
+# BENCH_DEFAULT_GOLDEN: the JAX reference's run_consensus over the same DAG
+# on the CPU, sim signer (recomputed by tests/test_torch_bench.py::
+# test_prefix_golden_matches_reference).
+BENCH_DEFAULT = {"BENCH_EVENTS": 3000, "BENCH_ORACLE_EVENTS": 1000,
+                 "BENCH_INC_CHUNK": 1500, "BENCH_DEFAULT_STREAM_EVENTS": 1536,
+                 "BENCH_DEFAULT_STREAM_CHUNK": 384, "BENCH_MEM": 0}
+BENCH_DEFAULT_GOLDEN = {
+    "order": "0e300f1526f33f3de2b9d3625ecf0ba69b21cfc854fcf19735d4cc45dbc48f2a",
+    "round": "12674d59d59d42f131941cb15015ad6ecfe54b041354707f7d80ad9a40e75bab",
+    "famous": "f3781eec682a0de7e94043504485af7b67d035348f826a924e4613108f577052",
+    "round_received": "9c6a86dc65d6c5650e86edd0565055dbc0690976277d9df3959f7d31161d6eea",
+}
+# (c) --chaos-overhead and --churn at their defaults: their counts, as the
+# reference's bench.py gives them on the CPU under the simulation signer
+# (recomputed by the same test)
+BENCH_CHAOS_COUNTS = {"n_forkers": 10, "fork_pairs": 10388, "overflow_retries": 0}
+BENCH_CHURN_COUNTS = {"epochs": 3, "decided": 326, "restatements": 2,
+                      "repack_samples": 60, "events": 700}
+# the stamps of phase 20's lines, as phases 16(a), 17(d) and 18(c) compute
+# them (the bench would run each again)
+STAMPS = {}
+# config 5's kernel shapes (phase 3): the streaming driver at 256 members
+# over C5_WINDOW events hops the ancestry as 128 x 128 @ 128 x C5_WINDOW and
+# runs its extension block over one ingest's rows at the window's end x the
+# live witness columns (C5_BLOCK; 678 live of 768 when the streaming driver
+# runs the stream on the CPU, at this window)
+C5_MEMBERS = 256
+C5_WINDOW = 16384
+C5_BLOCK = {"row0": 14336, "rows": 2048, "cols": 768, "live": 678,
+            "col_range": (8192, 14336)}
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -879,6 +996,20 @@ class ViewSpillArchive(races.SanitizedArchive):
         return added
 
 
+def golden_for(name, n_events):
+    """The JAX reference's digests of configuration ``name`` over its first
+    ``n_events`` events (``GOLDEN`` in full, ``PREFIX_GOLDEN`` at
+    ``PREFIX_EVENTS``)."""
+    return {N_EVENTS: GOLDEN, PREFIX_EVENTS: PREFIX_GOLDEN}[n_events][name]
+
+
+def prefix_dag(dag):
+    """``dag`` cut to its first ``PREFIX_EVENTS`` events (packed again)."""
+    members, stake, events, _packed, keys = dag
+    events = events[:PREFIX_EVENTS]
+    return members, stake, events, pack_events(events, members, stake), keys
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
     for fn in KERNELS.values():
@@ -886,22 +1017,9 @@ def reset_launches():
 
 
 def result_digests(packed, result) -> dict:
-    """SHA-256 digests of a consensus result: the order (concatenated event
-    ids), ``round`` and ``round_received`` (little-endian int32) and
-    ``famous`` (sorted (event index, fame) items, fame -1 when undecided)."""
-    def h(b: bytes) -> str:
-        return hashlib.sha256(b).hexdigest()
-
-    fam = b"".join(
-        struct.pack("<ib", k, -1 if v is None else int(v))
-        for k, v in sorted(result.famous.items())
-    )
-    return {
-        "order": h(b"".join(packed.ids[i] for i in result.order)),
-        "round": h(np.asarray(result.round, "<i4").tobytes()),
-        "famous": h(fam),
-        "round_received": h(np.asarray(result.round_received, "<i4").tobytes()),
-    }
+    """SHA-256 digests of a consensus result over ``packed``'s event ids
+    (:func:`tpu_swirld_torch.bench.result_digests`)."""
+    return bench.result_digests(lambda i: packed.ids[i], result)
 
 
 def rtd_digest(rtd) -> dict:
@@ -919,6 +1037,16 @@ def gossip_totals(nodes) -> dict:
             if k.startswith("gossip_"):
                 out[k] = out.get(k, 0) + v
     return dict(sorted(out.items()))
+
+
+def config5_window():
+    """``(packed, sees)`` of config 5's first ``C5_WINDOW`` events (BASELINE
+    config 5's stream, ``bench --stream``'s generator), the sees slab on the
+    card: phase 3's inputs at config 5's shapes."""
+    members, stake, _keys, chunks = stream_gossip_dag(C5_MEMBERS, C5_WINDOW, 2048,
+                                                      seed=SEED)
+    packed = pack_events([ev for chunk in chunks for ev in chunk], members, stake)
+    return packed, sees_slab(packed, C5_MEMBERS)
 
 
 def make_dag(n_forkers: int):
@@ -1005,7 +1133,7 @@ def check_bmm_or(gen, g_cap, failures):
     bucket of 8, the contraction of its forked-extension hop."""
     rows = []
     shapes = [(128, 128, 128), (128, 128, 10112), (10112, 4517, 64),
-              (1024, g_cap, 64), (100, 37, 70)]
+              (1024, g_cap, 64), (100, 37, 70), (128, 128, C5_WINDOW)]
     for p, q, r in shapes:
         # densities that leave about half of the outputs set
         dens = float(np.sqrt(0.69 / q))
@@ -1037,7 +1165,7 @@ def check_bmm_or(gen, g_cap, failures):
     return rows
 
 
-def sees_slab(packed):
+def sees_slab(packed, n_members=N_MEMBERS):
     """The sees slab of a packed DAG on the card, padded to the main path's
     block of 128 events."""
     n = packed.n
@@ -1050,7 +1178,7 @@ def sees_slab(packed):
     _anc, sees = visibility_stage(
         torch.as_tensor(parents, device=dev), torch.as_tensor(creator, device=dev),
         torch.as_tensor(packed.fork_pairs, device=dev),
-        n_members=N_MEMBERS, block=128,
+        n_members=n_members, block=128,
     )
     return sees
 
@@ -1062,13 +1190,13 @@ def check_degenerate(kernel, label, set_frac, failures):
         failures.append(f"{kernel} {label}: set fraction {set_frac}, the check cannot fail")
 
 
-def check_ssm_block(packs, slabs, failures):
+def check_ssm_block(packs, slabs, failures, c5):
     """``ssm_block`` against its plain version with non-uniform stake.
     Config 4's forkseen slab gives few strongly-seen pairs outside its
-    early rounds, so the cases in the late window run on config 3's."""
+    early rounds, so the cases in the late window run on config 3's.
+    ``c5`` is config 5's window ``(packed, sees)`` (:func:`config5_window`)."""
     rng = np.random.default_rng(SEED)
     stake_np = rng.integers(1, 6, N_MEMBERS).astype(np.int32)   # non-uniform
-    tot = int(stake_np.sum())
     n = N_EVENTS
     n_pad = slabs["config3"].shape[0]
 
@@ -1088,9 +1216,24 @@ def check_ssm_block(packs, slabs, failures):
         ("extension rows=1024,C=256", "config3", 4096, 1024, pick(2048, 5120, 256)),
         ("extension rows=1024,C=1024", "config3", 4096, 1024, pick(1024, 5120, 1024)),
     ]
+    # config 5's streaming extension block (C5_BLOCK): one ingest's rows at
+    # the end of a C5_WINDOW window x the live witness columns, padded to
+    # the streaming driver's bucket with -1
+    rng5 = np.random.default_rng(SEED + 5)
+    packs, slabs = dict(packs, config5=c5[0]), dict(slabs, config5=c5[1])
+    stakes = {"config3": stake_np, "config4": stake_np,
+              "config5": rng5.integers(1, 6, C5_MEMBERS).astype(np.int32)}
+    b = C5_BLOCK
+    c5_cols = np.full(b["cols"], -1, np.int32)
+    c5_cols[: b["live"]] = np.sort(rng5.choice(np.arange(*b["col_range"]), b["live"],
+                                               replace=False))
+    cases.append((f"config5 extension rows={b['rows']},C={b['cols']}", "config5",
+                  b["row0"], b["rows"], c5_cols))
     rows_out = []
     for label, name, row0, rows, cols_np in cases:
         packed, sees = packs[name], slabs[name]
+        stake_np = stakes[name]
+        tot = int(stake_np.sum())
         dev = sees.device
         mt = torch.as_tensor(packed.member_table, device=dev)
         stake = torch.as_tensor(stake_np, device=dev)
@@ -1344,11 +1487,12 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
                  never=("ssm_matrix",), chunks=None):
     """One driver (``inc``) over one configuration in chunks of ``INC_CHUNK``
     events (or the ingests ``chunks``), with the checks of the module
-    docstring: golden digests (of the result moved back to creation order),
+    docstring: golden digests (:func:`golden_for` the DAG's depth, of the
+    result moved back to creation order),
     the per-pass ``ordered`` lists concatenating to the order, a non-rebase
     pass, every kernel of ``needs`` launched on the non-rebase passes and
     none of ``never`` launched at all.  Returns the run's kernel launches."""
-    _members, _stake, events, packed, _keys = dag
+    events, packed = dag[2], dag[3]
     if chunks is None:
         chunks = [events[i : i + INC_CHUNK] for i in range(0, len(events), INC_CHUNK)]
     name = label.split()[0]
@@ -1411,7 +1555,7 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
         result = reindex(result, arrival, packed.ids)
     digests = result_digests(packed, result)
     print(f"{tag}: digests {json.dumps(digests)}", flush=True)
-    for key, want in GOLDEN[name].items():
+    for key, want in golden_for(name, len(events)).items():
         if digests[key] != want:
             failures.append(f"{tag}: {key} digest {digests[key]} != golden {want}")
     clean = [r for r in passes if not r["rebased"]]
@@ -1702,7 +1846,7 @@ def run_mesh_batch(name, packed, failures):
             failures.append(f"{label}: {kname} launched {launches[kname]} times")
     digests = result_digests(packed, result)
     print(f"{label}: digests {json.dumps(digests)}", flush=True)
-    for key, want in GOLDEN[name].items():
+    for key, want in golden_for(name, packed.n).items():
         if digests[key] != want:
             failures.append(f"{label}: {key} digest {digests[key]} != golden {want}")
     return launches
@@ -2773,12 +2917,13 @@ def straggler_chunks(events):
 
 def run_stragglers(dags, columns_evps, failures):
     """Phase 14(c): config 4 through ``IncrementalConsensus`` and config 3
-    through ``StreamingConsensus`` on the card, both fed the straggler
-    schedule, with the checks of :func:`drive_passes`.  Returns each run's
+    through ``StreamingConsensus`` on the card, each over its first
+    ``PREFIX_EVENTS`` events fed the straggler schedule, with the checks of
+    :func:`drive_passes` against ``PREFIX_GOLDEN``.  Returns each run's
     kernel launches."""
     out = {}
     for name, kind in STRAGGLER_RUNS.items():
-        dag = dags[name]
+        dag = prefix_dag(dags[name])
         members, stake, events = dag[:3]
         chunks, moved = straggler_chunks(events)
         print(f"stragglers {name}: {len(chunks)} chunks of {[len(c) for c in chunks]} "
@@ -2819,24 +2964,23 @@ def run_chaos_phase(dags, columns_evps, failures):
 DEFAULT_SIGNER = crypto.backend_name()
 
 
-def run_chaos_cluster(tmp, failures):
-    """Phase 15(a): ``CLUSTER_SPEC`` through the port's supervisor and node
-    processes.  Returns the verdict, the verdict's oracle order and the
-    union event log."""
+def run_cluster_legs(tmp, failures):
+    """Phase 15(a) and (b): ``bench.run_cluster`` (the chaos leg, then the
+    overload leg) through the port's supervisor and node processes.
+    Returns the chaos leg's verdict, its oracle order and its union event
+    log, and the seconds of each leg."""
     tag = "cluster chaos leg"
-    spec = net_cluster.ClusterSpec(
-        workdir=os.path.join(tmp, "cluster"), flightrec_dir=os.path.join(tmp, "flightrec"),
-        net=dict(CLUSTER_NET), **CLUSTER_SPEC,
-    )
     with oracle_orders(net_cluster) as orders:
-        t0 = time.perf_counter()
-        v = net_cluster.run_cluster(spec)
-        wall = time.perf_counter() - t0
+        out, rc, d = bench.run_cluster(stamps={}, workdir=tmp)
+    walls = d["seconds"]
+    print(f"bench --cluster: rc {rc}; {json.dumps(out['cluster'], sort_keys=True)[:3000]}",
+          flush=True)
+    v, spec = d["verdict"], d["spec"]
     _reports, union, _rows = net_cluster.collect_node_state(
         spec.workdir, spec.managed_indices(), {}, {})
     victim = v["nodes"][spec.kill_index]
     tx = v["tx"]
-    print(f"{tag}: {wall} s, ok {v['ok']}; union {len(union)} events, oracle order "
+    print(f"{tag}: {walls[0]} s, ok {v['ok']}; union {len(union)} events, oracle order "
           f"{v['safety']['oracle_len']}, common prefix {v['safety']['common_prefix_len']}; "
           f"heal at {v['faults']['heal_wall_s']} s, decided at heal "
           f"{v['liveness']['decided_at_heal']}, final {v['liveness']['decided_final']}",
@@ -2848,6 +2992,7 @@ def run_chaos_cluster(tmp, failures):
     print(f"{tag}: tx {json.dumps(ledger)}; victim {json.dumps(row)}; "
           f"counters {json.dumps(v['counters'], sort_keys=True)}", flush=True)
     checks = {
+        "bench exit 0": rc == 0,
         "verdict ok": v["ok"],
         "prefix_agree": v["safety"]["prefix_agree"],
         "oracle_agree": v["safety"]["oracle_agree"],
@@ -2858,32 +3003,22 @@ def run_chaos_cluster(tmp, failures):
         "post-mortem on disk": bool(victim.get("flightrec_dump"))
         and os.path.exists(victim["flightrec_dump"]),
         "acked and decided txs": tx["acked"] > 0 and tx["decided"] > 0,
-        "one oracle replay": len(orders) == 1,
+        "one oracle replay a leg": len(orders) == 2,
     }
     for name, ok in checks.items():
         if not ok:
             failures.append(f"{tag}: {name} failed")
-    return v, (orders[-1] if orders else []), union
-
-
-def run_overload_cluster(tmp, failures):
-    """Phase 15(b): ``OVERLOAD_SPEC`` with a zero undecided-window budget."""
-    tag = "cluster overload leg"
-    spec = net_cluster.ClusterSpec(
-        workdir=os.path.join(tmp, "overload"), net=dict(CLUSTER_NET, max_undecided=0),
-        **OVERLOAD_SPEC,
-    )
-    t0 = time.perf_counter()
-    v = net_cluster.run_cluster(spec)
-    wall = time.perf_counter() - t0
-    tx = v["tx"]
-    print(f"{tag}: {wall} s, ok {v['ok']}; submitted {tx['submitted']}, acked {tx['acked']}, "
-          f"shed {tx['shed']} (tx_shed_window {v['counters']['tx_shed_window']})", flush=True)
-    if not (v["ok"] and tx["acked"] == 0 and tx["shed"] > 0
-            and v["counters"]["tx_shed_window"] == tx["shed"]
-            and v["counters"]["tx_accepted"] == 0):
-        failures.append(f"{tag}: not ok or not shed: {json.dumps(tx)} "
-                        f"{json.dumps(v['counters'])}")
+    ov = d["overload"]
+    tx = ov["tx"]
+    print(f"cluster overload leg: {walls[1]} s, ok {ov['ok']}; submitted "
+          f"{tx['submitted']}, acked {tx['acked']}, shed {tx['shed']} (tx_shed_window "
+          f"{ov['counters']['tx_shed_window']})", flush=True)
+    if not (ov["ok"] and tx["acked"] == 0 and tx["shed"] > 0
+            and ov["counters"]["tx_shed_window"] == tx["shed"]
+            and ov["counters"]["tx_accepted"] == 0):
+        failures.append(f"cluster overload leg: not ok or not shed: {json.dumps(tx)} "
+                        f"{json.dumps(ov['counters'])}")
+    return v, (orders[0] if orders else []), union, walls
 
 
 def run_union_replays(v, oracle, union, failures):
@@ -2892,8 +3027,7 @@ def run_union_replays(v, oracle, union, failures):
     on the card for each of ``CLUSTER_ENGINES``: a batch ``run_consensus``
     at block 64 and the windowed driver in 64-event chunks.  Returns each
     replay's kernel launches."""
-    n = CLUSTER_SPEC["n_nodes"]
-    seed = CLUSTER_SPEC["seed"]
+    n, seed = CLUSTER_SPEC["n_nodes"], CLUSTER_SPEC["seed"]
     t0 = time.perf_counter()
     observer = chaos.oracle_observer(
         union, [pk for pk, _ in net_cluster.member_keys(n, seed)],
@@ -2930,10 +3064,9 @@ def run_cluster_phase(failures):
           "process", flush=True)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            v, oracle, union = run_chaos_cluster(tmp, failures)
-            t_a = time.perf_counter()
-            run_overload_cluster(tmp, failures)
-            t_b = time.perf_counter()
+            v, oracle, union, walls = run_cluster_legs(tmp, failures)
+        t_b = time.perf_counter()
+        t_a = t_phase + walls[0]
         launches = run_union_replays(v, oracle, union, failures) if union else {}
         if not union:
             failures.append("cluster: the chaos leg left no event log")
@@ -2953,7 +3086,7 @@ def run_checker(failures):
     replay's launches."""
     tag = "mc"
     t0 = time.perf_counter()
-    smoke = mc_smoke()
+    smoke = STAMPS["mc"] = mc_smoke()
     t_smoke = time.perf_counter() - t0
     print(f"{tag} smoke: {t_smoke} s; {json.dumps(smoke, sort_keys=True)}", flush=True)
     if not smoke["ok"]:
@@ -2993,15 +3126,17 @@ def fork_pairs(node) -> int:
 
 
 def run_soak_leg(tmp, failures):
-    """Phase 16(b)'s cluster: ``SOAK_SPEC`` through the port's ``run_soak``.
-    Returns the verdict, its oracle order and the union event log."""
+    """Phase 16(b)'s cluster: the port's ``bench --soak`` at its defaults
+    (``run_soak`` in the setting above).  Returns the verdict, its
+    oracle order and the union event log."""
     tag = "soak"
-    spec = soak.default_spec(os.path.join(tmp, "soak"), net=dict(SOAK_NET), **SOAK_SPEC)
-    spec = dataclasses.replace(spec, schedule=soak.smoke_schedule(spec))
     with oracle_orders(soak) as orders:
         t0 = time.perf_counter()
-        v = soak.run_soak(spec)
+        out, rc, d = bench.run_soak(stamps={}, workdir=os.path.join(tmp, "soak"))
         wall = time.perf_counter() - t0
+    print(f"bench --soak: rc {rc}; {json.dumps(out['soak'], sort_keys=True)[:3000]}",
+          flush=True)
+    v, spec = d["verdict"], d["spec"]
     honest = [i for i in range(spec.n_nodes)
               if i not in v["adversary"]["byzantine_indices"]]
     _reports, union, _rows = net_cluster.collect_node_state(spec.workdir, honest, {}, {})
@@ -3016,6 +3151,7 @@ def run_soak_leg(tmp, failures):
           f"victims {json.dumps([{k: r.get(k) for k in ('index', 'restarts', 'unclean_start', 'exit_code')} for r in victims])}",
           flush=True)
     checks = {
+        "bench exit 0": rc == 0,
         "verdict ok": v["ok"],
         "oracle_agree and prefix_agree": v["safety"]["oracle_agree"]
         and v["safety"]["prefix_agree"],
@@ -3227,17 +3363,21 @@ def run_jit_audit(failures):
 
 
 def run_static_gates(failures):
-    """Phase 17(d), on the host: the port lints clean and the static stage
-    audit finds exactly ``STATIC_AUDIT_FINDINGS``."""
+    """Phase 17(d), on the host: the port lints clean (its summary is phase
+    20's ``lint`` stamp), ``lint.sh``'s gates 3 and 4 find nothing, and the
+    static stage audit finds exactly ``STATIC_AUDIT_FINDINGS``."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     findings = lint_paths([os.path.join(root, "tpu_swirld_torch")])
+    STAMPS["lint"] = lint_summary(findings)
+    gates = {name: suppression_gate(name) for name in SUPPRESSION_GATES}
     t1 = time.perf_counter()
     static = [(f["path"], f["stage"], f["message"]) for f in jit_audit.static_audit(root)]
-    print(f"lint: {t1 - t0} s, {len(findings)} findings; static stage audit: "
+    print(f"lint: {t1 - t0} s, {len(findings)} findings, suppression gates "
+          f"{json.dumps({k: len(v) for k, v in gates.items()})}; static stage audit: "
           f"{time.perf_counter() - t1} s, {json.dumps(static)}", flush=True)
-    for f in findings:
-        failures.append(f"lint: {f.render()}")
+    for f in findings + [g for bad in gates.values() for g in bad]:
+        failures.append(f"lint: {f if isinstance(f, str) else f.render()}")
     if static != STATIC_AUDIT_FINDINGS:
         failures.append(f"static stage audit: {static} is not the recorded list")
 
@@ -3414,6 +3554,8 @@ def finish_flow_audits(procs, observed, failures):
                  "findings": len(doc["findings"]) + len(doc["unjustified"]),
                  "suppressed": len(doc["suppressed"]), "errors": len(doc["errors"])}
         pulls.update(doc["pulls"])
+        if env == "baseline":
+            STAMPS["scale_audit"] = stamp
         print(f"scale-audit {env}: rc {proc.returncode}, {seconds[env]} s (its own "
               f"process), {len(doc['specs'])} specs, stamp {json.dumps(stamp)}, "
               f"coverage gaps {gaps}", flush=True)
@@ -3668,6 +3810,109 @@ def run_multichip_phase(packs, failures):
     return {"multichip": by_rank}
 
 
+# -------------------------------------- phase 20: the port's bench on the card
+
+
+def bench_call(tag, fn, *args, knobs=None, **kw):
+    """One ``tpu_swirld_torch.bench`` mode in this process under ``knobs``:
+    its JSON line printed, its exit code checked by the caller.  Returns
+    ``(out, rc, detail, launches, seconds)``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with bench.knobs(**(knobs or {})):
+        out, rc, detail = fn(*args, stamps=dict(STAMPS), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in KERNELS.items()}
+    print(f"{tag}: rc {rc}, {wall} s; launches {json.dumps(launches)}", flush=True)
+    print(f"{tag}: {json.dumps(out)}", flush=True)
+    return out, rc, detail, launches, wall
+
+
+def run_bench_stream(failures):
+    """Phase 20(a): ``bench --stream`` at config 5's width and ``BENCH_STREAM``'s
+    depth: exit 0, the budget held, the decided output golden, the
+    extension kernels launched and the matrix not."""
+    tag = "bench --stream (config 5, cut)"
+    out, rc, detail, launches, _ = bench_call(tag, bench.run_stream, 65536, 256,
+                                               device="cuda", knobs=BENCH_STREAM)
+    st = out["stream"]
+    got = dict(detail["digests"], ordered=st["ordered"])
+    print(f"{tag}: {st['evps']} events/s, window peak {st['peak_resident_visibility_bytes']} "
+          f"bytes ({st['peak_resident_tiles']} tiles), device peak "
+          f"{out['peak_device_bytes']} bytes, archived {st['archived_rows']} rows / "
+          f"{st['archive_bytes']} bytes, widen / full rebases {st['widen_rebases']} / "
+          f"{st['full_rebases']}; digests golden {got == BENCH_STREAM_GOLDEN}", flush=True)
+    if rc != 0 or not st["budget_ok"] or not st["parity"]:
+        failures.append(f"{tag}: rc {rc}, budget_ok {st['budget_ok']}, parity {st['parity']}")
+    if got != BENCH_STREAM_GOLDEN:
+        failures.append(f"{tag}: decided output {got} is not the reference's")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_bench_default(failures):
+    """Phase 20(b): the default mode (config 3) with ``BENCH_DEFAULT``: exit 0,
+    the batch, incremental and streaming parities, the batch digests
+    ``BENCH_DEFAULT_GOLDEN``'s."""
+    tag = "bench (default mode, config 3)"
+    out, rc, detail, launches, _ = bench_call(tag, bench.run_default, "cuda",
+                                               knobs=BENCH_DEFAULT)
+    parities = {"batch": out["metric"].endswith("order parity=True"),
+                "incremental": out["incremental"]["parity"],
+                "stream": out["stream"]["parity"]}
+    print(f"{tag}: {out['value']} events/s (vs the oracle {out['vs_baseline']}x), "
+          f"incremental steady {out['incremental']['steady_evps']}, stream "
+          f"{out['stream']['evps']}; parities {json.dumps(parities)}; device peak "
+          f"{out['peak_device_bytes']} bytes", flush=True)
+    if rc != 0 or not all(parities.values()):
+        failures.append(f"{tag}: rc {rc}, parities {parities}")
+    if detail["digests"] != BENCH_DEFAULT_GOLDEN:
+        failures.append(f"{tag}: batch digests are not BENCH_DEFAULT_GOLDEN")
+    check_launches(tag, launches, ("bmm_or", "ssm_block"), ("ssm_matrix",), failures)
+    return launches
+
+
+def run_bench_others(failures):
+    """Phase 20(c): ``--chaos-overhead`` and ``--churn`` at their defaults:
+    exit 0, counts equal to the reference's."""
+    out, rc, _d, chaos_launches, _ = bench_call("bench --chaos-overhead",
+                                                bench.run_chaos_overhead, "cuda")
+    got = {k: out["chaos_overhead"][k] for k in BENCH_CHAOS_COUNTS}
+    if rc != 0 or got != BENCH_CHAOS_COUNTS:
+        failures.append(f"bench --chaos-overhead: rc {rc}, counts {got}")
+    check_launches("bench --chaos-overhead", chaos_launches, ("bmm_or", "ssm_block"),
+                   ("ssm_matrix",), failures)
+    # the epoch-aware driver over a multi-epoch schedule is the observer's
+    # host replay, as in the reference: its device leg is the repack
+    out, rc, d, churn_launches, _ = bench_call("bench --churn", bench.run_churn, "cuda")
+    got = {k: out["churn"][k] for k in BENCH_CHURN_COUNTS}
+    print(f"bench --churn: repack outputs on {d['repack_devices']}", flush=True)
+    if rc != 0 or got != BENCH_CHURN_COUNTS:
+        failures.append(f"bench --churn: rc {rc}, counts {got}")
+    if not d["repack_devices"] or any(not x.startswith("cuda") for x in d["repack_devices"]):
+        failures.append(f"bench --churn: repack outputs on {d['repack_devices']}")
+    check_launches("bench --churn", churn_launches, (), ("ssm_matrix",), failures)
+    return chaos_launches, churn_launches
+
+
+def run_bench_phase(failures):
+    """Phase 20, under the simulation signer.  Returns the launches by mode."""
+    t_phase = time.perf_counter()
+    if set(STAMPS) != set(bench.STAMP_KEYS):
+        failures.append(f"bench: stamps {sorted(STAMPS)} missing from phases 16-18")
+    stream = run_bench_stream(failures)
+    t_a = time.perf_counter()
+    default = run_bench_default(failures)
+    t_b = time.perf_counter()
+    chaos_l, churn_l = run_bench_others(failures)
+    t_c = time.perf_counter()
+    print(f"bench: {t_c - t_phase} s ((a) {t_a - t_phase} s, (b) {t_b - t_a} s, "
+          f"(c) {t_c - t_b} s)", flush=True)
+    return {"bench": {"stream": stream, "default": default, "chaos_overhead": chaos_l,
+                      "churn": churn_l}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3703,7 +3948,7 @@ def main() -> int:
     g_cap = ((len(packs["config4"].fork_pairs) + 7) // 8) * 8
     bmm_rows = check_bmm_or(gen, g_cap, failures)
     slabs = {name: sees_slab(packed) for name, packed in packs.items()}
-    ssm_rows = check_ssm_block(packs, slabs, failures)
+    ssm_rows = check_ssm_block(packs, slabs, failures, config5_window())
     sweep_ssm_block(failures)
     matrix_rows = check_ssm_matrix(packs, slabs, failures)
     sweep_ssm_matrix(failures)
@@ -3720,15 +3965,18 @@ def main() -> int:
                 columns_evps[name] = evps
     launches["incremental"] = {}
     c4 = config4_observers()
+    def depth(kind, label, name):
+        return prefix_dag(dags[name]) if (kind, label) in PREFIX_RUNS else dags[name]
+
     for label, (name, fuse) in INC_RUNS.items():
         launches["incremental"][label] = run_incremental(
-            label, dags[name], fuse, columns_evps[name], failures,
+            label, depth("incremental", label, name), fuse, columns_evps[name], failures,
             c4=c4 if label == "config4" else None,
         )
     launches["streaming"], archives = {}, {}
     for name in CONFIGS:
         launches["streaming"][name], inc, archives[name] = run_streaming(
-            name, dags[name], columns_evps[name], failures
+            name, depth("streaming", name, name), columns_evps[name], failures
         )
         if name == "config3":
             launches["widen"] = {name: run_widen(inc, dags[name], failures)}
@@ -3737,14 +3985,15 @@ def main() -> int:
     launches["mesh"] = {}
     for name in CONFIGS:
         launches["mesh"][name] = run_mesh(
-            name, dags[name], columns_evps[name],
+            name, depth("mesh", name, name), columns_evps[name],
             (launches["streaming"][name], archives[name]), failures,
         )
     torch.cuda.empty_cache()
     mesh_rows, tally_row, hop_row = check_mesh_block(packs["config3"], failures)
     torch.cuda.empty_cache()
     launches["mesh_batch"] = {
-        name: run_mesh_batch(name, packed, failures) for name, packed in packs.items()
+        name: run_mesh_batch(name, depth("mesh_batch", name, name)[3], failures)
+        for name in CONFIGS
     }
     sharded_rows, member_tally_row, mesh_block_row = check_member_sharded(packs, failures)
     torch.cuda.empty_cache()
@@ -3770,6 +4019,7 @@ def main() -> int:
     launches.update(run_gates_phase(failures))
     launches.update(run_flow_phase(failures))
     launches.update(run_multichip_phase(packs, failures))
+    launches.update(run_bench_phase(failures))
 
     # one row per kernel at its hottest main-path shape: the ancestry
     # propagation hop for bmm_or, the full-height column add for ssm_block,

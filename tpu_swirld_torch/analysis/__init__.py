@@ -33,6 +33,7 @@ What the port has:
 CLI::
 
     python -m tpu_swirld_torch.analysis lint tpu_swirld_torch/
+    python -m tpu_swirld_torch.analysis lint-gates   # scripts/lint.sh's gates 3, 4
     python -m tpu_swirld_torch.analysis jit-audit [--device cpu]
     python -m tpu_swirld_torch.analysis races --schedules 32 [--device cpu]
     python -m tpu_swirld_torch.analysis mc

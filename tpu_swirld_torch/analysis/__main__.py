@@ -3,13 +3,14 @@
 Subcommands::
 
     lint        [paths...] [--json] [--rules ...] [--list-rules]
+    lint-gates  [--gate fused-dispatch|soak-plane]
     jit-audit   [--static-only] [--members N] [--events N] [--engine E] [--device D] [--json]
     races       [--schedules N] [--seed S] [--rows N] [--device D] [--json]
     mc          [--n N] [--events N] [--forkers N] [--mutate NAME] [--json]
     scale-audit [--envelope E] [--engine E] [--mutate NAME] [--device D] [--json] [--list-rules]
 
 Each exits non-zero on findings / audit failures / schedule divergence /
-invariant violations / unproven envelopes, so all five slot directly
+invariant violations / unproven envelopes, so all six slot directly
 into CI.
 """
 
@@ -29,6 +30,8 @@ def main(argv=None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "lint":
         from tpu_swirld_torch.analysis.lint import main as m
+    elif cmd == "lint-gates":
+        from tpu_swirld_torch.analysis.lint import gates_main as m
     elif cmd == "jit-audit":
         from tpu_swirld_torch.analysis.jit_audit import main as m
     elif cmd == "races":
@@ -41,7 +44,7 @@ def main(argv=None) -> int:
         print(f"subcommand {cmd!r} is not in the port yet: {NOT_PORTED[cmd]}")
         return 2
     else:
-        print(f"unknown subcommand {cmd!r} (lint | jit-audit | races | mc | scale-audit)")
+        print(f"unknown subcommand {cmd!r} (lint | lint-gates | jit-audit | races | mc | scale-audit)")
         return 2
     return m(rest)
 

@@ -365,6 +365,83 @@ def lint_summary(findings: Sequence[Finding]) -> Dict:
     }
 
 
+# ------------------------------------------------- suppression gates
+
+#: ``scripts/lint.sh``'s gates 3 and 4 over the port: in these modules the
+#: rules must hold, and every suppression of a guarded rule must be a line
+#: disable with a ``-- why`` note (a bare or file-wide one is a finding).
+#: The fused-dispatch modules carry the rounds span and its feeders (a
+#: wall-clock read or an unpinned dtype there breaks the fused == per-chunk
+#: parity and the carry's dtypes); the soak plane's fault draws, schedules
+#: and verdicts must replay from the seed (an unordered walk or an
+#: unjustified wall read breaks the shrinker).
+SUPPRESSION_GATES = {
+    "fused-dispatch": {
+        "modules": ("gpu/pipeline.py", "gpu/kernels.py", "store/streaming.py",
+                    "parallel.py"),
+        "rules": ("SW003", "SW004"),
+        "guarded": {"SW003", "wall-clock", "SW004", "dtype-discipline", "all"},
+        "title": "fused-kernel SW003/SW004 gate",
+        "where": "a fused-dispatch module",
+    },
+    "soak-plane": {
+        "modules": ("net/proxy.py", "net/traffic.py", "soak.py"),
+        "rules": ("SW002", "SW003"),
+        "guarded": {"SW002", "unordered-iter", "SW003", "wall-clock", "all"},
+        "title": "soak-plane SW002/SW003 gate",
+        "where": "a soak-plane module",
+    },
+}
+
+
+def suppression_gate(name: str, root: Optional[str] = None) -> List[str]:
+    """The findings of gate ``name`` (:data:`SUPPRESSION_GATES`) over the
+    package at ``root`` (default: this package), rendered one a line:
+    the gate's rules' unsuppressed findings, then every bare or file-wide
+    suppression of a guarded rule."""
+    gate = SUPPRESSION_GATES[name]
+    if root is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, m) for m in gate["modules"]]
+    bad = [f.render() for f in lint_paths(paths, rules=list(gate["rules"]))]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            src = fh.read()
+        for lineno, kind, ids, note in _suppression_comments(src):
+            hit = ids & gate["guarded"]
+            if hit and (kind == "file" or not note):
+                bad.append(
+                    f"{path}:{lineno}: unjustified suppression of "
+                    f"{','.join(sorted(hit))} in {gate['where']} "
+                    f"(needs a line disable with a '-- why' note)"
+                )
+    return bad
+
+
+def gates_main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python -m tpu_swirld_torch.analysis lint-gates [--gate NAME]``: run
+    the suppression gates over this package, print each finding and one
+    count line a gate, exit 1 on any finding."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m tpu_swirld_torch.analysis lint-gates",
+        description="lint.sh's gates 3 and 4: justified suppressions only",
+    )
+    ap.add_argument("--gate", action="append", choices=sorted(SUPPRESSION_GATES),
+                    help="one gate (repeatable; default both)")
+    args = ap.parse_args(argv)
+    total = 0
+    for name in args.gate or list(SUPPRESSION_GATES):
+        bad = suppression_gate(name)
+        for line in bad:
+            print(line)
+        print(f"{SUPPRESSION_GATES[name]['title']}: "
+              f"{len(bad)} finding{'s' if len(bad) != 1 else ''}")
+        total += len(bad)
+    return 1 if total else 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
     import json
