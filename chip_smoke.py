@@ -34,7 +34,21 @@
    1-bit products, the binary tensor cores' ``.b1`` AND-popc rate (an
    AND-product two operations, ``B1_OPS_PER_S``); ``ssm_block`` and
    ``ssm_matrix`` also print the operations bound at the data sheet's int8
-   rate (``ops_bound_int8_ms``).
+   rate (``ops_bound_int8_ms``).  ``rounds_scan`` (every carry output
+   exactly): the full path over the config-3 and config-4 DAGs (N 10 112,
+   config 4 with non-uniform stake), config 3's 128-event columns chunk
+   with the most witnesses (a seventh of the witness columns absent), a
+   1024-event span with ``r_base`` > 0, config 5's last 2048-event ingest of
+   its window (256 members), both overflow bits, and random small shapes
+   (forks, both table routes, clipped indices, padding); a span whose
+   rounds are all equal, whose witnesses are none or all, or that registers
+   nothing fails.  Its bound is bytes (each input read once); it is serial
+   over events, so its rows also print ``ns_per_event`` (``card_ms`` over
+   the span's events; each timed call restores the carry first; ``ms``
+   and ``host_us`` take the parents from the host, as the stages do,
+   ``card_ms`` from the card).  From
+   phase 4 on, every rounds-stage call on the card (``ROUNDS_STAGES``)
+   must launch ``rounds_scan`` exactly once (:func:`check_launches`).
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
@@ -48,9 +62,7 @@
 5. The incremental driver on configs 3 and 4: ``IncrementalConsensus(device=
    "cuda")`` with the reference defaults (block 128, chunk 256, window bucket
    1024, ``fuse_chunks`` 8) ingests the DAG in chunks of 1000 events, and
-   config 3 once more with ``fuse_chunks=1`` (the per-chunk rounds loop)
-   over its DAG's first ``PREFIX_EVENTS`` (5 000) events, held to
-   ``PREFIX_GOLDEN`` (``PREFIX_RUNS``).
+   config 3 once more with ``fuse_chunks=1`` (the per-chunk rounds loop).
    Per pass: seconds, rebased, window, pruned prefix, rounds-scan probes and
    steps, stage seconds and calls, kernel launches.  Each run's ``result()``
    digests must be golden, its per-pass ``ordered`` lists must concatenate to
@@ -89,8 +101,7 @@
    ``host_us`` and ``card_ms`` as for ``bmm_or``; a member
    hop ``bmm_or`` at (1024 x K) @ (K x 256) timed beside ``torch.matmul``.
 10. The member-sharded batch path on configs 3 and 4: ``run_consensus(
-   mesh=make_mesh(MESH_SHARDS), device="cuda")`` (config 3 over its first
-   5 000 events; the strongly-sees matrix
+   mesh=make_mesh(MESH_SHARDS), device="cuda")`` (the strongly-sees matrix
    split over the member axis, one ``ssm_tally`` launch a shard an attempt;
    a warm-up run, then a measured one): digests golden, ``ssm_tally``
    launched exactly ``MESH_SHARDS`` times an attempt, ``ssm_matrix`` and
@@ -108,8 +119,8 @@
    ``block_size``, ``tpu_min_batch`` ``LIVE_MIN_BATCH``), so its consensus
    passes run ``run_consensus`` on the card through the ``TorchEngine`` its
    first pass builds; the 63 peers gossip and run no pass (see
-   :func:`live_simulation`).  Gossip until node 0 holds 4 162 events
-   (``LIVE_NODES``), then ``flush()``: node 0's digests must be golden (the JAX
+   :func:`live_simulation`).  Gossip until node 0 holds 10 000 events
+   (``LIVE_NODES``; 10 051 once the turn ends), then ``flush()``: node 0's digests must be golden (the JAX
    reference's ``run_consensus`` on the same node's DAG), its state must
    equal the port's own ``run_consensus(pack_node(node), device="cuda")``,
    ``bmm_or`` and ``ssm_block`` launched and ``ssm_matrix`` not.  Prints
@@ -179,12 +190,10 @@
    equal to ``CHAOS_GOLDEN``, ``ssm_tally`` launched on the mesh rows,
    ``overflow_storm``'s fork leg retried; prints each scenario's host and
    device seconds.  (c) Config 4 through ``IncrementalConsensus`` and
-   config 3 through ``StreamingConsensus``, each over its first
-   ``PREFIX_EVENTS`` (5 000) events, fed the port's
+   config 3 through ``StreamingConsensus``, fed the port's
    ``chunked_ingest_schedule(events, INC_CHUNK, delay_prob=0.02,
-   max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests equal to
-   ``PREFIX_GOLDEN`` once moved back to creation order); the schedule must
-   move events.
+   max_delay=3, seed=SEED)``, with the checks of 5 and 6 (digests golden
+   once moved back to creation order); the schedule must move events.
 15. The real-process cluster (``tpu_swirld_torch.net``), under the
    machine's default signer, the one every node process uses, through the
    port's ``bench.run_cluster`` at its defaults.  (a) Its chaos leg, uncut
@@ -198,8 +207,8 @@
    the reference's do.  (c) (a)'s union event log,
    replayed into an observer in ``oracle_replay``'s order (its order must be
    the verdict's), through ``chaos._engines_agree(engine=e, device="cuda")``
-   for ``e`` in ``CLUSTER_ENGINES`` (the streaming driver; the incremental
-   one is cut for time, see ``CLUSTER_ENGINES``): every comparison true,
+   for ``e`` in ``CLUSTER_ENGINES`` (the incremental and streaming
+   drivers): every comparison true,
    ``bmm_or`` and ``ssm_block`` launched, ``ssm_matrix`` not; prints each
    replay's seconds beside the union's event count.
 16. The model checker, the production-day soak and viz
@@ -301,21 +310,21 @@
 20. The port's bench (``tpu_swirld_torch.bench``) in this process, its
    ``lint`` / ``mc`` / ``scale_audit`` stamps those of phases 16(a), 17(d) and
    18(c).  (a) ``--stream`` at config 5's full width (256 members) and a cut
-   depth (``BENCH_STREAM``: 18 432 events in 9 chunks of 2048, no oracle
+   depth (``BENCH_STREAM``: 49 152 events in 24 chunks of 2048, no oracle
    prefix, no profiled passes): exit 0, ``budget_ok``, the decided output's
    digests and count equal to ``BENCH_STREAM_GOLDEN`` (the JAX reference's
    ``StreamingConsensus`` on the same stream); prints events/s, the window's
    and the card's peaks, the archive and the rebases.  (b) The default mode
-   (config 3) cut to its plumbing (``BENCH_DEFAULT``: its first 3 000
-   events, a 1 000-event oracle prefix, two incremental ingests, a
-   1 536-event streaming leg): exit 0, its batch, incremental and streaming
-   parities true, the batch digests ``BENCH_DEFAULT_GOLDEN``'s.  (c) ``--chaos-overhead`` and ``--churn`` at their
+   (config 3) at its depth (``BENCH_DEFAULT``: 10 000 events, ingests of
+   1 000, the 6 000-event streaming leg) with a 1 000-event oracle prefix:
+   exit 0, its batch, incremental and streaming parities true, the batch
+   digests ``BENCH_DEFAULT_GOLDEN``'s.  (c) ``--chaos-overhead`` and ``--churn`` at their
    defaults: exit 0, their counts equal to the reference's
    (``BENCH_CHAOS_COUNTS``, ``BENCH_CHURN_COUNTS``), the churn's repacks on
    the card.  Each mode's JSON line is printed; ``bmm_or`` and ``ssm_block``
    must launch in each but ``--churn`` (a host replay and the repacks), and
    ``ssm_matrix`` in none.
-21. A ``{"kernels": [...]}`` line (all five routes, every kernel's launches
+21. A ``{"kernels": [...]}`` line (all six routes, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
    ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
@@ -364,7 +373,7 @@ from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock
 from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
-from tpu_swirld_torch.gpu.pipeline import run_consensus, visibility_stage
+from tpu_swirld_torch.gpu.pipeline import prepare_inputs, run_consensus, visibility_stage
 from tpu_swirld_torch.membership.sim import churn_schedule
 from tpu_swirld_torch.net import cluster as net_cluster
 from tpu_swirld_torch.metrics import node_gauges, trace_consensus
@@ -452,6 +461,12 @@ KERNEL_INFO = {
         "source": "tpu_swirld_torch/gpu/csrc/ssm_tally.cu",
         "replaces": "tpu_swirld/tpu/pallas_kernels.py:380",
     },
+    # no Pallas kernel: the jitted lax.scan over _make_rounds_step, one
+    # device program a call in the reference
+    "rounds_scan": {
+        "source": "tpu_swirld_torch/gpu/csrc/rounds_scan.cu",
+        "replaces": "tpu_swirld/tpu/pipeline.py:301",
+    },
 }
 MESH_SHARDS = 2
 STALE_OTHER_PARENT = 100        # tests/test_store.py's long-pruned events[100]
@@ -461,9 +476,7 @@ LIVE_SEED = 1
 LIVE_MIN_BATCH = 2000           # node 0's tpu_min_batch: a pass per ~2000 events
 # live node label -> (events node 0 gossips up to, tpu_min_batch, mesh_shape)
 LIVE_NODES = {
-    # cut from 10 000 events to phase 13(d)'s 4 162 (the same DAG), to keep
-    # the whole run, phase 14 included, inside its time limit on a slow host
-    "columns node": (4_162, LIVE_MIN_BATCH, None),
+    "columns node": (10_000, LIVE_MIN_BATCH, None),
     # the mesh node's depth is cut to 3 000 events: its full-matrix passes
     # repeat the whole DAG's rounds scan, and phase 10 holds the same path
     # at 10 000
@@ -476,11 +489,11 @@ LIVE_NODES = {
 # tests/test_torch_backend.py::test_live_golden_digests_match_reference.
 LIVE_GOLDEN = {
     "columns node": {
-        "turns": 4294, "events": 4162,
-        "order": "70708fd65bd31af719dc80b0d75a544cc7ae82fdc1c758c1891e39b9c613d80d",
-        "round": "a3ed43959e6b4bff9c0956199aa1d81abc2707c2e6ff0b8e73696cbfdefd723e",
-        "famous": "19621a5c92e729782b880d3ab01a5ef977c1d64b08cc99bbc2d42cac8b934e11",
-        "round_received": "39a8d17fdc8bddb001b57bc7f5deecef4cdc349eb6fe7aa5555cfc72155557c5",
+        "turns": 10269, "events": 10051,
+        "order": "4ac75e18e4fc2ecd3c974a2046b69c4d359b5abdece4cc570b81ef362f764db9",
+        "round": "7434358839f5e34c956f959811e2193704c34abd1d5ace197dde78fcc69a9a24",
+        "famous": "0ffadfb5e88a68be4961b39a083494dffcb8a699ebae2ae8173867606ac0707b",
+        "round_received": "319680840b6cc35e8893fc8506cc02f579a256112793d5e3de5e1cd98119bc91",
     },
     "mesh_shape node": {
         "turns": 3215, "events": 3039,
@@ -491,16 +504,15 @@ LIVE_GOLDEN = {
     },
 }
 # Dynamic membership (phase 12).  The single-epoch pin: run_dynamic over
-# config 3's first DYN_PIN_EVENTS events (cut from 10 000 to keep the run
-# inside its time limit on a slow host) through each device engine,
-# ingesting INC_CHUNK events a pass.  PIN_GOLDEN is the JAX reference's
+# config 3's first DYN_PIN_EVENTS events (all of them) through each device
+# engine, ingesting INC_CHUNK events a pass.  PIN_GOLDEN is the JAX reference's
 # run_consensus on the same events (sim signer), its decided count and
 # order digest; recomputed by
 # tests/test_torch_host.py::test_pin_golden_matches_reference.
-DYN_PIN_EVENTS = 5000
+DYN_PIN_EVENTS = 10_000
 PIN_GOLDEN = {
-    "decided": 3208,
-    "order": "fa7ef0adc28f7e2f195e4842764aac8e1a61020c545751df4273ba08877f2a83",
+    "decided": 8051,
+    "order": "f2606b6e80cf299344a0a7cee2c94fcee2810edcc24cb41a03cc5c9cfc3aad51",
 }
 DYN_ENGINES = ("batch", "incremental", "streaming", "mesh")
 # engine -> (kernels it must launch, kernels it must not launch)
@@ -580,49 +592,19 @@ CHAOS_ENGINES = ("incremental", "streaming", "streaming-mesh")
 CHAOS_MULTI = ("horizon_storm", "fork_bomb")
 STRAGGLERS = {"delay_prob": 0.02, "max_delay": 3}
 STRAGGLER_RUNS = {"config4": "incremental", "config3": "streaming"}
-# Both run over their configuration's first PREFIX_EVENTS events (cut from
-# 10 000 to pay for phase 20: 46.4 s and 22.9 s of launch-bound replays on
-# an H100 at 700 W in full), held to PREFIX_GOLDEN: the JAX reference's
-# run_consensus over the same prefix on the CPU, sim signer
-# (tests/test_torch_bench.py::test_prefix_golden_matches_reference).  A
-# 5 000-event DAG of generate_gossip_dag is the prefix of the 10 000-event
-# one; config 3's order digest is PIN_GOLDEN's.
-PREFIX_EVENTS = 5000
-# Phase 5's per-chunk loop and phase 10's member-sharded batch pass over
-# config 3 run over its first PREFIX_EVENTS events too (cut from 10 000 to
-# fit phase 20; phases 4, 5, 6 and 8 drive config 3 whole through the same
-# stages).  Config 4, the only forked DAG, runs whole everywhere but 14(c).
-PREFIX_RUNS = {("incremental", "config3 fuse_chunks=1"), ("mesh_batch", "config3")}
-PREFIX_GOLDEN = {
-    "config3": {
-        "order": "fa7ef0adc28f7e2f195e4842764aac8e1a61020c545751df4273ba08877f2a83",
-        "round": "1a44c92f4828b6a604e3cf1daa0b60e95848748e849a53f8a26a0e043b43fd46",
-        "famous": "dffdf4bd4adf5db2d7f1a7ae019ddee34a099a0e9b89e3895af1bae88eff0564",
-        "round_received": "119eacec65295b664a639354c750cde6718edddeab0098d282bc0038ccdc2260",
-    },
-    "config4": {
-        "order": "97cc4530e07a901163bbc1e41e13bbdaece550d2ec8ffca7078e5aa1d8bdab24",
-        "round": "59036ae9da33f9cdf9b0c9c9f912ad3cedda9ec2efe78b19053be1137459a962",
-        "famous": "93cb23f84e4dbed3222a83b5e4c78bc6dcbfa5fdbb7482952b16cfce33da1afa",
-        "round_received": "495fe298e55b7ddfbee0cf83bc270e422678df35d80f34c35012cfcc3f0cadbf",
-    },
-}
 
 # The real-process cluster (phase 15).  (a) and (b): the port's bench
 # --cluster at its defaults (bench.py:1021-1081), uncut: the chaos leg, 5
 # node processes, 6 s of 300 tx/s of 64-byte txs, node 1 killed at 1.8 s and
 # restarted at 3.0 s, then the overload leg, 3 nodes with a zero admission
 # window for 3 s; (c) (a)'s union event log through these windowed engines
-# on the card, as chaos._engines_agree replays it.  The
-# incremental engine is cut from (c): on such a union its replay rebases 13
-# times (the restarted node's pruned pre-crash head, then the rebase-storm
-# guard), each a launch-bound columns pass: 87.7-130.7 s on an H100 (700 W)
-# against 19.3-25.2 s for streaming.  The reference's drivers rebase as
-# often on the same union: tests/test_torch_cluster.py::
-# test_cluster_union_replay_matches_reference replays a saved union of this
-# leg through both engines of both packages on the CPU.
+# on the card, as chaos._engines_agree replays it.  On such a union the
+# incremental replay rebases 13 times (the restarted node's pruned pre-crash
+# head, then the rebase-storm guard), each a columns pass; the reference's
+# drivers rebase as often on the same union
+# (tests/test_torch_cluster.py::test_cluster_union_replay_matches_reference).
 CLUSTER_SPEC = {"n_nodes": 5, "seed": 9}     # BENCH_CLUSTER_NODES, BENCH_CLUSTER_SEED
-CLUSTER_ENGINES = ("streaming",)
+CLUSTER_ENGINES = ("incremental", "streaming")
 
 # The model checker, the soak and viz (phase 16).  (b) runs the port's bench
 # --soak at its defaults (bench.py:1152-1168) through run_soak: 4 node processes
@@ -698,49 +680,37 @@ GROUP_STREAMS = {
 GROUP_TIMEOUT = 300
 # The port's bench (phase 20), in this process through tpu_swirld_torch.bench.
 # (a) --stream at config 5's full width (256 members, BASELINE.json
-# configs[4]), its depth cut from 100 000 events to the first multiple of
-# the 2048-event chunk at which the stream decides 2048 events or more
-# (16 384 decide 1 573, 18 432 decide 8 671); no oracle prefix (at 256
-# members the pure-Python oracle decides its first event only past ~12 000
-# events, 36 min of host time on the card's host: the goldens below cover
-# the whole decided output instead) and no profiled passes.  BENCH_MEM=0
-# here and in (b): the host's tracemalloc monitor slows the host-bound
-# rounds scan ~1.5-1.8x (config 3's warm columns pass 19.9 s under it in the
-# CLI's default mode, 11.0 s in phase 4); the card's peaks are still read.
-BENCH_STREAM = {"BENCH_STREAM_EVENTS": 18432, "BENCH_STREAM_ORACLE": 0,
+# configs[4]), its depth cut from 100 000 events to 49 152 (24 chunks of
+# 2048): its goldens are pinned by the JAX reference on the CPU, where the
+# full-size configuration is not run; no oracle prefix (at 256 members the
+# pure-Python oracle decides its first event only past ~12 000 events, 36
+# min of host time on the card's host: the goldens below cover the whole
+# decided output instead) and no profiled passes.  BENCH_MEM=0 here and in
+# (b): the host's tracemalloc monitor is host time; the card's peaks are
+# still read.
+BENCH_STREAM = {"BENCH_STREAM_EVENTS": 49152, "BENCH_STREAM_ORACLE": 0,
                 "BENCH_STREAM_PROFILE": 0, "BENCH_MEM": 0}
 # its decided output: the JAX reference's StreamingConsensus over the same
 # stream with bench.py --stream's driver settings, on the CPU under the
 # simulation signer (tests/test_torch_bench.py::
 # test_bench_stream_golden_matches_reference recomputes it)
 BENCH_STREAM_GOLDEN = {
-    "order": "fbe8519911560cc757ff50b7f80fa9584dc8fb4097943805928cd7529eb84b1c",
-    "round": "379e7f604802444d0e28fd27c04f5399b0dd59700a970bd4fb0b37206b372d90",
-    "famous": "209f28cb443efad124d36705319c4e2909065344180d0e30806790ef06435ff4",
-    "round_received": "eacac681c8dd5d4ddfefa80a46fa90fc7b21f7a7a6a0c1405d8e4ba76da411a4",
-    "ordered": 8671,
+    "order": "8c76f0839e39d4d1589b2bc3ef94d4a454ebfb2f4e74dcfcdcf067f618a02b62",
+    "round": "b91806e4957ba6e490dc0bca948e6216841ae73109cff48958dea5477c3d93b9",
+    "famous": "8e2e17beff3ec862d8384170457f710b85cb3ac6dc0c51bedb2b20942027278e",
+    "round_received": "c0fa09c2421bd353bbfc6247270684416d816d036652f062931bd4563f092db4",
+    "ordered": 37109,
 }
-# (b) the default mode (config 3), cut to check the bench's own plumbing
-# (its legs, keys and parities; phases 4-6 drive config 3 whole through the
-# same batch, incremental and streaming drivers): the DAG to its first 3 000
-# events (2 000 and 2 500 decide none, 3 000 decide 1 105), the
-# oracle prefix to 1 000 (the pure-Python pass over 10 000 events, 141 s on
-# the card's host, is host time phase 4's goldens already cover), the
-# incremental leg to two ingests of 1 500 and the streaming leg to one
-# gossip batch of four 384-event chunks (1 536 events decide 288; four
-# 256-event chunks decide none).  Its batch output is held to
+# (b) the default mode (config 3) at its own depth: the whole 10 000-event
+# DAG, incremental ingests of 1 000 and the 48-member 6 000-event streaming
+# leg, with the oracle prefix cut to 1 000 events (the pure-Python pass over
+# 10 000, 141 s on the card's host, is host time phase 4's goldens already
+# cover; the mode takes no empty prefix).  Its batch output is held to
 # BENCH_DEFAULT_GOLDEN: the JAX reference's run_consensus over the same DAG
 # on the CPU, sim signer (recomputed by tests/test_torch_bench.py::
 # test_prefix_golden_matches_reference).
-BENCH_DEFAULT = {"BENCH_EVENTS": 3000, "BENCH_ORACLE_EVENTS": 1000,
-                 "BENCH_INC_CHUNK": 1500, "BENCH_DEFAULT_STREAM_EVENTS": 1536,
-                 "BENCH_DEFAULT_STREAM_CHUNK": 384, "BENCH_MEM": 0}
-BENCH_DEFAULT_GOLDEN = {
-    "order": "0e300f1526f33f3de2b9d3625ecf0ba69b21cfc854fcf19735d4cc45dbc48f2a",
-    "round": "12674d59d59d42f131941cb15015ad6ecfe54b041354707f7d80ad9a40e75bab",
-    "famous": "f3781eec682a0de7e94043504485af7b67d035348f826a924e4613108f577052",
-    "round_received": "9c6a86dc65d6c5650e86edd0565055dbc0690976277d9df3959f7d31161d6eea",
-}
+BENCH_DEFAULT = {"BENCH_EVENTS": 10_000, "BENCH_ORACLE_EVENTS": 1000, "BENCH_MEM": 0}
+BENCH_DEFAULT_GOLDEN = GOLDEN["config3"]     # the default mode's DAG is config 3's
 # (c) --chaos-overhead and --churn at their defaults: their counts, as the
 # reference's bench.py gives them on the CPU under the simulation signer
 # (recomputed by the same test)
@@ -996,24 +966,36 @@ class ViewSpillArchive(races.SanitizedArchive):
         return added
 
 
-def golden_for(name, n_events):
-    """The JAX reference's digests of configuration ``name`` over its first
-    ``n_events`` events (``GOLDEN`` in full, ``PREFIX_GOLDEN`` at
-    ``PREFIX_EVENTS``)."""
-    return {N_EVENTS: GOLDEN, PREFIX_EVENTS: PREFIX_GOLDEN}[n_events][name]
+# The rounds stages, and the calls of them on the card since the last
+# reset_launches: each must launch rounds_scan exactly once.  Counted at the
+# stage seam (obs._stage_call, through which every StageClock and
+# obs.stage_call dispatch passes), whatever stage observer a phase installs.
+ROUNDS_STAGES = ("pipeline.rounds_scan_stage", "pipeline.rounds_chunk_stage",
+                 "pipeline.rounds_span_stage")
+ROUNDS_CALLS = 0
+_OBS_STAGE_CALL = obs._stage_call
 
 
-def prefix_dag(dag):
-    """``dag`` cut to its first ``PREFIX_EVENTS`` events (packed again)."""
-    members, stake, events, _packed, keys = dag
-    events = events[:PREFIX_EVENTS]
-    return members, stake, events, pack_events(events, members, stake), keys
+def _counting_stage_call(name, fused_chunks, fn, args, kw, device):
+    global ROUNDS_CALLS
+    if name in ROUNDS_STAGES and getattr(getattr(args[1], "device", None), "type", "") == "cuda":
+        ROUNDS_CALLS += 1
+    return _OBS_STAGE_CALL(name, fused_chunks, fn, args, kw, device)
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and the rounds-stage calls, to 0."""
+    global ROUNDS_CALLS
     for fn in KERNELS.values():
         fn.launches = 0
+    ROUNDS_CALLS = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, and the rounds-stage calls on the card
+    (``rounds_stage_calls``), since the last :func:`reset_launches`."""
+    return {**{k: fn.launches for k, fn in KERNELS.items()},
+            "rounds_stage_calls": ROUNDS_CALLS}
 
 
 def result_digests(packed, result) -> dict:
@@ -1433,8 +1415,294 @@ def check_ssm_matrix(packs, slabs, failures):
     return rows_out
 
 
+@dataclasses.dataclass
+class ScanCase:
+    """One ``rounds_scan`` call: the span ``[start, start + L)`` of
+    ``ssm_rows`` (``L`` rows), the parents on the host (the plain version's)
+    and on the card (the kernel's), and the carry it resumes from (never
+    written: each run takes a copy)."""
+    label: str
+    parents: np.ndarray
+    ssm_rows: torch.Tensor
+    col_pos: object
+    creator: torch.Tensor
+    stake: torch.Tensor
+    carry: tuple
+    start: int
+    n_valid: int
+    r_base: int
+    tot: int
+    has_forks: bool
+
+    def run(self, fn, parents, carry=None):
+        carry = carry if carry is not None else tuple(x.clone() for x in self.carry)
+        fn(parents, self.ssm_rows, self.col_pos, self.creator, self.stake, *carry,
+           start=self.start, n_valid=self.n_valid, r_base=self.r_base,
+           tot_stake=self.tot, has_forks=self.has_forks)
+        return carry
+
+
+def full_scan_case(label, packed, sees, stake_np, n_members):
+    """The full path's scan over a whole padded DAG: its strongly-sees
+    matrix from the ``ssm_matrix`` kernel, the port's own witness-table
+    capacities (``prepare_inputs``: members + second fork members + 1
+    slots, the self-chain's rounds bucketed to 32)."""
+    dev = sees.device
+    arrays, statics, _ts = prepare_inputs(packed, block=128)
+    r_max = min(statics["r_max"], ((statics["chain"] + 1 + 31) // 32) * 32)
+    s_max = statics["s_max"]
+    stake = torch.as_tensor(stake_np, dtype=torch.int32, device=dev)
+    tot = int(stake_np.sum())
+    mt = torch.as_tensor(packed.member_table, device=dev)
+    ssm = kernels.ssm_matrix(sees, mt, stake, tot_stake=tot)
+    n = sees.shape[0]
+    carry = (torch.zeros((n,), dtype=torch.int32, device=dev),
+             torch.zeros((n,), dtype=torch.bool, device=dev),
+             torch.full((r_max, s_max), -1, dtype=torch.int32, device=dev),
+             torch.zeros((r_max,), dtype=torch.int32, device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev))
+    return ScanCase(label, arrays["parents"], ssm, None,
+                    torch.as_tensor(arrays["creator"], device=dev), stake, carry, 0,
+                    packed.n, 0, tot, bool(len(packed.fork_pairs)))
+
+
+def span_case(label, full, out, start, length, *, r_base=0, r_max=None, s_max=None,
+              drop_every=7):
+    """A columns-path span resumed from ``full``'s scan (outputs ``out``)
+    at ``start``: the carry holds rounds and registrations before
+    ``start`` only, table rows from ``r_base`` on (``r_max`` x ``s_max``,
+    default the full scan's), the column store holds every witness's
+    column but every ``drop_every``-th witness's (``col_pos`` -1), padded
+    to 64 columns.  The events before ``start`` keep their rounds, so a
+    span's parents below it read the rounds the whole scan gave them."""
+    dev = full.ssm_rows.device
+    rnd, wits, tab, _cnt, _ovf = (x.cpu().numpy() for x in out)
+    n = rnd.shape[0]
+    r_full, s_full = tab.shape
+    r_max, s_max = r_max or r_full, s_max or s_full
+    before = np.where((tab >= 0) & (tab < start), tab, -1)[r_base : r_base + r_max]
+    tab_w = np.full((r_max, s_max), -1, np.int32)
+    k = min(s_max, s_full)
+    tab_w[: before.shape[0], :k] = before[:, :k]
+    cnt_w = (tab_w >= 0).sum(1).astype(np.int32)
+    early = np.arange(n) < start
+    witnesses = np.sort(tab[tab >= 0])
+    kept = np.delete(witnesses, np.s_[::drop_every])
+    col_pos = np.full((n,), -1, np.int32)
+    col_pos[kept] = np.arange(kept.size, dtype=np.int32)
+    c = ((kept.size + 63) // 64) * 64
+    cols = torch.as_tensor(np.concatenate([kept, np.zeros(c - kept.size, kept.dtype)]),
+                           dtype=torch.int64, device=dev)
+    rows = full.ssm_rows[start : start + length][:, cols].contiguous()
+    carry = (torch.as_tensor(np.where(early, rnd, 0).astype(np.int32), device=dev),
+             torch.as_tensor(np.where(early, wits, False), device=dev),
+             torch.as_tensor(tab_w, device=dev), torch.as_tensor(cnt_w, device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev))
+    return dataclasses.replace(full, label=label, ssm_rows=rows,
+                               col_pos=torch.as_tensor(col_pos, device=dev),
+                               carry=carry, start=start, r_base=r_base)
+
+
+def random_scan_case(label, seed, *, n, n_members, r_max, s_max, has_forks, columns,
+                     start, length, r_base, dev="cuda"):
+    """Random inputs at a small shape: parents below the event (a tenth
+    genesis), strongly-sees bits at density 0.6, a carry of random rounds
+    and a random witness table (-1 slots, events past ``n`` clipped),
+    ``col_pos`` with -1 and columns past the store (clipped), a padded
+    tail."""
+    rng = np.random.default_rng(seed)
+    parents = np.stack([rng.integers(-1, np.maximum(np.arange(n), 1)),
+                        rng.integers(-1, np.maximum(np.arange(n), 1))], 1).astype(np.int32)
+    parents[rng.random(n) < 0.1, 0] = -1
+    c = n if not columns else max(8, n // 3)
+    ssm = torch.as_tensor(rng.random((length, c)) < 0.6, device=dev)
+    col_pos = (torch.as_tensor(rng.integers(-1, c + 4, n).astype(np.int32), device=dev)
+               if columns else None)
+    tab = rng.integers(-1, n + 8, (r_max, s_max)).astype(np.int32)
+    tab[rng.random((r_max, s_max)) < 0.3] = -1
+    cnt = rng.integers(0, s_max + 1, r_max).astype(np.int32)
+    stake_np = rng.integers(1, 50, n_members).astype(np.int32)
+    carry = (torch.as_tensor(rng.integers(r_base, r_base + r_max + 2, n).astype(np.int32),
+                             device=dev),
+             torch.as_tensor(rng.random(n) < 0.3, device=dev),
+             torch.as_tensor(tab, device=dev), torch.as_tensor(cnt, device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev))
+    return ScanCase(label, parents, ssm, col_pos,
+                    torch.as_tensor(rng.integers(0, n_members, n).astype(np.int32),
+                                    device=dev),
+                    torch.as_tensor(stake_np, device=dev), carry, start,
+                    start + length - length // 8, r_base, int(stake_np.sum()), has_forks)
+
+
+def scan_bytes(case, out) -> int:
+    """The bytes a scan over ``case`` must move, each input read once and
+    each output written once: the span's parents and its rounds' reads and
+    writes, the strongly-sees bits of the witnesses each event's parent row
+    held when it ran (this run's data), the table and counts in and out,
+    the stake, and each registered witness's creator (and column)."""
+    rnd, _w, tab, _c, _o = (x.cpu().numpy() for x in out)
+    r_max, s_max = tab.shape
+    length = case.ssm_rows.shape[0]
+    gathered = 0
+    for i in range(case.start, min(case.start + length, case.n_valid)):
+        p1, p2 = case.parents[i]
+        if p1 < 0:
+            continue
+        row = max(rnd[min(p1, rnd.size - 1)], rnd[min(max(p2, 0), rnd.size - 1)]) - case.r_base
+        if 0 <= row < r_max:
+            gathered += int(((tab[row] >= 0) & (tab[row] < i)).sum())
+    per_witness = 8 if case.col_pos is not None else 4
+    return (17 * length + gathered + 8 * (r_max * s_max + r_max)
+            + 4 * case.stake.shape[0] + per_witness * int((tab >= 0).sum()))
+
+
+def check_rounds_scan(packs, slabs, c5, failures):
+    """``rounds_scan`` against its plain version on the card, all five
+    carry outputs exactly.  Fixed shapes: the full path over config 3's and
+    config 4's whole padded DAGs (N = 10 112, config 4 with non-uniform
+    stake), the 128-event columns chunk of config 3's second half that
+    registers the most witnesses (every seventh witness's column absent), a 1024-event span
+    of config 3 from there with ``r_base`` > 0, config 5's last ingest of
+    its ``C5_WINDOW`` window (256 members, 2048 events, ``r_base`` > 0), and
+    the two overflow cases (that chunk with its top witness round one row
+    past the table, then with its top row's slots already full).  Then random small
+    shapes (forks or not, both table routes, clipped indices, padding).
+    Each fixed shape is timed beside its plain version and its bound; the
+    span outputs must not be all equal and must register a witness (an
+    overflow case must set its bit)."""
+    dev = slabs["config3"].device
+    rng = np.random.default_rng(SEED)
+    stake4 = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
+    c3 = full_scan_case("config3 full N=10112", packs["config3"], slabs["config3"],
+                        packs["config3"].stake, N_MEMBERS)
+    c4 = full_scan_case("config4 full N=10112, stake 1-5", packs["config4"],
+                        slabs["config4"], stake4, N_MEMBERS)
+    c3_out = c3.run(kernels.rounds_scan, torch.as_tensor(c3.parents, device=dev))
+    c5_packed, c5_sees = c5
+    c5_full = full_scan_case("config5 window", c5_packed, c5_sees, c5_packed.stake,
+                             C5_MEMBERS)
+    c5_out = c5_full.run(kernels.rounds_scan,
+                         torch.as_tensor(c5_full.parents, device=dev))
+    c5_rmax = int(c5_out[0][: C5_BLOCK["row0"]].max())
+    c5_base = max(c5_rmax - 4, 1)
+    c5_rows = ((int(c5_out[0].max()) - c5_base + 2 + 15) // 16) * 16
+    # the 128-event chunk of the DAG's second half that registers the most
+    # witnesses: its first
+    # event's round, its witnesses' top round and that row's slots filled
+    # before it set the spans' window bases and the overflow cases' limits
+    rnd3, wits3, tab3 = (x.cpu().numpy() for x in c3_out[:3])
+    n3 = packs["config3"].n // 128 * 128
+    half = n3 // 256 * 128
+    mid = half + int(np.argmax(wits3[half:n3].reshape(-1, 128).sum(1))) * 128
+    low = int(rnd3[mid : mid + 128].min())
+    top = int(rnd3[mid : mid + 128][wits3[mid : mid + 128]].max())
+    filled = int(((tab3[top] >= 0) & (tab3[top] < mid)).sum())
+    c3_base = max(low - 3, 1)
+    fixed = [
+        c3, c4,
+        span_case("config3 columns chunk 128", c3, c3_out, mid, 128),
+        span_case(f"config3 span 1024, r_base {c3_base}", c3, c3_out, mid, 1024,
+                  r_base=c3_base),
+        span_case(f"config5 window {C5_WINDOW} last ingest 2048, r_base {c5_base}",
+                  c5_full, c5_out, C5_BLOCK["row0"], C5_BLOCK["rows"], r_base=c5_base,
+                  r_max=c5_rows, s_max=C5_MEMBERS + 1),
+    ]
+    overflow = [
+        (span_case(f"config3 chunk 128, rows {max(low - 1, 0)}-{top - 1}: OVF_ROUND", c3,
+                   c3_out, mid, 128, r_base=max(low - 1, 0),
+                   r_max=max(top - max(low - 1, 0), 1)), kernels.OVF_ROUND),
+        (span_case(f"config3 chunk 128, {min(max(filled, 1), 8)} slots: OVF_SLOT", c3,
+                   c3_out, mid, 128, s_max=min(max(filled, 1), 8)), kernels.OVF_SLOT),
+    ]
+    randoms = [
+        random_scan_case(f"random forks={f} columns={cl} route={route} r_base={rb}",
+                         seed, n=n, n_members=m, r_max=r, s_max=s, has_forks=f,
+                         columns=cl, start=st, length=ln, r_base=rb, dev=dev)
+        for seed, (f, cl, route, rb, n, m, r, s, st, ln) in enumerate([
+            (False, True, "shared", 0, 300, 7, 12, 9, 40, 200),
+            (True, True, "shared", 3, 300, 7, 12, 9, 60, 240),
+            (False, False, "shared", 2, 257, 33, 8, 40, 100, 157),
+            (True, False, "shared", 0, 400, 300, 6, 70, 10, 350),
+            (False, True, "global", 1, 500, 5, 64, 1000, 50, 400),
+            (True, True, "global", 0, 500, 40, 80, 900, 0, 500),
+        ])
+    ]
+    rows = []
+    for case, bit, timed in ([(c, None, True) for c in fixed] + [(*o, True) for o in overflow]
+                             + [(c, None, False) for c in randoms]):
+        length = case.ssm_rows.shape[0]
+        r_max, s_max = case.carry[2].shape
+        route, _smem = kernels.rounds_scan_route(r_max, s_max, case.stake.shape[0],
+                                                 case.has_forks)
+        par_d = torch.as_tensor(case.parents, device=dev)
+        got = case.run(kernels.rounds_scan, par_d)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = case.run(kernels.rounds_scan_reference, case.parents)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        span = slice(case.start, case.start + length)
+        rnd_span, wit_span = want[0][span], want[1][span]
+        registered = int(want[3].sum()) - int(case.carry[3].sum())
+        ovf = int(want[4][0])
+        print(f"rounds_scan {case.label}: equal {same}, route {route}, rounds "
+              f"{int(rnd_span.min())}-{int(rnd_span.max())}, witnesses "
+              f"{int(wit_span.sum())} of {length}, registered {registered}, overflow {ovf}",
+              flush=True)
+        if not same:
+            failures.append(f"rounds_scan {case.label}: kernel != plain version")
+        if bit is not None:
+            if not ovf & bit:
+                failures.append(f"rounds_scan {case.label}: overflow {ovf} lacks bit {bit}")
+        elif (int(rnd_span.min()) == int(rnd_span.max()) or not 0 < int(wit_span.sum()) < length
+              or registered <= 0):
+            failures.append(f"rounds_scan {case.label}: outputs that could not tell a wrong "
+                            "kernel (one round, all or no witnesses, nothing registered)")
+        if not timed:
+            continue
+        work = tuple(x.clone() for x in case.carry)
+
+        def call(case=case, par_d=par_d, work=work):
+            for w, x in zip(work, case.carry):
+                w.copy_(x)
+            case.run(kernels.rounds_scan, par_d, work)
+
+        def host_call(case=case, work=work):
+            for w, x in zip(work, case.carry):
+                w.copy_(x)
+            case.run(kernels.rounds_scan, case.parents, work)
+
+        c_ms = card_ms(call, 5)
+        bnd = scan_bytes(case, want) / HBM_BYTES_PER_S * 1e3
+        row = {"case": case.label, "N": case.carry[0].shape[0], "events": length,
+               "C": case.ssm_rows.shape[1], "r_max": r_max, "s_max": s_max,
+               "M": case.stake.shape[0], "forks": case.has_forks, "route": route,
+               "max_abs_err": err, "ms": time_ms(host_call, 5),
+               "host_us": host_us(lambda: case.run(kernels.rounds_scan, case.parents, work),
+                                  20),
+               "card_ms": c_ms, "ns_per_event": c_ms * 1e6 / length,
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes"}
+        print("rounds_scan", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def check_launches(tag, launches, needs, never, failures):
-    """Every kernel of ``needs`` launched, none of ``never``."""
+    """Every kernel of ``needs`` launched, none of ``never``.  A path that
+    launches ``bmm_or`` runs a consensus pass, so its rounds scan must have
+    launched too, and ``rounds_scan`` must have launched exactly once a
+    rounds-stage call on the card (``ROUNDS_CALLS``)."""
+    if "bmm_or" in needs:
+        needs = (*needs, "rounds_scan")
+    if launches["rounds_scan"] != launches["rounds_stage_calls"]:
+        failures.append(f"{tag}: rounds_scan launched {launches['rounds_scan']} times "
+                        f"over {launches['rounds_stage_calls']} rounds-stage calls")
     for kname in needs:
         if launches[kname] <= 0:
             failures.append(f"{tag}: kernel {kname} was not launched")
@@ -1458,7 +1726,7 @@ def run_main_path(name, packed, path, failures):
     result = run_consensus(packed, cfg, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     timings = dict(result.timings)
     stage_seconds = timings.pop("stage_seconds")
     stage_calls = timings.pop("stage_calls")
@@ -1487,8 +1755,8 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
                  never=("ssm_matrix",), chunks=None):
     """One driver (``inc``) over one configuration in chunks of ``INC_CHUNK``
     events (or the ingests ``chunks``), with the checks of the module
-    docstring: golden digests (:func:`golden_for` the DAG's depth, of the
-    result moved back to creation order),
+    docstring: golden digests (of the result moved back to creation
+    order),
     the per-pass ``ordered`` lists concatenating to the order, a non-rebase
     pass, every kernel of ``needs`` launched on the non-rebase passes and
     none of ``never`` launched at all.  Returns the run's kernel launches."""
@@ -1500,7 +1768,7 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
     reset_launches()
     ordered, passes = [], []
     for chunk in chunks:
-        launches0 = {k: fn.launches for k, fn in KERNELS.items()}
+        launches0 = launch_counts()
         seconds0, calls0 = dict(inc.stages.seconds), dict(inc.stages.calls)
         steps0 = inc.scan_steps
         torch.cuda.synchronize()
@@ -1522,13 +1790,13 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
             row.update({k: st[k] for k in ("archived_rows", "resident_bytes", "overlap_ratio")})
             row.update(widen_rebases=inc.widen_rebases, full_rebases=inc.full_rebases)
         row.update(
-            launches=_delta({k: fn.launches for k, fn in KERNELS.items()}, launches0),
+            launches=_delta(launch_counts(), launches0),
             stage_seconds=_delta(inc.stages.seconds, seconds0), stage_calls=calls,
         )
         print(f"{tag}: {json.dumps(row)}", flush=True)
         passes.append(row)
         ordered.extend(st["ordered"])
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     result = inc.result()
     timings = {k: v for k, v in result.timings.items() if not k.startswith("stage_")}
     print(f"{tag}: counters {json.dumps(timings)}", flush=True)
@@ -1555,7 +1823,7 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
         result = reindex(result, arrival, packed.ids)
     digests = result_digests(packed, result)
     print(f"{tag}: digests {json.dumps(digests)}", flush=True)
-    for key, want in golden_for(name, len(events)).items():
+    for key, want in GOLDEN[name].items():
         if digests[key] != want:
             failures.append(f"{tag}: {key} digest {digests[key]} != golden {want}")
     clean = [r for r in passes if not r["rebased"]]
@@ -1630,7 +1898,7 @@ def run_widen(inc, dag, failures):
     st = inc.ingest([strag])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     row = {
         "seconds": dt, "rebased": st["rebased"], "pruned_prefix_before": lo0,
         "pruned_prefix": st["pruned_prefix"], "window_size": st["window_size"],
@@ -1825,7 +2093,7 @@ def run_mesh_batch(name, packed, failures):
     result = run_consensus(packed, cfg, mesh=mesh, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     timings = dict(result.timings)
     stage_seconds = timings.pop("stage_seconds")
     stage_calls = timings.pop("stage_calls")
@@ -1846,7 +2114,7 @@ def run_mesh_batch(name, packed, failures):
             failures.append(f"{label}: {kname} launched {launches[kname]} times")
     digests = result_digests(packed, result)
     print(f"{label}: digests {json.dumps(digests)}", flush=True)
-    for key, want in golden_for(name, packed.n).items():
+    for key, want in GOLDEN[name].items():
         if digests[key] != want:
             failures.append(f"{label}: {key} digest {digests[key]} != golden {want}")
     return launches
@@ -2051,7 +2319,7 @@ def run_live_node(label, failures):
     eng.flush()
     torch.cuda.synchronize()
     on_step(time.perf_counter() - t0)
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     pass_seconds = sum(p["step_seconds"] for p in passes)
     print(f"{tag}: {turns} turns, node 0 holds {len(node.hg)} events, "
           f"{len(node.consensus)} ordered, {len(passes)} passes "
@@ -2116,7 +2384,7 @@ def run_single_epoch_pin(dag, failures):
         res = run_dynamic(events, members, stake, engine=engine, chunk=INC_CHUNK,
                           mesh=mesh, cross_check=True, device="cuda")
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = launch_counts()
         order = hashlib.sha256(b"".join(res.order)).hexdigest()
         print(f"{tag}: {len(res.order)} ordered, single_epoch {res.single_epoch}, "
               f"observer {res.observer_seconds} s, native {res.native_seconds} s, "
@@ -2150,7 +2418,7 @@ def run_churn(failures):
     results = run_all_engines(events, members, stake, sim.config, chunk=INC_CHUNK,
                               engines=DYN_ENGINES, mesh=make_mesh(MESH_SHARDS),
                               device="cuda")
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     print(f"dynamic churn: run_all_engines {time.perf_counter() - t0} s, "
           f"launches {json.dumps(launches)}", flush=True)
     for engine, res in results.items():
@@ -2197,7 +2465,7 @@ def run_restore(node, failures):
         t0 = time.perf_counter()
         restored = load_node(path, node.sk, node.pk, network={}, device="cuda")
         t_load = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = launch_counts()
         eng = restored._tpu_engine
         print(f"{tag}: save {t_save} s, load {t_load} s ({json.dumps(restored.restore_seconds)}"
               f"), {len(restored.hg)} events, {len(restored.consensus)} ordered, engine on "
@@ -2235,7 +2503,7 @@ def run_restore(node, failures):
 # ------------------------------------------------- phase 13: observability
 
 #: the hand-written kernels' entry points, as the profiler names them
-HAND_KERNELS = ("bmm_or_kernel", "pack_b", "tile", "pack", "tally")
+HAND_KERNELS = ("bmm_or_kernel", "pack_b", "tile", "pack", "tally", "scan_kernel")
 INC_TRACE_PASS = 5              # the steady incremental pass phase 13(b) traces
 # the columns pass's recorded window: rounds_chunk_stage calls TRACE_SKIP + 2
 # onward (136 calls a config-3 pass), TRACE_ACTIVE of them
@@ -2416,7 +2684,7 @@ def run_obs_columns(packed, untraced, failures):
         prof.end_chunk(n_events=packed.n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     base_launches, base_wall = untraced
     # the same pass untraced once more, right after: the host's speed drifts
     # between phases more than Obs costs
@@ -2499,7 +2767,7 @@ def run_trace_columns(dag, base_launches, chunk_call_s, smi, failures):
     result, export_s = windowed_trace(
         lambda: run_consensus(packed, cfg, device="cuda"), path, TRACE_SKIP, TRACE_ACTIVE)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     if launches != base_launches:
         failures.append(f"{label}: launches {launches} != untraced {base_launches}")
     if result_digests(packed, result) != GOLDEN["config3"]:
@@ -2579,7 +2847,7 @@ def run_obs_driver(kind, name, dag, batch_rtd, base_launches, mon, smi, failures
         card_timeline(f"incremental {name} pass {INC_TRACE_PASS}", path, smi,
                       {**extra, "untraced_s": sum(later) / len(later)})
         os.remove(path)
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     reg = o.registry
     print(f"{tag}: {wall} s, {inc.passes} passes, {inc.rebases} rebases, launches "
           f"{json.dumps(launches)}", flush=True)
@@ -2643,7 +2911,7 @@ def run_live_obs(smi, failures):
     if eng.last_result is None or eng.last_result.n != len(node.hg):
         eng.flush()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     packed = eng.packer.pack()
     fin = FinalityTracker("oracle")
     record_batch_result(fin, eng.last_result)
@@ -2820,7 +3088,7 @@ def run_chaos_node(failures):
         t0 = time.perf_counter()
         verdict = sim.run()
         wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     node = sim.nodes[CHAOS_TPU_NODE]
     eng = node._tpu_engine
     pass_seconds = sum(p["seconds"] for p in passes)
@@ -2856,7 +3124,7 @@ def run_scenarios(failures):
             t0 = time.perf_counter()
             verdict = runner(tmp, engine=engine, device="cuda")
             wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = launch_counts()
         card = device_seconds(verdict)
         fields = chaos_fields(verdict, orders)
         print(f"{tag}: ok {verdict['ok']}, {wall} s: {wall - card} s host simulation, "
@@ -2917,13 +3185,12 @@ def straggler_chunks(events):
 
 def run_stragglers(dags, columns_evps, failures):
     """Phase 14(c): config 4 through ``IncrementalConsensus`` and config 3
-    through ``StreamingConsensus`` on the card, each over its first
-    ``PREFIX_EVENTS`` events fed the straggler schedule, with the checks of
-    :func:`drive_passes` against ``PREFIX_GOLDEN``.  Returns each run's
+    through ``StreamingConsensus`` on the card, each fed the straggler
+    schedule, with the checks of :func:`drive_passes`.  Returns each run's
     kernel launches."""
     out = {}
     for name, kind in STRAGGLER_RUNS.items():
-        dag = prefix_dag(dags[name])
+        dag = dags[name]
         members, stake, events = dag[:3]
         chunks, moved = straggler_chunks(events)
         print(f"stragglers {name}: {len(chunks)} chunks of {[len(c) for c in chunks]} "
@@ -3043,7 +3310,7 @@ def run_union_replays(v, oracle, union, failures):
         tag = f"cluster union replay {engine}"
         reset_launches()
         row = chaos._engines_agree(observer, engine=engine, device="cuda")
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = launch_counts()
         print(f"{tag}: {row['seconds']} s for {len(observer.order_added)} events; "
               f"{json.dumps(_no_times(row), sort_keys=True)}; launches {json.dumps(launches)}",
               flush=True)
@@ -3107,7 +3374,7 @@ def run_checker(failures):
     t0 = time.perf_counter()
     rep = chaos.replay_counterexample(doc, engine="incremental", device="cuda")
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     print(f"{tag} parity replay: {wall} s; {json.dumps(_no_times(rep), sort_keys=True)}; "
           f"launches {json.dumps(launches)}", flush=True)
     if not (rep["ok"] and rep["reproduced"] and rep["digests_match"]
@@ -3195,7 +3462,7 @@ def run_soak_replay(v, oracle, union, failures):
         failures.append(f"{tag}: the union holds no fork pair")
     reset_launches()
     row = chaos._engines_agree(observer, engine=SOAK_ENGINE, device="cuda")
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     print(f"{tag}: {row['seconds']} s for {len(observer.order_added)} events; "
           f"{json.dumps(_no_times(row), sort_keys=True)}; launches {json.dumps(launches)}",
           flush=True)
@@ -3214,7 +3481,7 @@ def run_viz(observer, failures):
     reset_launches()
     packed = pack_node(observer)
     result = run_consensus(packed, observer.config, block=64, device="cuda")
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     card_rows = viz.export_state(packed=packed, result=result)
     back = json.loads(viz.to_json(packed=packed, result=result))
     print(f"{tag}: {time.perf_counter() - t0} s; {len(rows)} rows, "
@@ -3270,7 +3537,7 @@ def run_archive_fuzz(failures):
     t0 = time.perf_counter()
     rep = races.run_archive_schedules(**ARCHIVE_FUZZ, device="cuda")
     t1 = time.perf_counter()
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     print(f"{tag}: {t1 - t0} s for {rep['schedules']} schedules on {rep['device']}; "
           f"digest {rep['digest']}, identical {rep['digests_identical']}, sync match "
           f"{rep['matches_sync']}, lock edges {rep['lock_edges']}, acyclic "
@@ -3310,7 +3577,7 @@ def run_sanitize(failures):
         t0 = time.perf_counter()
         rc = chaos_run.main([*SANITIZE_ARGS, "--device", "cuda", "--out", out])
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        launches = launch_counts()
         with open(out) as f:
             v = json.load(f)
     san = v.get("sanitizer", {})
@@ -3343,7 +3610,7 @@ def run_jit_audit(failures):
     t0 = time.perf_counter()
     rep = jit_audit.runtime_audit(engine=AUDIT_ENGINE, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = launch_counts()
     print(f"{tag}: {wall} s, the steady window {rep['steady_seconds']} s; steady "
           f"builds {rep['steady_compiles']}, drift {rep['signature_drift']}, fused span "
           f"{rep['fused_span_audited']} (fuse_chunks {rep['fuse_chunks']}); calls "
@@ -3427,7 +3694,7 @@ def run_flow_soundness(failures):
         t0 = time.perf_counter()
         rep = flow_audit.soundness_check(
             engine, device="cuda",
-            launches=lambda: {k: fn.launches for k, fn in KERNELS.items()},
+            launches=launch_counts,
         )
         launches[engine] = rep["launches"]
         observed[engine] = rep["stages"]
@@ -3441,7 +3708,7 @@ def run_flow_soundness(failures):
             failures.append(f"{tag}: {v}")
         if rep["stages"] != FLOW_STAGES[engine]:
             failures.append(f"{tag}: stages {rep['stages']} are not the CPU's")
-    total = {k: sum(per[k] for per in launches.values()) for k in KERNELS}
+    total = {k: sum(per[k] for per in launches.values()) for k in launches[FLOW_ENGINES[0]]}
     check_launches("flow soundness", total,
                    ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally"), (), failures)
     return launches, mesh_calls, pulls, observed
@@ -3630,8 +3897,9 @@ def check_group_dryrun(tag, reports, out_i, failures):
         print(f"{tag} rank {rank} ({rep['device']}): dryrun {out['events']} events, "
               f"{out['ordered']} ordered, max_round {out['max_round']}, bit-parity "
               f"with the oracle; launches {json.dumps(used)}", flush=True)
-        if used["ssm_tally"] < 1:
-            failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally")
+        if used["ssm_tally"] < 1 or used["rounds_scan"] < 1:
+            failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally or "
+                            "no rounds_scan")
 
 
 def check_group_batch(tag, reports, out_i, packed, failures):
@@ -3649,9 +3917,10 @@ def check_group_batch(tag, reports, out_i, packed, failures):
         for key, want in GOLDEN[GROUP_BATCH_CONFIG].items():
             if digests[key] != want:
                 failures.append(f"{tag} rank {rank}: {key} digest {digests[key]} != golden")
-        if used["ssm_tally"] != attempts:
-            failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally launches "
-                            f"for {attempts} attempt(s)")
+        if used["ssm_tally"] != attempts or used["rounds_scan"] < attempts:
+            failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally and "
+                            f"{used['rounds_scan']} rounds_scan launches for {attempts} "
+                            "attempt(s)")
         for kname in ("ssm_matrix", "ssm_block"):
             if used[kname]:
                 failures.append(f"{tag} rank {rank}: {kname} launched {used[kname]} times")
@@ -3741,7 +4010,8 @@ def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
         if c["repins"] or c["forked"] != (GROUP_STREAMS[name]["forkers"] > 0) or (
                 name == "smoke" and not c["pruned_prefix"]):
             failures.append(f"{tag} rank {rank} stream {name}: counters {c}")
-        if used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["ssm_block"]:
+        if (used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["rounds_scan"] < 1
+                or used["ssm_block"]):
             failures.append(f"{tag} rank {rank}: stream launches {used}")
 
 
@@ -3823,7 +4093,7 @@ def bench_call(tag, fn, *args, knobs=None, **kw):
         out, rc, detail = fn(*args, stamps=dict(STAMPS), **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in KERNELS.items()}
+    launches = launch_counts()
     print(f"{tag}: rc {rc}, {wall} s; launches {json.dumps(launches)}", flush=True)
     print(f"{tag}: {json.dumps(out)}", flush=True)
     return out, rc, detail, launches, wall
@@ -3928,6 +4198,7 @@ def main() -> int:
     t_script = time.perf_counter()
     # the golden digests were made under the simulation signer
     crypto.set_backend("sim")
+    obs._stage_call = _counting_stage_call
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -3948,11 +4219,13 @@ def main() -> int:
     g_cap = ((len(packs["config4"].fork_pairs) + 7) // 8) * 8
     bmm_rows = check_bmm_or(gen, g_cap, failures)
     slabs = {name: sees_slab(packed) for name, packed in packs.items()}
-    ssm_rows = check_ssm_block(packs, slabs, failures, config5_window())
+    c5 = config5_window()
+    ssm_rows = check_ssm_block(packs, slabs, failures, c5)
     sweep_ssm_block(failures)
     matrix_rows = check_ssm_matrix(packs, slabs, failures)
     sweep_ssm_matrix(failures)
-    del slabs
+    scan_rows = check_rounds_scan(packs, slabs, c5, failures)
+    del slabs, c5
     torch.cuda.empty_cache()
 
     # launches[path][config][kernel], from the measured runs
@@ -3965,18 +4238,15 @@ def main() -> int:
                 columns_evps[name] = evps
     launches["incremental"] = {}
     c4 = config4_observers()
-    def depth(kind, label, name):
-        return prefix_dag(dags[name]) if (kind, label) in PREFIX_RUNS else dags[name]
-
     for label, (name, fuse) in INC_RUNS.items():
         launches["incremental"][label] = run_incremental(
-            label, depth("incremental", label, name), fuse, columns_evps[name], failures,
+            label, dags[name], fuse, columns_evps[name], failures,
             c4=c4 if label == "config4" else None,
         )
     launches["streaming"], archives = {}, {}
     for name in CONFIGS:
         launches["streaming"][name], inc, archives[name] = run_streaming(
-            name, depth("streaming", name, name), columns_evps[name], failures
+            name, dags[name], columns_evps[name], failures
         )
         if name == "config3":
             launches["widen"] = {name: run_widen(inc, dags[name], failures)}
@@ -3985,14 +4255,14 @@ def main() -> int:
     launches["mesh"] = {}
     for name in CONFIGS:
         launches["mesh"][name] = run_mesh(
-            name, depth("mesh", name, name), columns_evps[name],
+            name, dags[name], columns_evps[name],
             (launches["streaming"][name], archives[name]), failures,
         )
     torch.cuda.empty_cache()
     mesh_rows, tally_row, hop_row = check_mesh_block(packs["config3"], failures)
     torch.cuda.empty_cache()
     launches["mesh_batch"] = {
-        name: run_mesh_batch(name, depth("mesh_batch", name, name)[3], failures)
+        name: run_mesh_batch(name, packs[name], failures)
         for name in CONFIGS
     }
     sharded_rows, member_tally_row, mesh_block_row = check_member_sharded(packs, failures)
@@ -4049,6 +4319,7 @@ def main() -> int:
         entry("make_mesh_row_block_fn", mesh_rows[0], mesh_rows, None),
         entry("ssm_tally", tally_row,
               [tally_row, member_tally_row, *sharded_rows, mesh_block_row], None),
+        entry("rounds_scan", scan_rows[0], scan_rows, None),
     ]}
     if failures:
         for f in failures:

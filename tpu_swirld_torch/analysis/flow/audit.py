@@ -90,8 +90,8 @@ def _mut_ssm_acc_int16(env: ScaleEnvelope):
 
 
 def _mut_dropped_clip(env: ScaleEnvelope):
-    """The rounds step's witness-table lookup (``gpu/pipeline.py``,
-    ``_make_rounds_step``) with the window-row clamp dropped: the parent
+    """The rounds step's witness-table lookup (``gpu/kernels.py``,
+    ``rounds_scan_reference``) with the window-row clamp dropped: the parent
     round reaches ``events - 1``, far past the ``r_cap``-row table — the
     unclamped ``index_select`` must be flagged (SW009)."""
     d = stages._dims(env)

@@ -12,6 +12,11 @@
 - :func:`ssm_tally` (``csrc/ssm_tally.cu``) replaces the member hops of
   ``pallas_kernels.py:make_mesh_row_block_fn``: one row shard's int32 stake
   tally of the row-sharded block, not thresholded.
+- :func:`rounds_scan` (``csrc/rounds_scan.cu``) replaces no Pallas kernel:
+  it is the reference's jitted ``lax.scan`` over ``tpu_swirld/tpu/
+  pipeline.py:_make_rounds_step`` (round assignment and witness
+  registration), one launch a span of events, as XLA runs that scan as one
+  device program a call.
 
 :func:`make_extension_kernels` bundles ``bmm_or`` and ``ssm_block`` for the
 incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does;
@@ -20,8 +25,8 @@ strongly-sees block, where ``pallas_kernels.py:make_mesh_row_block_fn`` puts
 ``bmm_or_pallas``.
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
-``ssm_block_reference``, ``ssm_matrix_reference``, ``ssm_tally_reference``)
-only for tensors on the CPU.  For CUDA tensors it
+``ssm_block_reference``, ``ssm_matrix_reference``, ``ssm_tally_reference``,
+``rounds_scan_reference``) only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
 counts the kernel launches (plain-version calls do not count), so a run can
 show that it went through the kernel.  The wrappers that take ``tot_stake``
@@ -34,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from tpu_swirld_torch.gpu import build
@@ -53,6 +59,11 @@ _ARGTYPES = {
         _VP, _VP,
     ],
     "ssm_matrix_launch": [_VP, _INT, _VP, _INT, _INT, _VP, _INT, _VP, _VP, _VP, _VP],
+    "rounds_scan_launch": [
+        _VP, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT,
+        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+        _VP,
+    ],
 }
 
 
@@ -380,6 +391,200 @@ def ssm_tally(sees_shard, member_table, stake, b, row_lo, *, rows):
 
 
 ssm_tally.launches = 0
+
+
+# ------------------------------------------------------------- rounds_scan
+
+# Witness-table overflow bitmask: a witness landed outside the retained
+# round window (OVF_ROUND) / a round's witness slots were exhausted
+# (OVF_SLOT).  The host heals the flagged capacity and retries.
+OVF_ROUND = 1
+OVF_SLOT = 2
+
+# the H100's opt-in shared memory a block, less the kernel's static words
+_RS_SMEM_LIMIT = 232448 - 64
+_RS_MAX_THREADS = 256
+
+
+def rounds_scan_route(r_max: int, s_max: int, n_members: int,
+                      has_forks: bool):
+    """Where :func:`rounds_scan`'s kernel keeps the witness table:
+    ``("shared", bytes)`` when the table, its counts and (with forks) the
+    per-member stamps fit a block's shared memory, else ``("global",
+    bytes)``, the table read and written in device memory and only the
+    stamps in shared memory.  ``bytes`` is the dynamic shared memory of the
+    launch."""
+    stamps = 4 * n_members if has_forks else 0
+    shared = stamps + 4 * (r_max * s_max + r_max)
+    if shared <= _RS_SMEM_LIMIT:
+        return "shared", shared
+    if stamps > _RS_SMEM_LIMIT:
+        raise ValueError(f"rounds_scan: {n_members} members' stamps exceed a block's shared memory")
+    return "global", stamps
+
+
+def rounds_scan_reference(parents, ssm_rows, col_pos, creator, stake, rnd,
+                          wits, tab, cnt, overflow, *, start, n_valid, r_base,
+                          tot_stake, has_forks):
+    """Plain version: the reference's per-event step
+    (``tpu_swirld/tpu/pipeline.py:_make_rounds_step``), one event after
+    another, the carry updated in place.  Parents are host data, so genesis
+    and padding are decided on the host; everything that depends on earlier
+    rounds stays in tensors."""
+    parents_np = parents if isinstance(parents, np.ndarray) else parents.numpy()
+    n = rnd.shape[0]
+    n_cols = ssm_rows.shape[1]
+    r_max, s_max = tab.shape
+    dev = rnd.device
+    marange = torch.arange(stake.shape[0], dtype=torch.int64, device=dev)
+    round0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    witness = torch.ones((1,), dtype=torch.bool, device=dev)
+    for i in range(start, start + ssm_rows.shape[0]):
+        if i >= n_valid:    # padding: round 0, never a witness
+            rnd[i] = 0
+            wits[i] = False
+            continue
+        p1, p2 = int(parents_np[i, 0]), max(int(parents_np[i, 1]), 0)
+        if p1 < 0:          # genesis: round 0 and a witness
+            r, is_wit = round0, witness
+        else:
+            r0 = torch.maximum(rnd[p1 : p1 + 1], rnd[p2 : p2 + 1])
+            r0w = r0 - r_base if r_base else r0                    # window row
+            r0c = r0w.clamp(0, r_max - 1)
+            widx = tab.index_select(0, r0c)[0]                     # S
+            wvalid = (widx >= 0) & (r0c == r0w)                    # row in window
+            widxc = widx.clamp(0, n - 1)
+            if col_pos is None:
+                ss = ssm_rows[i - start].index_select(0, widxc) & wvalid   # S
+            else:
+                wpos = col_pos.index_select(0, widxc)                # S (-1 = absent)
+                ss = (
+                    ssm_rows[i - start].index_select(0, wpos.clamp(0, n_cols - 1))
+                    & (wpos >= 0)
+                    & wvalid
+                )
+            wcre = creator.index_select(0, widxc)
+            if has_forks:
+                contrib = ((wcre[:, None] == marange[None, :]) & ss[:, None]).any(0)
+                amount = (stake * contrib).sum()
+            else:
+                # no forks packed -> at most one witness per (creator, round)
+                amount = (stake.index_select(0, wcre) * ss).sum()
+            r = r0 + (3 * amount > 2 * tot_stake)
+            is_wit = r > rnd[p1 : p1 + 1]
+        rw = r - r_base if r_base else r
+        rc = rw.clamp(0, r_max - 1)
+        in_window = rc == rw                                       # 0 <= rw < r_max
+        slot = cnt.index_select(0, rc)
+        overflow |= torch.where(is_wit & ~in_window, OVF_ROUND, 0).to(torch.int32)
+        overflow |= torch.where(is_wit & (slot >= s_max), OVF_SLOT, 0).to(torch.int32)
+        do = is_wit & (slot < s_max) & in_window
+        flat = rc * s_max + slot.clamp(0, s_max - 1)
+        tab_flat = tab.view(-1)
+        tab_flat.index_put_((flat,), torch.where(do, i, tab_flat.index_select(0, flat)))
+        cnt.index_add_(0, rc, do.to(torch.int32))
+        rnd[i : i + 1] = r
+        wits[i : i + 1] = is_wit
+
+
+def _span_parents(parents, start: int, length: int, dev: torch.device):
+    """The span's parent rows as a contiguous int32 ``(length, 2)`` tensor
+    on ``dev``: a view of a tensor already there, else host rows staged in
+    pinned memory and copied without waiting for the card."""
+    if isinstance(parents, torch.Tensor) and parents.device == dev:
+        _check(parents, "parents", torch.int32, 2)
+        return parents[start : start + length].contiguous()
+    rows = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(parents)[start : start + length], dtype=np.int32))
+    return rows.pin_memory().to(dev, non_blocking=True)
+
+
+def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
+                cnt, overflow, *, start, n_valid, r_base, tot_stake,
+                has_forks):
+    """The rounds scan over events ``[start, start + L)``, ``L =
+    ssm_rows.shape[0]``, resumed from the carry ``(rnd, wits, tab, cnt,
+    overflow)`` and updated in place, exactly as the reference's scan over
+    ``_make_rounds_step``: genesis events get round 0 and are witnesses,
+    events at or past ``n_valid`` round 0 and are not; otherwise ``r0 =
+    max(rnd[p1], rnd[p2])``, the witnesses of table row ``r0 - r_base`` that
+    the event strongly sees add their stake (per member with forks), and a
+    strict 2/3 promotes it; witnesses land in slot ``cnt[row]`` in event
+    order, ``OVF_ROUND`` / ``OVF_SLOT`` ORed into ``overflow``.
+
+    ``parents`` int32 ``(>= start + L, 2)`` rows by event, on the host (a
+    numpy array or CPU tensor) or on the tensors' device; ``ssm_rows`` bool
+    ``(L, C)``, the span's rows of the strongly-sees store, whose columns
+    are events when ``col_pos`` is None (``C == n``) and otherwise the
+    column store's, ``col_pos`` int32 ``(n,)`` mapping an event to its
+    column (-1 = absent); ``creator`` int32 ``(n,)``; ``stake`` int32
+    ``(M,)`` summing to ``tot_stake``; ``rnd`` int32 ``(n,)`` (global
+    rounds), ``wits`` bool ``(n,)``, ``tab`` int32 ``(r_max, s_max)`` (row
+    ``k`` is round ``r_base + k``), ``cnt`` int32 ``(r_max,)``, ``overflow``
+    int32 ``(1,)``.  On the card one launch and no allocation but the
+    span's parents when they come from the host."""
+    _check(ssm_rows, "ssm_rows", torch.bool, 2)
+    _check(creator, "creator", torch.int32, 1)
+    _check(stake, "stake", torch.int32, 1)
+    _check(rnd, "rnd", torch.int32, 1)
+    _check(wits, "wits", torch.bool, 1)
+    _check(tab, "tab", torch.int32, 2)
+    _check(cnt, "cnt", torch.int32, 1)
+    _check(overflow, "overflow", torch.int32, 1)
+    length, n_cols = ssm_rows.shape
+    n = rnd.shape[0]
+    r_max, s_max = tab.shape
+    n_members = stake.shape[0]
+    start, n_valid, r_base = int(start), int(n_valid), int(r_base)
+    if col_pos is not None:
+        _check(col_pos, "col_pos", torch.int32, 1)
+        if col_pos.shape[0] != n:
+            raise ValueError(f"rounds_scan: col_pos has {col_pos.shape[0]} events, not n = {n}")
+    elif n_cols != n:
+        raise ValueError(f"rounds_scan: the full matrix's rows have {n_cols} columns, not n = {n}")
+    if wits.shape[0] != n or creator.shape[0] != n:
+        raise ValueError("rounds_scan: rnd, wits and creator disagree on n")
+    if cnt.shape[0] != r_max or overflow.shape[0] != 1:
+        raise ValueError("rounds_scan: cnt must be (r_max,) and overflow (1,)")
+    if min(n_cols, r_max, s_max, n_members) < 1:
+        raise ValueError("rounds_scan: empty columns, witness table or stake")
+    if start < 0 or start + length > n:
+        raise ValueError(f"rounds_scan: events [{start}, {start + length}) outside [0, {n})")
+    if tuple(parents.shape[1:]) != (2,) or parents.shape[0] < start + length:
+        raise ValueError(f"rounds_scan: parents of shape {tuple(parents.shape)} do not "
+                         f"cover events [{start}, {start + length})")
+    tot_stake = check_stake_envelope(tot_stake)
+    tensors = [ssm_rows, creator, stake, rnd, wits, tab, cnt, overflow]
+    if col_pos is not None:
+        tensors.append(col_pos)
+    if _on_cpu(*tensors):
+        rounds_scan_reference(
+            parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab, cnt,
+            overflow, start=start, n_valid=n_valid, r_base=r_base,
+            tot_stake=tot_stake, has_forks=has_forks,
+        )
+        return
+    if length == 0:
+        return
+    dev = rnd.device
+    route, smem = rounds_scan_route(r_max, s_max, n_members, has_forks)
+    width = max(s_max, n_members if has_forks else 1)
+    threads = min(_RS_MAX_THREADS, (width + 31) // 32 * 32)
+    par = _span_parents(parents, start, length, dev)
+    err = _launch(
+        dev, _c_function("rounds_scan", "rounds_scan_launch"),
+        par.data_ptr(), ssm_rows.data_ptr(), n_cols,
+        None if col_pos is None else col_pos.data_ptr(), creator.data_ptr(),
+        stake.data_ptr(), n_members, rnd.data_ptr(), wits.data_ptr(),
+        tab.data_ptr(), cnt.data_ptr(), overflow.data_ptr(), n, r_max, s_max,
+        start, length, n_valid, r_base, tot_stake, int(bool(has_forks)),
+        int(route == "shared"), threads, smem,
+    )
+    _raise_on(err, "rounds_scan")
+    rounds_scan.launches += 1
+
+
+rounds_scan.launches = 0
 
 
 # ------------------------------------------------------- extension bundle

@@ -26,8 +26,10 @@ sees (:func:`visibility_stage`), every boolean hop through
 :func:`~tpu_swirld_torch.gpu.kernels.bmm_or`, :func:`fame_scan`,
 :func:`order_scan` and host :func:`finalize_order`.
 
-JAX's scans become Python loops over tensor ops on the device, and the
-buffers JAX donated (the ancestry slab, the column store, the rounds carry)
+JAX's scans become Python loops over tensor ops on the device, except the
+rounds scan, which the reference jits as one device program a call and the
+port runs as one :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` launch a
+stage call.  The buffers JAX donated (the ancestry slab, the column store, the rounds carry)
 are updated in place.  Every gather index is clipped exactly where the
 reference clips it.  All supermajorities are exact integer tests
 ``3*amount > 2*total``; timestamps are dense-ranked on the host so the
@@ -53,11 +55,10 @@ from tpu_swirld_torch.packing import PackedDAG
 
 INT32_MAX = kernels.INT32_MAX
 
-# Witness-table overflow bitmask: a witness landed outside the retained
-# round window (OVF_ROUND) / a round's witness slots were exhausted
-# (OVF_SLOT).  The host heals the flagged capacity and retries.
-OVF_ROUND = 1
-OVF_SLOT = 2
+# Witness-table overflow bitmask (kernels.OVF_ROUND / OVF_SLOT): the host
+# heals the flagged capacity and retries.
+OVF_ROUND = kernels.OVF_ROUND
+OVF_SLOT = kernels.OVF_SLOT
 
 
 def _maybe_span(o, name: str, **args):
@@ -218,79 +219,6 @@ def _suffix_rows(row_hi: int, row_lo: int, cap: int):
     return max(0, row_hi - rows), rows
 
 
-def _make_rounds_step(parents_np, ssm_c, col_pos, creator, stake, tot_stake,
-                      n_valid, *, r_max, s_max, has_forks, r_base=0):
-    """The per-event body of the rounds scan over the carry
-    ``(rnd[N], wits[N], wit_table, wit_count, overflow[1])``, updated in
-    place.  Parents are host data, so genesis and padding are decided on
-    the host; everything that depends on earlier rounds stays on the device.
-    With ``col_pos=None`` ``ssm_c`` is the full (N, N) matrix; otherwise it
-    is the column store and ``col_pos`` maps an event to its column (-1 =
-    absent).
-
-    ``rnd`` holds global rounds; witness-table row ``k`` is round ``r_base +
-    k`` (``r_base`` is 0 on the batch path, the incremental driver's window
-    base otherwise).  A witness landing outside the window, a straggler
-    below ``r_base`` included, sets OVF_ROUND; a full slot row OVF_SLOT.
-    """
-    n = ssm_c.shape[0]
-    n_cols = ssm_c.shape[1]
-    dev = ssm_c.device
-    marange = torch.arange(stake.shape[0], dtype=torch.int64, device=dev)
-    round0 = torch.zeros((1,), dtype=torch.int32, device=dev)
-    witness = torch.ones((1,), dtype=torch.bool, device=dev)
-
-    def step(carry, i: int):
-        rnd, wits, tab, cnt, overflow = carry
-        if i >= n_valid:    # padding: round 0, never a witness
-            rnd[i] = 0
-            wits[i] = False
-            return
-        p1, p2 = int(parents_np[i, 0]), max(int(parents_np[i, 1]), 0)
-        if p1 < 0:          # genesis: round 0 and a witness
-            r, is_wit = round0, witness
-        else:
-            r0 = torch.maximum(rnd[p1 : p1 + 1], rnd[p2 : p2 + 1])
-            r0w = r0 - r_base if r_base else r0                    # window row
-            r0c = r0w.clamp(0, r_max - 1)
-            widx = tab.index_select(0, r0c)[0]                     # S
-            wvalid = (widx >= 0) & (r0c == r0w)                    # row in window
-            widxc = widx.clamp(0, n - 1)
-            if col_pos is None:
-                ss = ssm_c[i].index_select(0, widxc) & wvalid        # S
-            else:
-                wpos = col_pos.index_select(0, widxc)                # S (-1 = absent)
-                ss = (
-                    ssm_c[i].index_select(0, wpos.clamp(0, n_cols - 1))
-                    & (wpos >= 0)
-                    & wvalid
-                )
-            wcre = creator.index_select(0, widxc)
-            if has_forks:
-                contrib = ((wcre[:, None] == marange[None, :]) & ss[:, None]).any(0)
-                amount = (stake * contrib).sum()
-            else:
-                # no forks packed -> at most one witness per (creator, round)
-                amount = (stake.index_select(0, wcre) * ss).sum()
-            r = r0 + (3 * amount > 2 * tot_stake)
-            is_wit = r > rnd[p1 : p1 + 1]
-        rw = r - r_base if r_base else r
-        rc = rw.clamp(0, r_max - 1)
-        in_window = rc == rw                                       # 0 <= rw < r_max
-        slot = cnt.index_select(0, rc)
-        overflow |= torch.where(is_wit & ~in_window, OVF_ROUND, 0).to(torch.int32)
-        overflow |= torch.where(is_wit & (slot >= s_max), OVF_SLOT, 0).to(torch.int32)
-        do = is_wit & (slot < s_max) & in_window
-        flat = rc * s_max + slot.clamp(0, s_max - 1)
-        tab_flat = tab.view(-1)
-        tab_flat.index_put_((flat,), torch.where(do, i, tab_flat.index_select(0, flat)))
-        cnt.index_add_(0, rc, do.to(torch.int32))
-        rnd[i : i + 1] = r
-        wits[i : i + 1] = is_wit
-
-    return step
-
-
 def rounds_scan(parents, ssm, creator, stake, tot_stake, n_valid, *, r_max,
                 s_max, has_forks):
     """Round assignment + witness registration over the full strongly-sees
@@ -310,8 +238,10 @@ def rounds_scan_stage(parents_np, ssm, creator, stake, tot_stake, n_valid, *,
                       r_max, s_max, has_forks):
     """:func:`rounds_scan` with its parents already on the host (int32[N,
     2]) and ``n_valid`` an int, as :func:`rounds_chunk_stage` takes them:
-    the full path's rounds stage, which waits for no value on the card."""
-    n = parents_np.shape[0]
+    the full path's rounds stage.  The whole scan is one
+    :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` call (one launch on
+    the card, which copies the parents over without waiting for it)."""
+    n = ssm.shape[0]
     dev = ssm.device
     carry = (
         torch.zeros((n,), dtype=torch.int32, device=dev),
@@ -320,12 +250,10 @@ def rounds_scan_stage(parents_np, ssm, creator, stake, tot_stake, n_valid, *,
         torch.zeros((r_max,), dtype=torch.int32, device=dev),
         torch.zeros((1,), dtype=torch.int32, device=dev),
     )
-    step = _make_rounds_step(
-        parents_np, ssm, None, creator, stake, tot_stake, n_valid,
-        r_max=r_max, s_max=s_max, has_forks=has_forks,
+    kernels.rounds_scan(
+        parents_np, ssm, None, creator, stake, *carry, start=0,
+        n_valid=n_valid, r_base=0, tot_stake=tot_stake, has_forks=has_forks,
     )
-    for i in range(n):
-        step(carry, i)
     return carry
 
 
@@ -333,17 +261,23 @@ def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
                        rnd, wits, tab, cnt, overflow, start, r_base=0, *,
                        tot_stake, r_max, s_max, has_forks, chunk):
     """One chunk of the rounds scan: events [start, start+chunk) resume from
-    the carried (rnd, wits, tab, cnt, overflow) state.  ``r_base`` maps
-    global rounds to witness-table rows (0 on the batch path).  The carry is
-    copied first and the copy updated in place, so the caller can re-run the
-    chunk from the same state."""
-    carry = tuple(x.clone() for x in (rnd, wits, tab, cnt, overflow))
-    step = _make_rounds_step(
-        parents_np, ssm_c, col_pos, creator, stake, tot_stake, n_valid,
-        r_max=r_max, s_max=s_max, has_forks=has_forks, r_base=r_base,
+    the carried (rnd, wits, tab, cnt, overflow) state, as one
+    :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` call over the chunk's
+    rows of ``ssm_c`` (one launch on the card).  ``r_base`` maps global
+    rounds to witness-table rows (0 on the batch path).  The carry is
+    copied first and the copy updated in place, so the caller can re-run
+    the chunk from the same state."""
+    _shape_guard(
+        tuple(tab.shape) == (r_max, s_max) and ssm_c.shape[0] == rnd.shape[0],
+        f"rounds_chunk_stage: table {tuple(tab.shape)} is not ({r_max}, {s_max}) "
+        f"or the store's {ssm_c.shape[0]} rows are not the carry's {rnd.shape[0]}",
     )
-    for i in range(start, start + chunk):
-        step(carry, i)
+    carry = tuple(x.clone() for x in (rnd, wits, tab, cnt, overflow))
+    kernels.rounds_scan(
+        parents_np, ssm_c[start : start + chunk], col_pos, creator, stake,
+        *carry, start=start, n_valid=n_valid, r_base=r_base,
+        tot_stake=tot_stake, has_forks=has_forks,
+    )
     return carry
 
 

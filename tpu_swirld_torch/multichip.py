@@ -48,7 +48,8 @@ import torch
 
 from tpu_swirld_torch.device import resolve_device
 
-KERNEL_NAMES = ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally", "make_mesh_row_block_fn")
+KERNEL_NAMES = ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally", "make_mesh_row_block_fn",
+                "rounds_scan")
 
 
 class RankFailure(RuntimeError):

@@ -371,9 +371,9 @@ class RowGather:
     block writes, ``rounds_chunk_stage``, ``fame_scan``, ``order_scan``)
     runs over a rank's shard unchanged: ``shape`` and ``device`` are the
     whole slab's.  A read gathers its rows on every rank
-    (:func:`gather_rows`): ``g[idx]`` (an index tensor), ``g[a:b]``, and
+    (:func:`gather_rows`): ``g[idx]`` (an index tensor), and ``g[a:b]`` or
     ``g[i]`` (an int) from the rows ``prefetch`` (``(start, stop)``)
-    gathered at once, else one gather.  A write ``g[a:b] = block`` or
+    gathered at once when they hold them, else one gather.  A write ``g[a:b] = block`` or
     ``g[a:b, c:d] = block`` (every rank's same values) lands in the rows
     this rank owns, in place (:func:`owner_write`).  Every rank must read
     and write the same rows in the same order, as every rank runs the same
@@ -404,6 +404,9 @@ class RowGather:
             return gather_rows(self.mesh, self.shard, idx)[0]
         if isinstance(idx, slice):
             start, stop = self._span(idx)
+            lo = start - self._lo
+            if self._rows is not None and 0 <= lo and stop - self._lo <= self._rows.shape[0]:
+                return self._rows[lo : stop - self._lo]
             idx = torch.arange(start, stop, dtype=torch.int64, device=self.device)
         if not isinstance(idx, torch.Tensor):
             raise TypeError(f"a row view reads rows by int, slice or tensor, not {idx!r}")
