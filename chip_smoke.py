@@ -46,9 +46,25 @@
    over events, so its rows also print ``ns_per_event`` (``card_ms`` over
    the span's events; each timed call restores the carry first; ``ms``
    and ``host_us`` take the parents from the host, as the stages do,
-   ``card_ms`` from the card).  From
-   phase 4 on, every rounds-stage call on the card (``ROUNDS_STAGES``)
-   must launch ``rounds_scan`` exactly once (:func:`check_launches`).
+   ``card_ms`` from the card).  ``order_scan`` (round received, timestamp
+   rank and received flags exactly): the full path's order scan over the
+   config-3 and config-4 DAGs (N 10 112, config 4 with non-uniform stake),
+   the incremental driver's window over config 3 (its last call over 5
+   ingests of 2 000 that carries received events, has ``r_base`` > 0 and
+   receives in two rounds or more), config 5's first ``C5_ORDER_EVENTS``
+   events (256 members), and small random shapes
+   (forks, emptied witness slots, ``chain`` cut short, received flags,
+   padding past ``n_valid``); an output in which nothing is received, or
+   every received event in one round, fails.  Its bound is bytes: the
+   bytes these inputs need, each read once (``OrderCase.nbytes``: of
+   ``anc`` only the cells the receipts and walks must test); its rows print
+   ``ms``, ``card_ms`` (the wrapper: the plan's device ops and the
+   launch), ``plan_card_ms`` (the plan alone, timed in turn with the
+   wrapper), ``launch_card_ms`` (their difference), ``host_us`` and
+   ``ns_per_event``.  From phase 4 on, every
+   rounds-stage call on the card (``ROUNDS_STAGES``) must launch
+   ``rounds_scan`` exactly once and every order-stage call
+   (``ORDER_STAGES``) ``order_scan`` exactly once (:func:`check_launches`).
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
@@ -324,7 +340,7 @@
    the card.  Each mode's JSON line is printed; ``bmm_or`` and ``ssm_block``
    must launch in each but ``--churn`` (a host replay and the repacks), and
    ``ssm_matrix`` in none.
-21. A ``{"kernels": [...]}`` line (all six routes, every kernel's launches
+21. A ``{"kernels": [...]}`` line (all seven entries, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
    ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
@@ -373,7 +389,10 @@ from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock
 from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
-from tpu_swirld_torch.gpu.pipeline import prepare_inputs, run_consensus, visibility_stage
+from tpu_swirld_torch.gpu import incremental as inc_mod
+from tpu_swirld_torch.gpu.pipeline import (
+    fame_scan, prepare_inputs, run_consensus, visibility_stage,
+)
 from tpu_swirld_torch.membership.sim import churn_schedule
 from tpu_swirld_torch.net import cluster as net_cluster
 from tpu_swirld_torch.metrics import node_gauges, trace_consensus
@@ -466,6 +485,12 @@ KERNEL_INFO = {
     "rounds_scan": {
         "source": "tpu_swirld_torch/gpu/csrc/rounds_scan.cu",
         "replaces": "tpu_swirld/tpu/pipeline.py:301",
+    },
+    # no Pallas kernel: the jitted lax.scan of order_scan (round received and
+    # consensus timestamps), one device program a stage call in the reference
+    "order_scan": {
+        "source": "tpu_swirld_torch/gpu/csrc/order_scan.cu",
+        "replaces": "tpu_swirld/tpu/pipeline.py:497",
     },
 }
 MESH_SHARDS = 2
@@ -729,6 +754,9 @@ C5_MEMBERS = 256
 C5_WINDOW = 16384
 C5_BLOCK = {"row0": 14336, "rows": 2048, "cols": 768, "live": 678,
             "col_range": (8192, 14336)}
+# the order scan's config-5 shape: two windows' worth of its stream, where
+# fame completes several rounds (one window completes one)
+C5_ORDER_EVENTS = 2 * C5_WINDOW
 # The JAX reference's verdicts (tpu_swirld.chaos / tpu_swirld.adversary on
 # the CPU, sim signer) of phase 14's legs, as chaos_fields gives them: every
 # section without wall times or the flight recorder's path, plus the SHA-256
@@ -966,36 +994,47 @@ class ViewSpillArchive(races.SanitizedArchive):
         return added
 
 
-# The rounds stages, and the calls of them on the card since the last
-# reset_launches: each must launch rounds_scan exactly once.  Counted at the
-# stage seam (obs._stage_call, through which every StageClock and
-# obs.stage_call dispatch passes), whatever stage observer a phase installs.
+# The rounds stages and the order stages, and the calls of them on the card
+# since the last reset_launches: each rounds-stage call must launch
+# rounds_scan exactly once, each order-stage call order_scan.  Counted at
+# the stage seam (obs._stage_call, through which every StageClock and
+# obs.stage_call dispatch passes), whatever stage observer a phase
+# installs; the argument whose device decides is the scan's rows (rounds)
+# or the ancestry slab (order, a group rank's row view included).
 ROUNDS_STAGES = ("pipeline.rounds_scan_stage", "pipeline.rounds_chunk_stage",
                  "pipeline.rounds_span_stage")
-ROUNDS_CALLS = 0
+ORDER_STAGES = ("pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
+                "pipeline.inc_order")
+STAGE_CALLS = {"rounds_stage_calls": 0, "order_stage_calls": 0}
 _OBS_STAGE_CALL = obs._stage_call
 
 
+def _on_card(x) -> bool:
+    return getattr(getattr(x, "device", None), "type", "") == "cuda"
+
+
 def _counting_stage_call(name, fused_chunks, fn, args, kw, device):
-    global ROUNDS_CALLS
-    if name in ROUNDS_STAGES and getattr(getattr(args[1], "device", None), "type", "") == "cuda":
-        ROUNDS_CALLS += 1
+    if name in ROUNDS_STAGES and _on_card(args[1]):
+        STAGE_CALLS["rounds_stage_calls"] += 1
+    if name in ORDER_STAGES and _on_card(args[0]):
+        STAGE_CALLS["order_stage_calls"] += 1
     return _OBS_STAGE_CALL(name, fused_chunks, fn, args, kw, device)
 
 
 def reset_launches():
-    """Set every kernel's launch count, and the rounds-stage calls, to 0."""
-    global ROUNDS_CALLS
+    """Set every kernel's launch count, and the rounds- and order-stage
+    calls, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
-    ROUNDS_CALLS = 0
+    for k in STAGE_CALLS:
+        STAGE_CALLS[k] = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count, and the rounds-stage calls on the card
-    (``rounds_stage_calls``), since the last :func:`reset_launches`."""
-    return {**{k: fn.launches for k, fn in KERNELS.items()},
-            "rounds_stage_calls": ROUNDS_CALLS}
+    """Every kernel's launch count, and the rounds- and order-stage calls on
+    the card (``rounds_stage_calls``, ``order_stage_calls``), since the last
+    :func:`reset_launches`."""
+    return {**{k: fn.launches for k, fn in KERNELS.items()}, **STAGE_CALLS}
 
 
 def result_digests(packed, result) -> dict:
@@ -1073,24 +1112,39 @@ def card_ms(fn, reps: int = 50) -> float:
     """Milliseconds of ``fn`` on the card alone: one call captured into a
     CUDA graph, the graph replayed ``reps`` times between two events, so no
     host work lies between the launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    return card_ms_each([fn], reps, 1)[0]
+
+
+def card_ms_each(fns, reps: int = 10, rounds: int = 7) -> list:
+    """:func:`card_ms` of each of ``fns``, each captured once: the graphs
+    replayed in turn, ``reps`` at a time, ``rounds`` times, and the median
+    of each one's rounds, so that the functions are timed under the same
+    clocks and one slow round moves no median."""
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
         graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    times = [[] for _ in graphs]
+    for _ in range(rounds):
+        for graph, out in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                graph.replay()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / reps)
+    return [float(np.median(t)) for t in times]
 
 
 def bound_ms(nbytes: float, and_products: float):
@@ -1693,16 +1747,249 @@ def check_rounds_scan(packs, slabs, c5, failures):
     return rows
 
 
+@dataclasses.dataclass
+class OrderCase:
+    """One ``order_scan`` call: its tensors (``anc``, the witness table and
+    counts, ``famous``, ``creator``, ``self_parent``, ``t_rank``), its host
+    ints and the received flags it resumes from (never written)."""
+    label: str
+    tensors: tuple
+    max_round: int
+    n_valid: int
+    chain: int
+    received0: object = None
+
+    def run(self, fn):
+        return fn(*self.tensors, self.max_round, self.n_valid, chain=self.chain,
+                  received0=self.received0)
+
+    def nbytes(self, rr) -> int:
+        """The bytes the order scan must move on these inputs, given the
+        rounds ``rr`` it received them in, each read once: of ``anc``, for
+        an event tested in a receiving round and not received there one
+        byte (a witness that does not see it), for an event received there
+        the bytes of each unique famous witness's walk (the witness's own,
+        then each self-ancestor's down to the first that does not see the
+        event, genesis or ``chain`` steps), the cells read by two rounds
+        counted once; ``self_parent`` and ``t_rank`` (int32) at each walked
+        self-ancestor that sees; the table (int32), counts, fame (int8)
+        and creators at the table's slots (int32) for the plan; the
+        received flags in and out and the two int32 outputs.  Each of those
+        bytes costs a compare or two, so at the card's scalar peak the
+        operations never bound it."""
+        anc, tab, cnt, famous, creator, self_parent, _t_rank = self.tensors
+        n = anc.shape[0]
+        r_max, s_max = tab.shape
+        dev = anc.device
+        ufw_ev, nv = kernels._order_plan(tab, cnt, famous, creator, self.max_round, n)
+        pending = torch.arange(n, device=dev) < self.n_valid
+        if self.received0 is not None:
+            pending &= ~self.received0
+        touched = torch.zeros_like(anc)
+        walked = torch.zeros((n,), dtype=torch.bool, device=dev)
+        for r, k in enumerate(nv.tolist()):
+            if k == 0:
+                continue
+            w = ufw_ev[r, :k].long()
+            newly = pending & (rr == r)
+            cols = (pending & ~newly).nonzero().squeeze(1)
+            first = (~anc[w][:, cols]).to(torch.int8).argmax(dim=0)
+            touched[w[first], cols] = True
+            if self.chain == 0:             # the all-see test alone
+                touched[w] |= newly
+            alive, cur = newly.expand(k, n).clone(), w
+            for _ in range(self.chain):     # chains of distinct creators: rows distinct
+                if not bool(alive.any()):
+                    break
+                touched[cur] |= alive
+                alive &= anc[cur]
+                walked[cur[alive.any(dim=1)]] = True
+                nxt = self_parent[cur].long()
+                alive &= (nxt >= 0)[:, None]
+                cur = torch.where(nxt >= 0, nxt, cur)
+            pending &= ~newly
+        return (int(touched.sum()) + 8 * int(walked.sum()) + 9 * r_max * s_max
+                + 4 * r_max + (n if self.received0 is not None else 0) + 9 * n)
+
+
+def order_batch_case(label, packed, stake_np, n_members, dev="cuda", chain=None):
+    """The order scan of a whole padded DAG as the full path runs it: the
+    ancestry slab and sees from ``visibility_stage``, the strongly-sees
+    matrix from ``ssm_matrix``, the rounds scan's table cut to its used
+    slots and rounds (the columns pass's ``r_tight``), fame from
+    ``fame_scan`` on the full matrix."""
+    dev = torch.device(dev)
+    arrays, statics, _ts = prepare_inputs(packed, block=128)
+    parents = torch.as_tensor(arrays["parents"], device=dev)
+    creator = torch.as_tensor(arrays["creator"], device=dev)
+    anc, sees = visibility_stage(parents, creator,
+                                 torch.as_tensor(packed.fork_pairs, device=dev),
+                                 n_members=n_members, block=128)
+    scan = full_scan_case(label, packed, sees, stake_np, n_members)
+    rnd, _w, tab, cnt, _o = scan.run(kernels.rounds_scan, parents)
+    n = packed.n
+    max_round = int(rnd[:n].max())
+    r_tight = min(tab.shape[0], ((max_round + 3 + 7) // 8) * 8)
+    s_used = max(int(cnt[:r_tight].max()), 1)
+    tab = tab[:r_tight, :s_used].contiguous()
+    famous, _dec = fame_scan(
+        tab, sees, scan.ssm_rows, creator, torch.as_tensor(arrays["coin"], device=dev),
+        scan.stake, scan.tot, SwirldConfig(n_members=n_members).coin_period,
+        has_forks=scan.has_forks,
+    )
+    return OrderCase(label, (anc, tab, cnt[:r_tight].contiguous(), famous, creator,
+                             parents[:, 0].contiguous(),
+                             torch.as_tensor(arrays["t_rank"], device=dev)),
+                     max_round, n, statics["chain"] if chain is None else chain)
+
+
+def captured_order_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
+    """The last ``order_scan`` call of the incremental driver (on the card,
+    the reference defaults) over the first ``n_chunks`` ingests of
+    ``chunk`` events whose window carries received events, has moved past
+    round 0 (``r_base`` > 0) and receives in two rounds or more: the
+    window's ancestry slab, its table in the window's round frame,
+    ``chain`` the driver's cap."""
+    members, stake, events = dag[:3]
+    inc = IncrementalConsensus(members, stake, SwirldConfig(n_members=len(members)),
+                               device=dev)
+    real, calls = inc_mod.order_scan, []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        r0, rr = kw.get("received0"), out[0][out[0] >= 0]
+        if (inc._r_base > 0 and r0 is not None and bool(r0.any()) and rr.numel()
+                and int(rr.min()) < int(rr.max())):
+            calls.append((inc._r_base, [a.contiguous().clone() if isinstance(a, torch.Tensor)
+                                        else a for a in args], dict(kw)))
+        return out
+
+    inc_mod.order_scan = record             # order_window_stage's order scan
+    try:
+        for i in range(n_chunks):
+            inc.ingest(events[i * chunk : (i + 1) * chunk])
+    finally:
+        inc_mod.order_scan = real
+    r_base, args, kw = calls[-1]
+    return OrderCase(f"{label}, r_base {r_base}", tuple(args[:7]), int(args[7]),
+                     int(args[8]), kw["chain"], kw["received0"].clone())
+
+
+def random_order_cases(dev="cuda"):
+    """Small DAGs of the port's generator (a fork-free one and one with two
+    forkers), perturbed: witness slots emptied at random (-1), a
+    ``chain`` cut to 3 steps, received flags carried in at random and
+    events past a lowered ``n_valid``."""
+    out = []
+    for seed, (m, n_events, forkers, holes, chain, recv, cut) in enumerate([
+        (5, 500, 0, 0.0, 3, 0.0, 0),
+        (7, 700, 2, 0.15, None, 0.1, 9),
+        (7, 700, 2, 0.0, 2, 0.3, 0),
+        (9, 900, 1, 0.1, None, 0.0, 40),
+    ]):
+        members, stake, events, _keys = generate_gossip_dag(
+            m, n_events, seed=seed + 1, n_forkers=forkers, fork_prob=0.1)
+        packed = pack_events(events, members, stake)
+        case = order_batch_case("", packed, packed.stake, m, dev=dev, chain=chain)
+        rng = np.random.default_rng(seed)
+        tensors = list(case.tensors)
+        tab = tensors[1].cpu().numpy()
+        tab[rng.random(tab.shape) < holes] = -1
+        tensors[1] = torch.as_tensor(tab, device=dev)
+        n = tensors[0].shape[0]
+        received0 = (torch.as_tensor(rng.random(n) < recv, device=dev) if recv else None)
+        out.append(dataclasses.replace(
+            case, label=f"random {m} members, {forkers} forkers, {holes} of slots "
+            f"emptied, chain {case.chain}, received0 {recv}, n_valid - {cut}",
+            tensors=tuple(tensors), n_valid=case.n_valid - cut, received0=received0))
+    return out
+
+
+def check_order_scan(dags, packs, failures):
+    """``order_scan`` against its plain version on the card, all three
+    outputs exactly.  Fixed shapes: the full path's order scan over config
+    3's and config 4's whole padded DAGs (N = 10 112), the incremental
+    driver's window over config 3 (received flags carried in, ``r_base``
+    > 0) and config 5's first ``C5_ORDER_EVENTS`` events (256 members).  Then small random shapes
+    (:func:`random_order_cases`).  Each fixed shape is timed beside its
+    plain version and its bound (:meth:`OrderCase.nbytes`); an output in
+    which nothing is received, or every received event in one round,
+    fails: it could not tell a wrong kernel."""
+    members, stake, _keys, chunks = stream_gossip_dag(C5_MEMBERS, C5_ORDER_EVENTS, 2048,
+                                                      seed=SEED)
+    c5_packed = pack_events([ev for chunk in chunks for ev in chunk], members, stake)
+    fixed = [
+        order_batch_case("config3 full N=10112", packs["config3"],
+                         packs["config3"].stake, N_MEMBERS),
+        order_batch_case("config4 full N=10112", packs["config4"],
+                         packs["config4"].stake, N_MEMBERS),
+        captured_order_case("config3 incremental window", dags["config3"], 5, chunk=2000),
+        order_batch_case(f"config5 first {C5_ORDER_EVENTS} events", c5_packed,
+                         c5_packed.stake, C5_MEMBERS),
+    ]
+    rows = []
+    for case, timed in [(c, True) for c in fixed] + [(c, False) for c in random_order_cases()]:
+        got = case.run(kernels.order_scan)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = case.run(kernels.order_scan_reference)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        rr = want[0]
+        newly = rr[rr >= 0]
+        n = rr.shape[0]
+        r_max, s_max = case.tensors[1].shape
+        print(f"order_scan {case.label}: equal {same}, N {n}, table {r_max} x {s_max}, "
+              f"received {int(newly.numel())} of {case.n_valid} in rounds "
+              f"{int(newly.min()) if newly.numel() else -1}-"
+              f"{int(newly.max()) if newly.numel() else -1}, chain {case.chain}", flush=True)
+        if not same:
+            failures.append(f"order_scan {case.label}: kernel != plain version")
+        if newly.numel() == 0 or int(newly.min()) == int(newly.max()):
+            failures.append(f"order_scan {case.label}: outputs that could not tell a wrong "
+                            "kernel (nothing received, or all in one round)")
+        if not timed:
+            continue
+        anc, tab, cnt, famous, creator = case.tensors[:5]
+        c_ms, plan_ms = card_ms_each([
+            lambda case=case: case.run(kernels.order_scan),
+            lambda: kernels._order_plan(tab, cnt, famous, creator, case.max_round, n),
+        ])
+        row = {"case": case.label, "N": n, "r_max": r_max, "s_max": s_max,
+               "chain": case.chain, "received0": case.received0 is not None,
+               "received": int(newly.numel()), "max_abs_err": err,
+               "ms": time_ms(lambda case=case: case.run(kernels.order_scan), 10),
+               "host_us": host_us(lambda case=case: case.run(kernels.order_scan), 50),
+               "card_ms": c_ms, "plan_card_ms": plan_ms,
+               "launch_card_ms": c_ms - plan_ms,
+               "ns_per_event": c_ms * 1e6 / n, "plain_ms": plain_ms,
+               "bytes": case.nbytes(rr),
+               "bound_by": "bytes", "library_ms": None}
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        print("order_scan", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def check_launches(tag, launches, needs, never, failures):
     """Every kernel of ``needs`` launched, none of ``never``.  A path that
-    launches ``bmm_or`` runs a consensus pass, so its rounds scan must have
-    launched too, and ``rounds_scan`` must have launched exactly once a
-    rounds-stage call on the card (``ROUNDS_CALLS``)."""
+    launches ``bmm_or`` runs a consensus pass, so its rounds scan and its
+    order scan must have launched too; ``rounds_scan`` must have launched
+    exactly once a rounds-stage call on the card and ``order_scan`` once an
+    order-stage call (:data:`STAGE_CALLS`)."""
     if "bmm_or" in needs:
-        needs = (*needs, "rounds_scan")
-    if launches["rounds_scan"] != launches["rounds_stage_calls"]:
-        failures.append(f"{tag}: rounds_scan launched {launches['rounds_scan']} times "
-                        f"over {launches['rounds_stage_calls']} rounds-stage calls")
+        needs = (*needs, "rounds_scan", "order_scan")
+    for kname, calls in (("rounds_scan", "rounds_stage_calls"),
+                         ("order_scan", "order_stage_calls")):
+        if launches[kname] != launches[calls]:
+            failures.append(f"{tag}: {kname} launched {launches[kname]} times over "
+                            f"{launches[calls]} {calls.split('_stage')[0]}-stage calls")
     for kname in needs:
         if launches[kname] <= 0:
             failures.append(f"{tag}: kernel {kname} was not launched")
@@ -2503,7 +2790,8 @@ def run_restore(node, failures):
 # ------------------------------------------------- phase 13: observability
 
 #: the hand-written kernels' entry points, as the profiler names them
-HAND_KERNELS = ("bmm_or_kernel", "pack_b", "tile", "pack", "tally", "scan_kernel")
+HAND_KERNELS = ("bmm_or_kernel", "pack_b", "tile", "pack", "tally", "scan_kernel",
+                "order_kernel")
 INC_TRACE_PASS = 5              # the steady incremental pass phase 13(b) traces
 # the columns pass's recorded window: rounds_chunk_stage calls TRACE_SKIP + 2
 # onward (136 calls a config-3 pass), TRACE_ACTIVE of them
@@ -3897,9 +4185,9 @@ def check_group_dryrun(tag, reports, out_i, failures):
         print(f"{tag} rank {rank} ({rep['device']}): dryrun {out['events']} events, "
               f"{out['ordered']} ordered, max_round {out['max_round']}, bit-parity "
               f"with the oracle; launches {json.dumps(used)}", flush=True)
-        if used["ssm_tally"] < 1 or used["rounds_scan"] < 1:
-            failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally or "
-                            "no rounds_scan")
+        if used["ssm_tally"] < 1 or used["rounds_scan"] < 1 or used["order_scan"] < 1:
+            failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally, "
+                            "rounds_scan or order_scan")
 
 
 def check_group_batch(tag, reports, out_i, packed, failures):
@@ -3917,10 +4205,11 @@ def check_group_batch(tag, reports, out_i, packed, failures):
         for key, want in GOLDEN[GROUP_BATCH_CONFIG].items():
             if digests[key] != want:
                 failures.append(f"{tag} rank {rank}: {key} digest {digests[key]} != golden")
-        if used["ssm_tally"] != attempts or used["rounds_scan"] < attempts:
-            failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally and "
-                            f"{used['rounds_scan']} rounds_scan launches for {attempts} "
-                            "attempt(s)")
+        if (used["ssm_tally"] != attempts or used["rounds_scan"] < attempts
+                or used["order_scan"] != attempts):
+            failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally, "
+                            f"{used['rounds_scan']} rounds_scan and {used['order_scan']} "
+                            f"order_scan launches for {attempts} attempt(s)")
         for kname in ("ssm_matrix", "ssm_block"):
             if used[kname]:
                 failures.append(f"{tag} rank {rank}: {kname} launched {used[kname]} times")
@@ -4011,7 +4300,7 @@ def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
                 name == "smoke" and not c["pruned_prefix"]):
             failures.append(f"{tag} rank {rank} stream {name}: counters {c}")
         if (used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["rounds_scan"] < 1
-                or used["ssm_block"]):
+                or used["order_scan"] < 1 or used["ssm_block"]):
             failures.append(f"{tag} rank {rank}: stream launches {used}")
 
 
@@ -4225,7 +4514,10 @@ def main() -> int:
     matrix_rows = check_ssm_matrix(packs, slabs, failures)
     sweep_ssm_matrix(failures)
     scan_rows = check_rounds_scan(packs, slabs, c5, failures)
-    del slabs, c5
+    del slabs
+    torch.cuda.empty_cache()
+    order_rows = check_order_scan(dags, packs, failures)
+    del c5
     torch.cuda.empty_cache()
 
     # launches[path][config][kernel], from the measured runs
@@ -4320,6 +4612,7 @@ def main() -> int:
         entry("ssm_tally", tally_row,
               [tally_row, member_tally_row, *sharded_rows, mesh_block_row], None),
         entry("rounds_scan", scan_rows[0], scan_rows, None),
+        entry("order_scan", order_rows[0], order_rows, None),
     ]}
     if failures:
         for f in failures:

@@ -281,10 +281,10 @@ def test_unknown_op_hard_fails():
 def test_undeclared_pull_hard_fails():
     with pytest.raises(I.UndeclaredPullError):
         interpret_stage(lambda x: int(x.sum()), [ArgDecl((4,), torch.int32, 0, 1)])
-    # order_scan's host pulls are declared by the fame specs; without the
-    # declaration the same stage refuses to pick a branch
+    # the order scan's plain version's host pulls are declared by the fame
+    # specs; without the declaration the same stage refuses to pick a branch
     call = stages._b_fame_order_cols(E.get_envelope("baseline"))
-    with pytest.raises(I.UndeclaredPullError, match="order_scan:go"):
+    with pytest.raises(I.UndeclaredPullError, match="order_scan_reference:go"):
         interpret_stage(call.fn, call.args, call.kwargs)
 
 
@@ -323,7 +323,7 @@ def test_baseline_proven_clean():
     assert rep.suppressed
     for f, note in rep.suppressed:
         assert note.strip(), f.render()
-        assert f.rule == "SW011" and f.path == "tpu_swirld_torch/gpu/pipeline.py"
+        assert f.rule == "SW011" and f.path == "tpu_swirld_torch/gpu/kernels.py"
     assert len(rep.specs) == len(stages.CATALOG)
     # every pull site is listed with the value assumed
     assert set(rep.pulls) == set(stages.PULLS)
@@ -501,7 +501,7 @@ def test_cli_clean_with_coverage(capsys):
     assert audit.main(["--envelope", "baseline", "--engine", "streaming",
                        "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "proven clean" in out and "pull gpu/pipeline.py:order_scan:go" in out
+    assert "proven clean" in out and "pull gpu/kernels.py:order_scan_reference:go" in out
 
 
 def test_cli_mutation_exits_one(capsys):

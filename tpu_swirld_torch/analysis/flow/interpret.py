@@ -132,7 +132,7 @@ class PullDecl:
     ``value(tensor, dims)`` builds it from the pulled fake tensor (its
     shape) and the spec's dimensions."""
 
-    site: str                    # "gpu/pipeline.py:order_scan:go"
+    site: str                    # "gpu/kernels.py:order_scan_reference:go"
     note: str                    # why this value (shown in the report)
     value: Callable
 
@@ -743,7 +743,7 @@ _CALL = re.compile(r"to_host\((.*?)\)(?:\.|\)|,|\s|$)")
 
 
 def _pull_site(frame) -> str:
-    """``gpu/pipeline.py:order_scan:go``: the module (relative to the
+    """``gpu/kernels.py:order_scan_reference:go``: the module (relative to the
     package), the function and the assigned name (else the pulled
     expression) of a ``to_host`` call."""
     fn = frame.f_code.co_filename
@@ -773,10 +773,10 @@ def _patched(interp: _Interp):
     """Install the summary ``range`` and the pull seams in the modules
     under audit for one interpretation."""
     global _ACTIVE
-    from tpu_swirld_torch.gpu import incremental, pipeline
+    from tpu_swirld_torch.gpu import incremental, kernels, pipeline
 
     mods = _audited_modules()
-    saved_host = {m: m.__dict__.get("to_host") for m in (pipeline, incremental)}
+    saved_host = {m: m.__dict__.get("to_host") for m in (pipeline, incremental, kernels)}
     saved_slots = incremental._used_slots
 
     def used_slots(wit_table):

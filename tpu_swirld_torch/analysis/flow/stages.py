@@ -115,12 +115,12 @@ def host_parents(n: int) -> np.ndarray:
 PULLS: Dict[str, PullDecl] = {
     d.site: d for d in (
         PullDecl(
-            "gpu/pipeline.py:order_scan:go",
+            "gpu/kernels.py:order_scan_reference:go",
             "every round receives (the arm with the most device work)",
             lambda t, dims: np.ones(tuple(t.shape), dtype=bool),
         ),
         PullDecl(
-            "gpu/pipeline.py:order_scan:nv_all",
+            "gpu/kernels.py:order_scan_reference:nv_all",
             "one unique famous witness a round (the median row is a host "
             "index clamped to the slots: its value moves no interval)",
             lambda t, dims: np.ones(tuple(t.shape), dtype=np.int64),
@@ -143,7 +143,8 @@ PULLS: Dict[str, PullDecl] = {
     )
 }
 
-_ORDER_PULLS = ("gpu/pipeline.py:order_scan:go", "gpu/pipeline.py:order_scan:nv_all")
+_ORDER_PULLS = ("gpu/kernels.py:order_scan_reference:go",
+                "gpu/kernels.py:order_scan_reference:nv_all")
 
 
 @dataclasses.dataclass(frozen=True)

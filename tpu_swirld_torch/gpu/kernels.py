@@ -17,6 +17,10 @@
   pipeline.py:_make_rounds_step`` (round assignment and witness
   registration), one launch a span of events, as XLA runs that scan as one
   device program a call.
+- :func:`order_scan` (``csrc/order_scan.cu``) replaces no Pallas kernel:
+  it is the reference's jitted ``lax.scan`` of ``tpu_swirld/tpu/
+  pipeline.py:order_scan`` (round received and consensus timestamp ranks),
+  one launch a stage call, as XLA runs that scan as one device program.
 
 :func:`make_extension_kernels` bundles ``bmm_or`` and ``ssm_block`` for the
 incremental driver, as ``pallas_kernels.py:make_extension_kernels`` does;
@@ -26,10 +30,10 @@ strongly-sees block, where ``pallas_kernels.py:make_mesh_row_block_fn`` puts
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
 ``ssm_block_reference``, ``ssm_matrix_reference``, ``ssm_tally_reference``,
-``rounds_scan_reference``) only for tensors on the CPU.  For CUDA tensors it
-launches the kernel or raises; there is no fallback.  ``<wrapper>.launches``
-counts the kernel launches (plain-version calls do not count), so a run can
-show that it went through the kernel.  The wrappers that take ``tot_stake``
+``rounds_scan_reference``, ``order_scan_reference``) only for tensors on
+the CPU.  For CUDA tensors it launches the kernel or raises; there is no
+fallback.  ``<wrapper>.launches`` counts the kernel launches (plain-version
+calls do not count), so a run can show that it went through the kernel.  The wrappers that take ``tot_stake``
 raise ``ValueError`` outside the int32 stake envelope
 (:func:`check_stake_envelope`), on either device.
 """
@@ -42,6 +46,7 @@ import functools
 import numpy as np
 import torch
 
+from tpu_swirld_torch.device import to_host
 from tpu_swirld_torch.gpu import build
 
 INT32_MAX = int(torch.iinfo(torch.int32).max)
@@ -63,6 +68,10 @@ _ARGTYPES = {
         _VP, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT,
         _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
         _VP,
+    ],
+    "order_scan_launch": [
+        _VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
+        _VP, _VP,
     ],
 }
 
@@ -585,6 +594,173 @@ def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
 
 
 rounds_scan.launches = 0
+
+
+# -------------------------------------------------------------- order_scan
+
+
+def _order_rounds(wit_table, wit_count, famous, creator, max_round, n: int):
+    """The order scan's facts of every round at once, on the tensors'
+    device: ``(we_all, ufw, prefix)``, the witness events clipped to ``[0,
+    n)``, bool ``(R, S)`` marking the unique famous witnesses (famous, and
+    the only famous witness of their creator in the round) and bool ``(R,)``
+    marking the maximal prefix of fame-complete rounds."""
+    r_max, s_max = wit_table.shape
+    dev = wit_table.device
+    famous_grid = famous.reshape(r_max, s_max)
+    wvalid = wit_table >= 0
+    decided = (famous_grid >= 0) | ~wvalid
+    complete = (
+        decided.all(dim=1)
+        & (max_round >= torch.arange(r_max, dtype=torch.int64, device=dev) + 2)
+        & (wit_count > 0)
+    )
+    # maximal prefix of fame-complete rounds (cumulative AND)
+    prefix = torch.cumprod(complete.to(torch.int32), dim=0) > 0
+    we_all = wit_table.clamp(0, n - 1)
+    fam = (famous_grid == 1) & wvalid                   # R,S
+    wcre = creator[we_all]
+    # count famous witnesses per creator via pairwise same-creator sum
+    same = (wcre[:, :, None] == wcre[:, None, :]) & wvalid[:, :, None] & wvalid[:, None, :]
+    cnt_same = (same & fam[:, None, :]).sum(dim=2)
+    return we_all, fam & (cnt_same == 1), prefix
+
+
+def _order_plan(wit_table, wit_count, famous, creator, max_round, n: int):
+    """The kernel's per-round input, made on the device with no host pull:
+    int32 ``(R, S)`` holding each round's unique famous witnesses' events
+    first, in slot order, and int32 ``(R,)`` their count, 0 for a round
+    outside the fame-complete prefix (a round that receives nothing)."""
+    we_all, ufw, prefix = _order_rounds(wit_table, wit_count, famous, creator,
+                                        max_round, n)
+    first = torch.argsort((~ufw).to(torch.int32), dim=1, stable=True)
+    ufw_ev = torch.gather(we_all, 1, first).to(torch.int32).contiguous()
+    nv = torch.where(prefix, ufw.sum(dim=1), 0).to(torch.int32)
+    return ufw_ev, nv
+
+
+def order_scan_reference(anc, wit_table, wit_count, famous, creator,
+                         self_parent, t_rank, max_round, n_valid: int, *,
+                         chain: int, received0=None):
+    """Plain version, as the port ran the order scan before its kernel:
+    which rounds can receive anything (inside the prefix, with a unique
+    famous witness) is computed for all rounds at once and pulled to the
+    host, the reference's ``lax.cond`` a host ``if``; each receiving round
+    walks the self-chains ``chain`` steps as tensor ops and sorts for the
+    median."""
+    r_max, s_max = wit_table.shape
+    n = anc.shape[0]
+    dev = anc.device
+    we_all, ufw, prefix = _order_rounds(wit_table, wit_count, famous, creator,
+                                        max_round, n)
+    go = to_host(prefix & ufw.any(dim=1))
+    nv_all = to_host(ufw.sum(dim=1))
+
+    ev_valid = torch.arange(n, dtype=torch.int64, device=dev) < n_valid
+    received = (
+        received0.clone() if received0 is not None
+        else torch.zeros((n,), dtype=torch.bool, device=dev)
+    )
+    rr_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ts_out = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for r in range(r_max):
+        if not go[r]:
+            continue
+        we = we_all[r]
+        u = ufw[r]
+        all_see = (anc[we] | ~u[:, None]).all(dim=0)   # N
+        newly = all_see & ~received & ev_valid
+        # earliest-seeing timestamps via self-chain walk (w -> genesis)
+        cur = we
+        tsw = torch.full((s_max, n), INT32_MAX, dtype=torch.int32, device=dev)
+        for _ in range(chain):
+            tsw = torch.where(anc[cur], t_rank[cur][:, None], tsw)
+            nxt = self_parent[cur]
+            cur = torch.where(nxt >= 0, nxt, cur)
+        # non-UFW rows become the sort sentinel: they sort last, and the
+        # median index stays below them
+        tsw = torch.where(u[:, None], tsw, INT32_MAX)  # swirld-lint: disable=SW011 -- masking non-UFW rows TO the sort sentinel is the point, as in the reference's order scan: they sort last, and med_i < nv keeps the median strictly below any masked row (the packer bounds live timestamps under INT32_MAX)
+        ts_sorted = torch.sort(tsw, dim=0).values       # S,N ascending
+        med_i = min(max((int(nv_all[r]) - 1) // 2, 0), s_max - 1)
+        med = ts_sorted[med_i]                           # N
+        received |= newly
+        rr_out = torch.where(newly, r, rr_out)
+        ts_out = torch.where(newly, med, ts_out)
+    return rr_out, ts_out, received
+
+
+def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
+               t_rank, max_round, n_valid, *, chain, received0=None):
+    """Round received and consensus timestamp ranks over the maximal
+    fame-complete prefix of rounds, exactly as the reference's
+    ``order_scan``: an event below ``n_valid`` not yet received is received
+    in the first round of the prefix whose unique famous witnesses all have
+    it as an ancestor, its timestamp rank the lower median of their
+    deepest self-ancestors' (within ``chain`` steps) that still see it.
+
+    ``anc`` bool ``(n, n)`` (row ``i``'s ancestors), ``wit_table`` int32
+    ``(R, S)`` (-1 an empty slot), ``wit_count`` int32 ``(R,)``, ``famous``
+    int8 ``(R * S,)`` (1 famous, 0 not, -1 undecided), ``creator``,
+    ``self_parent`` (-1 at genesis) and ``t_rank`` int32 ``(n,)``,
+    ``max_round`` (an int or a device scalar) in the table's round frame,
+    ``received0`` bool ``(n,)`` or None.  Returns ``(round_received int32
+    (n,) (-1 = not received), ts_rank int32 (n,) (0 where not newly
+    received), received bool (n,))``.  On the card one kernel launch after
+    a few device ops that pack each round's unique famous witnesses, no
+    host pull; allocates the outputs and one ``(S, n)`` int32 scratch."""
+    _check(anc, "anc", torch.bool, 2)
+    _check(wit_table, "wit_table", torch.int32, 2)
+    _check(wit_count, "wit_count", torch.int32, 1)
+    _check(famous, "famous", torch.int8, 1)
+    for name, x in (("creator", creator), ("self_parent", self_parent),
+                    ("t_rank", t_rank)):
+        _check(x, name, torch.int32, 1)
+    n = anc.shape[0]
+    r_max, s_max = wit_table.shape
+    chain, n_valid = int(chain), int(n_valid)
+    if anc.shape[1] != n:
+        raise ValueError(f"order_scan: anc must be square, got {tuple(anc.shape)}")
+    if min(n, r_max, s_max) < 1:
+        raise ValueError("order_scan: empty ancestry or witness table")
+    if wit_count.shape[0] != r_max or famous.shape[0] != r_max * s_max:
+        raise ValueError(f"order_scan: wit_count must be ({r_max},) and famous "
+                         f"({r_max * s_max},) for a ({r_max}, {s_max}) table")
+    if any(x.shape[0] != n for x in (creator, self_parent, t_rank)):
+        raise ValueError(f"order_scan: creator, self_parent and t_rank must be ({n},)")
+    if chain < 0:
+        raise ValueError(f"order_scan: a chain of {chain} steps")
+    tensors = [anc, wit_table, wit_count, famous, creator, self_parent, t_rank]
+    if received0 is not None:
+        _check(received0, "received0", torch.bool, 1)
+        if received0.shape[0] != n:
+            raise ValueError(f"order_scan: received0 must be ({n},)")
+        tensors.append(received0)
+    if isinstance(max_round, torch.Tensor):
+        tensors.append(max_round.reshape(1))
+    if _on_cpu(*tensors):
+        return order_scan_reference(
+            anc, wit_table, wit_count, famous, creator, self_parent, t_rank,
+            max_round, n_valid, chain=chain, received0=received0,
+        )
+    dev = anc.device
+    ufw_ev, nv = _order_plan(wit_table, wit_count, famous, creator, max_round, n)
+    received = (received0.clone() if received0 is not None
+                else torch.zeros((n,), dtype=torch.bool, device=dev))
+    rr = torch.empty((n,), dtype=torch.int32, device=dev)
+    ts = torch.empty((n,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((s_max, n), dtype=torch.int32, device=dev)
+    err = _launch(
+        dev, _c_function("order_scan", "order_scan_launch"),
+        anc.data_ptr(), n, ufw_ev.data_ptr(), nv.data_ptr(), r_max, s_max,
+        self_parent.data_ptr(), t_rank.data_ptr(), n_valid, chain,
+        received.data_ptr(), rr.data_ptr(), ts.data_ptr(), scratch.data_ptr(),
+    )
+    _raise_on(err, "order_scan")
+    order_scan.launches += 1
+    return rr, ts, received
+
+
+order_scan.launches = 0
 
 
 # ------------------------------------------------------- extension bundle

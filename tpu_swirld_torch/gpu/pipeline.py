@@ -27,9 +27,11 @@ sees (:func:`visibility_stage`), every boolean hop through
 :func:`order_scan` and host :func:`finalize_order`.
 
 JAX's scans become Python loops over tensor ops on the device, except the
-rounds scan, which the reference jits as one device program a call and the
-port runs as one :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` launch a
-stage call.  The buffers JAX donated (the ancestry slab, the column store, the rounds carry)
+rounds scan and the order scan, which the reference jits as one device
+program a call and the port runs as one
+:func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` /
+:func:`~tpu_swirld_torch.gpu.kernels.order_scan` launch a stage call.  The
+buffers JAX donated (the ancestry slab, the column store, the rounds carry)
 are updated in place.  Every gather index is clipped exactly where the
 reference clips it.  All supermajorities are exact integer tests
 ``3*amount > 2*total``; timestamps are dense-ranked on the host so the
@@ -52,8 +54,6 @@ from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.device import StageClock, resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
 from tpu_swirld_torch.packing import PackedDAG
-
-INT32_MAX = kernels.INT32_MAX
 
 # Witness-table overflow bitmask (kernels.OVF_ROUND / OVF_SLOT): the host
 # heals the flagged capacity and retries.
@@ -375,7 +375,7 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
 
 
 def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
-               t_rank, max_round: int, n_valid: int, *, chain: int,
+               t_rank, max_round, n_valid: int, *, chain: int,
                received0: Optional[torch.Tensor] = None):
     """Round-received + consensus timestamp ranks over the maximal
     fame-complete prefix of rounds.  Returns (round_received int32[N] (-1 =
@@ -386,64 +386,17 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     the carried window's ``r_base``); ``max_round`` is in the witness
     table's round frame.
 
-    Which rounds can receive anything (inside the prefix, with a unique
-    famous witness) is computed for all rounds at once and pulled to the
-    host: the reference's ``lax.cond`` becomes a host ``if``, and the
-    skipped rounds contribute nothing, exactly as there."""
-    r_max, s_max = wit_table.shape
-    n = anc.shape[0]
-    dev = anc.device
-    famous_grid = famous.reshape(r_max, s_max)
-    wvalid = wit_table >= 0
-    decided = (famous_grid >= 0) | ~wvalid
-    complete = (
-        decided.all(dim=1)
-        & (max_round >= torch.arange(r_max, dtype=torch.int64, device=dev) + 2)
-        & (wit_count > 0)
+    One :func:`~tpu_swirld_torch.gpu.kernels.order_scan` call: on the card
+    one kernel launch and no host pull, as the reference's jitted scan is
+    one device program.  A group rank's row view (``parallel.RowGather``)
+    gathers the window's rows once first."""
+    if not isinstance(anc, torch.Tensor):
+        anc = anc[0 : anc.shape[0]]
+    return kernels.order_scan(
+        anc, wit_table, wit_count, famous, creator, self_parent.contiguous(),
+        t_rank.contiguous(), max_round, n_valid, chain=chain,
+        received0=received0,
     )
-    # maximal prefix of fame-complete rounds (cumulative AND)
-    prefix = torch.cumprod(complete.to(torch.int32), dim=0) > 0
-    we_all = wit_table.clamp(0, n - 1)
-    fam = (famous_grid == 1) & wvalid                   # R,S
-    wcre = creator[we_all]
-    # count famous witnesses per creator via pairwise same-creator sum
-    same = (wcre[:, :, None] == wcre[:, None, :]) & wvalid[:, :, None] & wvalid[:, None, :]
-    cnt_same = (same & fam[:, None, :]).sum(dim=2)
-    ufw = fam & (cnt_same == 1)
-    go = to_host(prefix & ufw.any(dim=1))
-    nv_all = to_host(ufw.sum(dim=1))
-
-    ev_valid = torch.arange(n, dtype=torch.int64, device=dev) < n_valid
-    received = (
-        received0.clone() if received0 is not None
-        else torch.zeros((n,), dtype=torch.bool, device=dev)
-    )
-    rr_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    ts_out = torch.zeros((n,), dtype=torch.int32, device=dev)
-    for r in range(r_max):
-        if not go[r]:
-            continue
-        we = we_all[r]
-        u = ufw[r]
-        all_see = (anc[we] | ~u[:, None]).all(dim=0)   # N
-        newly = all_see & ~received & ev_valid
-        # earliest-seeing timestamps via self-chain walk (w -> genesis)
-        cur = we
-        tsw = torch.full((s_max, n), INT32_MAX, dtype=torch.int32, device=dev)
-        for _ in range(chain):
-            tsw = torch.where(anc[cur], t_rank[cur][:, None], tsw)
-            nxt = self_parent[cur]
-            cur = torch.where(nxt >= 0, nxt, cur)
-        # non-UFW rows become the sort sentinel: they sort last, and the
-        # median index stays below them
-        tsw = torch.where(u[:, None], tsw, INT32_MAX)  # swirld-lint: disable=SW011 -- masking non-UFW rows TO the sort sentinel is the point, as in the reference's order scan: they sort last, and med_i < nv keeps the median strictly below any masked row (the packer bounds live timestamps under INT32_MAX)
-        ts_sorted = torch.sort(tsw, dim=0).values       # S,N ascending
-        med_i = min(max((int(nv_all[r]) - 1) // 2, 0), s_max - 1)
-        med = ts_sorted[med_i]                           # N
-        received |= newly
-        rr_out = torch.where(newly, r, rr_out)
-        ts_out = torch.where(newly, med, ts_out)
-    return rr_out, ts_out, received
 
 
 def fame_order_cols_stage(anc, sees, ssm_c, col_pos, wit_table, wit_count,

@@ -49,7 +49,7 @@ import torch
 from tpu_swirld_torch.device import resolve_device
 
 KERNEL_NAMES = ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally", "make_mesh_row_block_fn",
-                "rounds_scan")
+                "rounds_scan", "order_scan")
 
 
 class RankFailure(RuntimeError):
