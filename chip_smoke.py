@@ -46,7 +46,22 @@
    over events, so its rows also print ``ns_per_event`` (``card_ms`` over
    the span's events; each timed call restores the carry first; ``ms``
    and ``host_us`` take the parents from the host, as the stages do,
-   ``card_ms`` from the card).  ``order_scan`` (round received, timestamp
+   ``card_ms`` from the card).  ``fame_scan`` (``famous`` and
+   ``decided_at`` exactly): the full path's fame over the config-3 and
+   config-4 DAGs (N 10 112, the columns pass's rounds), config 4's over
+   every row of its round window (the mesh batch's shape, forks), the
+   incremental driver's window over config 4 (its last call over 5 ingests
+   of 2 000: the column store, ``r_base`` > 0), config 5's first
+   ``C5_ORDER_EVENTS`` events (256 members), and small random shapes
+   (coin rounds with a third of the strongly-sees cells dropped, a
+   creator's two witnesses in a round, the column store with absent
+   columns and emptied slots, stake past 2**24); an output that decides
+   nothing, or decides every slot in one round, fails.  Its bound is
+   bytes: the bytes these inputs need, each read once
+   (``FameCase.nbytes``: of the cells only those between the rounds some
+   slot tallies in); its rows print ``ms``, ``card_ms`` (the wrapper: the
+   cells' device ops and the launch), ``plan_card_ms`` (the cells alone),
+   ``launch_card_ms`` and ``host_us``.  ``order_scan`` (round received, timestamp
    rank and received flags exactly): the full path's order scan over the
    config-3 and config-4 DAGs (N 10 112, config 4 with non-uniform stake),
    the incremental driver's window over config 3 (its last call over 5
@@ -63,8 +78,10 @@
    wrapper), ``launch_card_ms`` (their difference), ``host_us`` and
    ``ns_per_event``.  From phase 4 on, every
    rounds-stage call on the card (``ROUNDS_STAGES``) must launch
-   ``rounds_scan`` exactly once and every order-stage call
-   (``ORDER_STAGES``) ``order_scan`` exactly once (:func:`check_launches`).
+   ``rounds_scan`` exactly once, every fame-stage call (``FAME_STAGES``)
+   ``fame_scan`` exactly once and every order-stage call (``ORDER_STAGES``)
+   ``order_scan`` exactly once (:func:`check_launches`; the drivers' runs
+   hold fame and order to it, :func:`drive_passes`).
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
@@ -318,7 +335,10 @@
    events, ingests of 100, whose prunes move rows across the shards):
    every rank's slabs its own ``W / D``
    rows after every ingest, its digests and archive digest equal to the
-   one-process ``StreamingConsensus``'s on the card, no repin; each rank's
+   one-process ``StreamingConsensus``'s on the card, no repin,
+   ``fame_scan`` and ``order_scan`` launched once a fame- and an
+   order-stage call of its driver (``inc_fame``, ``inc_order``, a
+   rebase's ``fame_order_cols_stage``); each rank's
    bytes handed to collectives a pass, own slab bytes and peak device
    bytes, in all and by stage (``multichip.watch_stage_peaks``), beside
    the one-process driver's.  Prints when each group was done and the
@@ -340,7 +360,7 @@
    the card.  Each mode's JSON line is printed; ``bmm_or`` and ``ssm_block``
    must launch in each but ``--churn`` (a host replay and the repacks), and
    ``ssm_matrix`` in none.
-21. A ``{"kernels": [...]}`` line (all seven entries, every kernel's launches
+21. A ``{"kernels": [...]}`` line (all eight entries, every kernel's launches
    by path: batch paths, incremental, streaming, widen, mesh, mesh batch,
    live node, dynamic pin, restore, phase 13's, phase 14's, phase 15's
    ``cluster`` replays, phase 16's ``mc``, ``soak`` and ``viz`` runs,
@@ -485,6 +505,12 @@ KERNEL_INFO = {
     "rounds_scan": {
         "source": "tpu_swirld_torch/gpu/csrc/rounds_scan.cu",
         "replaces": "tpu_swirld/tpu/pipeline.py:301",
+    },
+    # no Pallas kernel: the jitted lax.scan of fame_scan (virtual fame
+    # voting), one device program a stage call in the reference
+    "fame_scan": {
+        "source": "tpu_swirld_torch/gpu/csrc/fame_scan.cu",
+        "replaces": "tpu_swirld/tpu/pipeline.py:372",
     },
     # no Pallas kernel: the jitted lax.scan of order_scan (round received and
     # consensus timestamps), one device program a stage call in the reference
@@ -994,18 +1020,21 @@ class ViewSpillArchive(races.SanitizedArchive):
         return added
 
 
-# The rounds stages and the order stages, and the calls of them on the card
-# since the last reset_launches: each rounds-stage call must launch
-# rounds_scan exactly once, each order-stage call order_scan.  Counted at
-# the stage seam (obs._stage_call, through which every StageClock and
-# obs.stage_call dispatch passes), whatever stage observer a phase
-# installs; the argument whose device decides is the scan's rows (rounds)
-# or the ancestry slab (order, a group rank's row view included).
+# The rounds, fame and order stages, and the calls of them on the card since
+# the last reset_launches: each rounds-stage call must launch rounds_scan
+# exactly once, each fame-stage call fame_scan, each order-stage call
+# order_scan.  Counted at the stage seam (obs._stage_call, through which
+# every StageClock and obs.stage_call dispatch passes), whatever stage
+# observer a phase installs; the argument whose device decides is the
+# scan's rows (rounds), the ancestry slab (fame + order) or the sees slab
+# (the incremental fame stage), a group rank's row view included.
 ROUNDS_STAGES = ("pipeline.rounds_scan_stage", "pipeline.rounds_chunk_stage",
                  "pipeline.rounds_span_stage")
 ORDER_STAGES = ("pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
                 "pipeline.inc_order")
-STAGE_CALLS = {"rounds_stage_calls": 0, "order_stage_calls": 0}
+FAME_STAGES = ("pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
+               "pipeline.inc_fame")
+STAGE_CALLS = {"rounds_stage_calls": 0, "fame_stage_calls": 0, "order_stage_calls": 0}
 _OBS_STAGE_CALL = obs._stage_call
 
 
@@ -1016,14 +1045,16 @@ def _on_card(x) -> bool:
 def _counting_stage_call(name, fused_chunks, fn, args, kw, device):
     if name in ROUNDS_STAGES and _on_card(args[1]):
         STAGE_CALLS["rounds_stage_calls"] += 1
+    if name in FAME_STAGES and _on_card(args[0]):
+        STAGE_CALLS["fame_stage_calls"] += 1
     if name in ORDER_STAGES and _on_card(args[0]):
         STAGE_CALLS["order_stage_calls"] += 1
     return _OBS_STAGE_CALL(name, fused_chunks, fn, args, kw, device)
 
 
 def reset_launches():
-    """Set every kernel's launch count, and the rounds- and order-stage
-    calls, to 0."""
+    """Set every kernel's launch count, and the rounds-, fame- and
+    order-stage calls, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
     for k in STAGE_CALLS:
@@ -1031,9 +1062,9 @@ def reset_launches():
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count, and the rounds- and order-stage calls on
-    the card (``rounds_stage_calls``, ``order_stage_calls``), since the last
-    :func:`reset_launches`."""
+    """Every kernel's launch count, and the rounds-, fame- and order-stage
+    calls on the card (``rounds_stage_calls``, ``fame_stage_calls``,
+    ``order_stage_calls``), since the last :func:`reset_launches`."""
     return {**{k: fn.launches for k, fn in KERNELS.items()}, **STAGE_CALLS}
 
 
@@ -1747,6 +1778,221 @@ def check_rounds_scan(packs, slabs, c5, failures):
     return rows
 
 
+def config5_order_packed():
+    """Config 5's first ``C5_ORDER_EVENTS`` events (256 members), packed:
+    the fame and order scans' config-5 shape."""
+    members, stake, _keys, chunks = stream_gossip_dag(C5_MEMBERS, C5_ORDER_EVENTS, 2048,
+                                                      seed=SEED)
+    return pack_events([ev for chunk in chunks for ev in chunk], members, stake)
+
+
+@dataclasses.dataclass
+class FameCase:
+    """One ``fame_scan`` call: its tensors (the witness table, ``sees``,
+    the strongly-sees matrix or column store, ``creator``, ``coin``,
+    ``stake``), its host ints and the column map (None: the full
+    matrix)."""
+    label: str
+    tensors: tuple
+    tot: int
+    coin_period: int
+    has_forks: bool
+    col_pos: object = None
+
+    def run(self, fn):
+        return fn(*self.tensors, self.tot, self.coin_period, has_forks=self.has_forks,
+                  col_pos=self.col_pos)
+
+    def nbytes(self, dec) -> int:
+        """The bytes fame voting must move on these inputs, given the
+        rounds ``dec`` that decided each slot, each read once: the table
+        (int32); for each witness slot ``x`` the sees cells of the
+        witnesses of round ``xr + 1`` over it, and the strongly-sees cells
+        between the witnesses of each pair of rounds ``(ry - 1, ry)`` that
+        some slot tallies in (from ``xr + 2`` to the round that decides it,
+        or the table's last), counted once; each witness's creator (int32),
+        coin bit and column (int32, the column store); the stake (int32);
+        the outputs (int8 and int32 a slot)."""
+        tab = self.tensors[0].cpu().numpy()
+        dec = dec.cpu().numpy()
+        r_max, s_max = tab.shape
+        n_wit = (tab >= 0).sum(axis=1)
+        cells, tallied = 0, set()
+        for x in np.flatnonzero(tab.reshape(-1) >= 0):
+            xr = x // s_max
+            if xr + 1 < r_max:
+                cells += int(n_wit[xr + 1])
+                tallied.update(range(xr + 2, (dec[x] if dec[x] >= 0 else r_max - 1) + 1))
+        cells += sum(int(n_wit[r]) * int(n_wit[r - 1]) for r in tallied)
+        per_witness = 9 if self.col_pos is not None else 5
+        return (4 * r_max * s_max + cells + per_witness * int(n_wit.sum())
+                + 4 * self.tensors[5].shape[0] + 5 * r_max * s_max)
+
+
+def fame_batch_case(label, packed, stake_np, n_members, *, rows="tight", dev="cuda"):
+    """Fame voting over a whole padded DAG as the full path runs it
+    (:func:`batch_inputs`), on the full strongly-sees matrix, the table cut
+    to its used slots and to the columns pass's ``r_tight`` rounds
+    (``rows="tight"``) or to every row of the scan's window (``"all"``, the
+    ``r_rounds`` the mesh batch's ``fame_order_stage`` votes over)."""
+    b = batch_inputs(packed, stake_np, n_members, dev)
+    scan = b["scan"]
+    r_rows = b["r_tight"] if rows == "tight" else b["tab"].shape[0]
+    tab = b["tab"][:r_rows, : b["s_used"]].contiguous()
+    coin = torch.as_tensor(b["arrays"]["coin"], device=tab.device)
+    return FameCase(f"{label}, table {r_rows} x {b['s_used']}",
+                    (tab, b["sees"], scan.ssm_rows, b["creator"], coin, scan.stake),
+                    scan.tot, SwirldConfig(n_members=n_members).coin_period,
+                    scan.has_forks)
+
+
+def captured_fame_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
+    """The last ``fame_scan`` call of the incremental driver (on the card,
+    the reference defaults) over the first ``n_chunks`` ingests of
+    ``chunk`` events: the window's sees slab and column store, its table
+    in the window's round frame cut to the used slots."""
+    members, stake, events = dag[:3]
+    inc = IncrementalConsensus(members, stake, SwirldConfig(n_members=len(members)),
+                               device=dev)
+    real, calls = inc_mod.fame_scan, []
+
+    def record(*args, **kw):
+        calls[:] = [([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                     dict(kw))]
+        return real(*args, **kw)
+
+    inc_mod.fame_scan = record              # fame_window_stage's fame scan
+    try:
+        for i in range(n_chunks):
+            inc.ingest(events[i * chunk : (i + 1) * chunk])
+    finally:
+        inc_mod.fame_scan = real
+    args, kw = calls[-1]
+    return FameCase(f"{label}, r_base {inc._r_base}, table {tuple(args[0].shape)}",
+                    tuple(args[:6]), int(args[6]), int(args[7]), kw["has_forks"],
+                    kw["col_pos"].clone())
+
+
+def random_fame_cases(dev="cuda"):
+    """Small DAGs of the port's generator through :func:`batch_inputs`,
+    perturbed: a seeded third of the strongly-sees cells dropped with a
+    coin round every second round (coin bits become votes), witnesses
+    given another witness's creator in every second round (a forker's two
+    witnesses: the per-creator rule decides), the column store with a
+    seventh of the witness columns absent and empty slots, and stake past
+    2**24 without forks."""
+    out = []
+    for seed, m, n_events, forkers, stake_mul, mode in [
+        (1, 5, 500, 0, 1, "coin"),
+        (2, 7, 700, 0, 1, "shared creators"),
+        (4, 8, 800, 2, 1, "columns, holes"),
+        (4, 9, 900, 0, 1 << 22, "stake past 2**24"),
+    ]:
+        members, stake, events, _keys = generate_gossip_dag(
+            m, n_events, seed=seed, n_forkers=forkers, fork_prob=0.1)
+        rng = np.random.default_rng(seed - 1)
+        stake_np = rng.integers(1, 6, m).astype(np.int32) * stake_mul
+        packed = pack_events(events, members, stake_np)
+        case = fame_batch_case("", packed, stake_np, m, dev=dev)
+        tab, sees, ssm, creator, coin, stake_t = case.tensors
+        if mode == "coin":
+            ssm = ssm & torch.as_tensor(rng.random(tuple(ssm.shape)) >= 0.35, device=dev)
+            case = dataclasses.replace(case, coin_period=2)
+        elif mode == "shared creators":
+            cre, t_np = creator.cpu().numpy().copy(), tab.cpu().numpy()
+            for r in range(0, t_np.shape[0], 2):
+                for a, b in ((0, 1), (2, 3)):
+                    if t_np.shape[1] > b and t_np[r, a] >= 0 and t_np[r, b] >= 0:
+                        cre[t_np[r, b]] = cre[t_np[r, a]]
+            creator = torch.as_tensor(cre, device=dev)
+            case = dataclasses.replace(case, has_forks=True)
+        elif mode == "columns, holes":
+            t_np = tab.cpu().numpy()
+            wits = np.unique(t_np[t_np >= 0])
+            kept = np.delete(wits, np.s_[::7])
+            col_pos = np.full((sees.shape[0],), -1, np.int32)
+            col_pos[kept] = np.arange(kept.size, dtype=np.int32)
+            ssm = ssm[:, torch.as_tensor(kept, device=dev)].contiguous()
+            t_np = t_np.copy()
+            t_np[rng.random(t_np.shape) < 0.1] = -1
+            tab = torch.as_tensor(t_np, device=dev)
+            case = dataclasses.replace(case, col_pos=torch.as_tensor(col_pos, device=dev))
+        out.append(dataclasses.replace(
+            case, label=f"random {m} members, {forkers} forkers, {mode}{case.label}",
+            tensors=(tab, sees, ssm, creator, coin, stake_t)))
+    return out
+
+
+def check_fame_scan(dags, packs, c5_packed, failures):
+    """``fame_scan`` against its plain version on the card, both outputs
+    exactly.  Fixed shapes: the full path's fame over config 3's and config
+    4's whole padded DAGs (N = 10 112, the columns pass's rounds), config
+    4's over every row of its round window (the mesh batch's shape, with
+    forks), the incremental driver's window over config 4 (its last call
+    over 5 ingests of 2 000: the column store, ``r_base`` > 0) and config
+    5's first ``C5_ORDER_EVENTS`` events (256 members).  Then small random
+    shapes (:func:`random_fame_cases`).  Each fixed shape is timed beside
+    its plain version and its bound (:meth:`FameCase.nbytes`); an output
+    that decides nothing, or decides every slot in one round, fails: it
+    could not tell a wrong kernel."""
+    fixed = [
+        fame_batch_case("config3 full N=10112", packs["config3"], packs["config3"].stake,
+                        N_MEMBERS),
+        fame_batch_case("config4 full N=10112", packs["config4"], packs["config4"].stake,
+                        N_MEMBERS),
+        fame_batch_case("config4 mesh batch N=10112, every row", packs["config4"],
+                        packs["config4"].stake, N_MEMBERS, rows="all"),
+        captured_fame_case("config4 incremental window", dags["config4"], 5, chunk=2000),
+        fame_batch_case(f"config5 first {C5_ORDER_EVENTS} events", c5_packed,
+                        c5_packed.stake, C5_MEMBERS),
+    ]
+    rows = []
+    for case, timed in [(c, True) for c in fixed] + [(c, False) for c in random_fame_cases()]:
+        got = case.run(kernels.fame_scan)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = case.run(kernels.fame_scan_reference)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        famous, dec = want
+        decided = dec[dec >= 0]
+        tab = case.tensors[0]
+        r_max, s_max = tab.shape
+        print(f"fame_scan {case.label}: equal {same}, witnesses {int((tab >= 0).sum())}, "
+              f"famous {int((famous == 1).sum())}, not {int((famous == 0).sum())}, decided in "
+              f"rounds {sorted(set(decided.tolist()))}", flush=True)
+        if not same:
+            failures.append(f"fame_scan {case.label}: kernel != plain version")
+        if decided.numel() == 0 or int(decided.min()) == int(decided.max()):
+            failures.append(f"fame_scan {case.label}: outputs that could not tell a wrong "
+                            "kernel (nothing decided, or all in one round)")
+        if not timed:
+            continue
+        sees, ssm = case.tensors[1:3]
+        c_ms, plan_ms = card_ms_each([
+            lambda case=case: case.run(kernels.fame_scan),
+            lambda: kernels._fame_cells(tab, sees, ssm, case.col_pos),
+        ])
+        row = {"case": case.label, "N": sees.shape[0], "r_max": r_max, "s_max": s_max,
+               "columns": case.col_pos is not None, "has_forks": case.has_forks,
+               "decided": int(decided.numel()), "max_abs_err": err,
+               "ms": time_ms(lambda case=case: case.run(kernels.fame_scan), 10),
+               "host_us": host_us(lambda case=case: case.run(kernels.fame_scan), 50),
+               "card_ms": c_ms, "plan_card_ms": plan_ms, "launch_card_ms": c_ms - plan_ms,
+               "plain_ms": plain_ms, "bytes": case.nbytes(dec),
+               "bound_by": "bytes", "library_ms": None}
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        print("fame_scan", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 @dataclasses.dataclass
 class OrderCase:
     """One ``order_scan`` call: its tensors (``anc``, the witness table and
@@ -1812,12 +2058,14 @@ class OrderCase:
                 + 4 * r_max + (n if self.received0 is not None else 0) + 9 * n)
 
 
-def order_batch_case(label, packed, stake_np, n_members, dev="cuda", chain=None):
-    """The order scan of a whole padded DAG as the full path runs it: the
-    ancestry slab and sees from ``visibility_stage``, the strongly-sees
-    matrix from ``ssm_matrix``, the rounds scan's table cut to its used
-    slots and rounds (the columns pass's ``r_tight``), fame from
-    ``fame_scan`` on the full matrix."""
+def batch_inputs(packed, stake_np, n_members, dev="cuda"):
+    """A whole padded DAG through the full path's first stages on ``dev``:
+    ``visibility_stage``'s ancestry slab and sees, ``ssm_matrix``'s
+    strongly-sees matrix and the rounds scan (:func:`full_scan_case`).
+    Returns the pieces fame and order read: the scan case (matrix, stake,
+    total), the table and counts over every row (``r_rounds``), the
+    columns pass's ``r_tight`` and the used slots in it, and the packed
+    arrays."""
     dev = torch.device(dev)
     arrays, statics, _ts = prepare_inputs(packed, block=128)
     parents = torch.as_tensor(arrays["parents"], device=dev)
@@ -1825,22 +2073,34 @@ def order_batch_case(label, packed, stake_np, n_members, dev="cuda", chain=None)
     anc, sees = visibility_stage(parents, creator,
                                  torch.as_tensor(packed.fork_pairs, device=dev),
                                  n_members=n_members, block=128)
-    scan = full_scan_case(label, packed, sees, stake_np, n_members)
+    scan = full_scan_case("", packed, sees, stake_np, n_members)
     rnd, _w, tab, cnt, _o = scan.run(kernels.rounds_scan, parents)
-    n = packed.n
-    max_round = int(rnd[:n].max())
+    max_round = int(rnd[: packed.n].max())
     r_tight = min(tab.shape[0], ((max_round + 3 + 7) // 8) * 8)
-    s_used = max(int(cnt[:r_tight].max()), 1)
-    tab = tab[:r_tight, :s_used].contiguous()
+    return dict(anc=anc, sees=sees, scan=scan, tab=tab, cnt=cnt, parents=parents,
+                creator=creator, arrays=arrays, statics=statics, max_round=max_round,
+                r_tight=r_tight, s_used=max(int(cnt[:r_tight].max()), 1))
+
+
+def order_batch_case(label, packed, stake_np, n_members, dev="cuda", chain=None):
+    """The order scan of a whole padded DAG as the full path runs it
+    (:func:`batch_inputs`): the table cut to its used slots and rounds (the
+    columns pass's ``r_tight``), fame from ``fame_scan`` on the full
+    matrix."""
+    b = batch_inputs(packed, stake_np, n_members, dev)
+    scan, arrays, r_tight = b["scan"], b["arrays"], b["r_tight"]
+    tab = b["tab"][:r_tight, : b["s_used"]].contiguous()
     famous, _dec = fame_scan(
-        tab, sees, scan.ssm_rows, creator, torch.as_tensor(arrays["coin"], device=dev),
+        tab, b["sees"], scan.ssm_rows, b["creator"],
+        torch.as_tensor(arrays["coin"], device=b["sees"].device),
         scan.stake, scan.tot, SwirldConfig(n_members=n_members).coin_period,
         has_forks=scan.has_forks,
     )
-    return OrderCase(label, (anc, tab, cnt[:r_tight].contiguous(), famous, creator,
-                             parents[:, 0].contiguous(),
-                             torch.as_tensor(arrays["t_rank"], device=dev)),
-                     max_round, n, statics["chain"] if chain is None else chain)
+    return OrderCase(label, (b["anc"], tab, b["cnt"][:r_tight].contiguous(), famous,
+                             b["creator"], b["parents"][:, 0].contiguous(),
+                             torch.as_tensor(arrays["t_rank"], device=b["sees"].device)),
+                     b["max_round"], packed.n,
+                     b["statics"]["chain"] if chain is None else chain)
 
 
 def captured_order_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
@@ -1905,7 +2165,7 @@ def random_order_cases(dev="cuda"):
     return out
 
 
-def check_order_scan(dags, packs, failures):
+def check_order_scan(dags, packs, c5_packed, failures):
     """``order_scan`` against its plain version on the card, all three
     outputs exactly.  Fixed shapes: the full path's order scan over config
     3's and config 4's whole padded DAGs (N = 10 112), the incremental
@@ -1915,9 +2175,6 @@ def check_order_scan(dags, packs, failures):
     plain version and its bound (:meth:`OrderCase.nbytes`); an output in
     which nothing is received, or every received event in one round,
     fails: it could not tell a wrong kernel."""
-    members, stake, _keys, chunks = stream_gossip_dag(C5_MEMBERS, C5_ORDER_EVENTS, 2048,
-                                                      seed=SEED)
-    c5_packed = pack_events([ev for chunk in chunks for ev in chunk], members, stake)
     fixed = [
         order_batch_case("config3 full N=10112", packs["config3"],
                          packs["config3"].stake, N_MEMBERS),
@@ -1977,19 +2234,28 @@ def check_order_scan(dags, packs, failures):
     return rows
 
 
-def check_launches(tag, launches, needs, never, failures):
-    """Every kernel of ``needs`` launched, none of ``never``.  A path that
-    launches ``bmm_or`` runs a consensus pass, so its rounds scan and its
-    order scan must have launched too; ``rounds_scan`` must have launched
-    exactly once a rounds-stage call on the card and ``order_scan`` once an
-    order-stage call (:data:`STAGE_CALLS`)."""
-    if "bmm_or" in needs:
-        needs = (*needs, "rounds_scan", "order_scan")
-    for kname, calls in (("rounds_scan", "rounds_stage_calls"),
-                         ("order_scan", "order_stage_calls")):
+def check_stage_launches(tag, launches, scans, failures):
+    """Each of the ``scans`` (``rounds_scan``, ``fame_scan``,
+    ``order_scan``) launched exactly once a call of its stages on the card
+    (:data:`STAGE_CALLS`)."""
+    for kname in scans:
+        calls = f"{kname.split('_')[0]}_stage_calls"
         if launches[kname] != launches[calls]:
             failures.append(f"{tag}: {kname} launched {launches[kname]} times over "
-                            f"{launches[calls]} {calls.split('_stage')[0]}-stage calls")
+                            f"{launches[calls]} {kname.split('_')[0]}-stage calls")
+
+
+def check_launches(tag, launches, needs, never, failures):
+    """Every kernel of ``needs`` launched, none of ``never``.  A path that
+    launches ``bmm_or`` runs a consensus pass, so its rounds scan, fame
+    voting and order scan must have launched too; ``rounds_scan`` must have
+    launched exactly once a rounds-stage call on the card, ``fame_scan``
+    once a fame-stage call and ``order_scan`` once an order-stage call
+    (:data:`STAGE_CALLS`)."""
+    if "bmm_or" in needs:
+        needs = (*needs, "rounds_scan", "fame_scan", "order_scan")
+    check_stage_launches(tag, launches, ("rounds_scan", "fame_scan", "order_scan"),
+                         failures)
     for kname in needs:
         if launches[kname] <= 0:
             failures.append(f"{tag}: kernel {kname} was not launched")
@@ -2045,8 +2311,10 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
     docstring: golden digests (of the result moved back to creation
     order),
     the per-pass ``ordered`` lists concatenating to the order, a non-rebase
-    pass, every kernel of ``needs`` launched on the non-rebase passes and
-    none of ``never`` launched at all.  Returns the run's kernel launches."""
+    pass, every kernel of ``needs`` launched on the non-rebase passes,
+    none of ``never`` launched at all, and ``fame_scan`` and ``order_scan``
+    once a fame- and an order-stage call.  Returns the run's kernel
+    launches."""
     events, packed = dag[2], dag[3]
     if chunks is None:
         chunks = [events[i : i + INC_CHUNK] for i in range(0, len(events), INC_CHUNK)]
@@ -2122,6 +2390,7 @@ def drive_passes(kind, label, inc, dag, columns_evps, failures, needs=("bmm_or",
     for kname in never:
         if launches[kname] != 0:
             failures.append(f"{tag}: {kname} launched {launches[kname]} times")
+    check_stage_launches(tag, launches, ("fame_scan", "order_scan"), failures)
     return launches
 
 
@@ -4185,9 +4454,9 @@ def check_group_dryrun(tag, reports, out_i, failures):
         print(f"{tag} rank {rank} ({rep['device']}): dryrun {out['events']} events, "
               f"{out['ordered']} ordered, max_round {out['max_round']}, bit-parity "
               f"with the oracle; launches {json.dumps(used)}", flush=True)
-        if used["ssm_tally"] < 1 or used["rounds_scan"] < 1 or used["order_scan"] < 1:
+        if min(used[k] for k in ("ssm_tally", "rounds_scan", "fame_scan", "order_scan")) < 1:
             failures.append(f"{tag} rank {rank}: the dryrun launched no ssm_tally, "
-                            "rounds_scan or order_scan")
+                            "rounds_scan, fame_scan or order_scan")
 
 
 def check_group_batch(tag, reports, out_i, packed, failures):
@@ -4206,10 +4475,11 @@ def check_group_batch(tag, reports, out_i, packed, failures):
             if digests[key] != want:
                 failures.append(f"{tag} rank {rank}: {key} digest {digests[key]} != golden")
         if (used["ssm_tally"] != attempts or used["rounds_scan"] < attempts
-                or used["order_scan"] != attempts):
+                or used["fame_scan"] != attempts or used["order_scan"] != attempts):
             failures.append(f"{tag} rank {rank}: {used['ssm_tally']} ssm_tally, "
-                            f"{used['rounds_scan']} rounds_scan and {used['order_scan']} "
-                            f"order_scan launches for {attempts} attempt(s)")
+                            f"{used['rounds_scan']} rounds_scan, {used['fame_scan']} "
+                            f"fame_scan and {used['order_scan']} order_scan launches for "
+                            f"{attempts} attempt(s)")
         for kname in ("ssm_matrix", "ssm_block"):
             if used[kname]:
                 failures.append(f"{tag} rank {rank}: {kname} launched {used[kname]} times")
@@ -4302,6 +4572,12 @@ def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
         if (used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["rounds_scan"] < 1
                 or used["order_scan"] < 1 or used["ssm_block"]):
             failures.append(f"{tag} rank {rank}: stream launches {used}")
+        # the driver's stages, its rebases' columns passes included
+        for kname, stages in (("fame_scan", FAME_STAGES), ("order_scan", ORDER_STAGES)):
+            calls = sum(out["stage_calls"].get(stage, 0) for stage in stages)
+            if used[kname] != calls or not used[kname]:
+                failures.append(f"{tag} rank {rank}: {kname} launched {used[kname]} times "
+                                f"over {calls} calls of {stages}")
 
 
 def run_multichip_phase(packs, failures):
@@ -4516,7 +4792,10 @@ def main() -> int:
     scan_rows = check_rounds_scan(packs, slabs, c5, failures)
     del slabs
     torch.cuda.empty_cache()
-    order_rows = check_order_scan(dags, packs, failures)
+    c5_packed = config5_order_packed()
+    fame_rows = check_fame_scan(dags, packs, c5_packed, failures)
+    order_rows = check_order_scan(dags, packs, c5_packed, failures)
+    del c5_packed
     del c5
     torch.cuda.empty_cache()
 
@@ -4612,6 +4891,7 @@ def main() -> int:
         entry("ssm_tally", tally_row,
               [tally_row, member_tally_row, *sharded_rows, mesh_block_row], None),
         entry("rounds_scan", scan_rows[0], scan_rows, None),
+        entry("fame_scan", fame_rows[0], fame_rows, None),
         entry("order_scan", order_rows[0], order_rows, None),
     ]}
     if failures:

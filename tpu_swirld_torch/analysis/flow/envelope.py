@@ -45,11 +45,13 @@ from tpu_swirld_torch.analysis.lint import Finding
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
-#: exact-integer limit of float32 (the gate of ``fame_scan``'s float32
-#: tally, ``exact_tally`` in ``gpu/pipeline.py``)
+#: exact-integer limit of float32 (the gate of fame voting's float32
+#: tally, ``exact_tally`` in ``gpu/kernels.py:fame_scan_reference``)
 F32_EXACT = 1 << 24
 
 _PIPELINE = "tpu_swirld_torch/gpu/pipeline.py"
+#: where fame voting's plain version, and so its f32 gate, lives
+_KERNELS = "tpu_swirld_torch/gpu/kernels.py"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,10 +157,10 @@ def _finding(rule, path, msg, line=0):
 
 
 def _gate_line() -> int:
-    """The line of ``fame_scan``'s ``exact_tally`` gate in the port's
-    pipeline (0 when the file is not beside this package)."""
+    """The line of ``fame_scan_reference``'s ``exact_tally`` gate in the
+    port's kernels module (0 when the file is not beside this package)."""
     path = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", "..", "gpu", "pipeline.py"
+        os.path.dirname(os.path.abspath(__file__)), "..", "..", "gpu", "kernels.py"
     )
     try:
         with open(path, encoding="utf-8") as f:
@@ -201,12 +203,12 @@ def host_envelope_findings(env: ScaleEnvelope) -> List[Finding]:
             f"order-stage sentinel {min(env.sentinels)} — a live timestamp "
             f"becomes indistinguishable from padding"))
 
-    # fame_scan's f32 tally gate: integer tallies carried in f32 stay
+    # fame voting's f32 tally gate: integer tallies carried in f32 stay
     # exact only below 2**24 (``exact_tally`` switches to the int32 path
     # at runtime; the envelope must satisfy the bound statically too).
     if env.tot_stake >= F32_EXACT:
         out.append(_finding(
-            "SW008", _PIPELINE,
+            "SW008", _KERNELS,
             f"envelope {env.name}: total stake {env.tot_stake} reaches the "
             f"exact-f32 limit 2**24 — fused GEMM tally path loses votes",
             _gate_line()))

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally", "rounds_scan",
-           "order_scan")
+           "fame_scan", "order_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -17,6 +17,10 @@
   pipeline.py:_make_rounds_step`` (round assignment and witness
   registration), one launch a span of events, as XLA runs that scan as one
   device program a call.
+- :func:`fame_scan` (``csrc/fame_scan.cu``) replaces no Pallas kernel: it
+  is the reference's jitted ``lax.scan`` of ``tpu_swirld/tpu/pipeline.py:
+  fame_scan`` (virtual fame voting), one launch a stage call, as XLA runs
+  that scan as one device program.
 - :func:`order_scan` (``csrc/order_scan.cu``) replaces no Pallas kernel:
   it is the reference's jitted ``lax.scan`` of ``tpu_swirld/tpu/
   pipeline.py:order_scan`` (round received and consensus timestamp ranks),
@@ -30,7 +34,8 @@ strongly-sees block, where ``pallas_kernels.py:make_mesh_row_block_fn`` puts
 
 Each wrapper takes its plain PyTorch version (``bmm_or_reference``,
 ``ssm_block_reference``, ``ssm_matrix_reference``, ``ssm_tally_reference``,
-``rounds_scan_reference``, ``order_scan_reference``) only for tensors on
+``rounds_scan_reference``, ``fame_scan_reference``,
+``order_scan_reference``) only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises; there is no
 fallback.  ``<wrapper>.launches`` counts the kernel launches (plain-version
 calls do not count), so a run can show that it went through the kernel.  The wrappers that take ``tot_stake``
@@ -68,6 +73,10 @@ _ARGTYPES = {
         _VP, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT,
         _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
         _VP,
+    ],
+    "fame_scan_launch": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+        _VP, _VP, _INT, _INT, _VP,
     ],
     "order_scan_launch": [
         _VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
@@ -594,6 +603,222 @@ def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
 
 
 rounds_scan.launches = 0
+
+
+# --------------------------------------------------------------- fame_scan
+
+# the H100's opt-in shared memory a block, less the kernel's static words;
+# the fame kernel keeps three int32 and three byte arrays of S slots there
+_FS_SMEM_LIMIT = 232448 - 64
+_FS_SMEM_PER_SLOT = 15
+_FS_MAX_THREADS = 1024
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain boolean matmul (0/1 float32 products, exact; TF32 is off) for
+    the fame tally, which the reference also leaves to a plain matmul."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32)) > 0.5
+
+
+def fame_scan_reference(wit_table, sees, ssm, creator, coin, stake, tot_stake,
+                        coin_period, *, has_forks, col_pos=None):
+    """Plain version, as the port ran fame voting before its kernel: the
+    reference's scan step a round, as about 60 tensor ops over every (y,
+    x) slot pair of the round at once (a float32 matmul tally, or with
+    forks a per-creator boolean matmul).  ``sees`` and ``ssm`` may be a
+    group rank's row views (``parallel.RowGather``): each round then
+    gathers its witness rows of both."""
+    r_max, s_max = wit_table.shape
+    n = sees.shape[0]
+    n_members = stake.shape[0]
+    w_max = r_max * s_max
+    dev = sees.device
+    # The fast tally multiplies stake values into a float32 matmul, exact
+    # only while every sum stays below 2^24 (TF32 is off).  Forks need the
+    # per-creator OR.  Otherwise take the int32 per-creator path.
+    exact_tally = has_forks or tot_stake >= (1 << 24)
+
+    x_event = wit_table.reshape(-1)                     # W
+    x_valid = x_event >= 0
+    xe = x_event.clamp(0, n - 1)
+    x_round = torch.arange(w_max, dtype=torch.int32, device=dev) // s_max
+    marange = torch.arange(n_members, dtype=torch.int64, device=dev)
+    w_range = torch.arange(w_max, dtype=torch.int64, device=dev)
+
+    v_prev = torch.zeros((s_max, w_max), dtype=torch.bool, device=dev)
+    famous = torch.full((w_max,), -1, dtype=torch.int8, device=dev)
+    dec_at = torch.full((w_max,), -1, dtype=torch.int32, device=dev)
+    for ry in range(1, r_max):
+        y_idx = wit_table[ry]
+        y_valid = y_idx >= 0
+        ye = y_idx.clamp(0, n - 1)
+        d = ry - x_round                                # W
+        sees_yx = sees[ye][:, xe] & y_valid[:, None] & x_valid[None, :]
+        p_idx = wit_table[ry - 1]
+        p_valid = p_idx >= 0
+        pe = p_idx.clamp(0, n - 1)
+        if col_pos is None:
+            ssy = ssm[ye][:, pe]                        # S,S
+        else:
+            ppos = col_pos[pe]
+            ssy = ssm[ye][:, ppos.clamp(0, ssm.shape[1] - 1)] & (ppos >= 0)[None, :]
+        ssy = ssy & y_valid[:, None] & p_valid[None, :]
+        pcre = creator[pe]                              # S
+        pstake = torch.where(p_valid, stake[pcre], 0)
+        not_v = ~v_prev & p_valid[:, None]
+        if exact_tally:
+            # per-creator OR before stake-weighting (forked creators may
+            # have several witnesses in round ry-1)
+            onehot = (pcre[:, None] == marange[None, :]) & p_valid[:, None]
+            w1 = (ssy[:, None, :] & onehot.T[None, :, :]).reshape(
+                s_max * n_members, s_max
+            )                                           # (S*M),S
+            yes_c = _bmm(w1, v_prev).reshape(s_max, n_members, w_max)
+            no_c = _bmm(w1, not_v).reshape(s_max, n_members, w_max)
+            st = stake[None, :, None]
+            yes = (yes_c.to(torch.int32) * st).sum(1, dtype=torch.int32)
+            no = (no_c.to(torch.int32) * st).sum(1, dtype=torch.int32)
+        else:
+            sw = (ssy.to(torch.int32) * pstake[None, :]).to(torch.float32)
+            yes = torch.matmul(sw, v_prev.to(torch.float32)).to(torch.int32)
+            no = torch.matmul(sw, not_v.to(torch.float32)).to(torch.int32)
+        v_tally = yes >= no                             # S,W
+        super_ = 3 * torch.maximum(yes, no) > 2 * tot_stake
+        is_coin = (d % coin_period) == 0                # W
+        coin_y = (coin[ye] > 0)[:, None]                # S,1
+        vote = torch.where(
+            (d == 1)[None, :],
+            sees_yx,
+            torch.where(
+                is_coin[None, :], torch.where(super_, v_tally, coin_y), v_tally
+            ),
+        )
+        vote = vote & y_valid[:, None] & x_valid[None, :] & (d >= 1)[None, :]
+        eligible = (
+            super_ & y_valid[:, None] & (x_valid & (d >= 2) & ~is_coin)[None, :]
+        )
+        any_dec = eligible.any(0)                       # W
+        # argmax over ints returns the first maximal index ("first True")
+        first_y = torch.argmax(eligible.to(torch.int32), dim=0)
+        val = v_tally[first_y, w_range]
+        newly = (famous < 0) & any_dec
+        famous = torch.where(newly, val.to(torch.int8), famous)
+        dec_at = torch.where(newly, ry, dec_at)
+        v_prev = vote
+    return famous, dec_at
+
+
+def _slab_tensor(slab) -> torch.Tensor:
+    """A slab's own tensor: the slab, or a group rank's row view's
+    (``parallel.RowGather``) shard."""
+    return slab if isinstance(slab, torch.Tensor) else slab.shard
+
+
+def _cells(slab, rows, cols):
+    """bool ``(R', S, S)`` with ``out[r, p, y] = slab[rows[r, y], cols[r,
+    p]]``: one gather, of the cells alone on a group rank's row view."""
+    if isinstance(slab, torch.Tensor):
+        return slab[rows[:, None, :], cols[:, :, None]]
+    return slab.cells(rows, cols)
+
+
+def _fame_cells(wit_table, sees, ssm, col_pos):
+    """The fame kernel's input, gathered on the device with no host pull:
+    bool ``(R - 1, S, S)`` ``sp`` and ``ss``, ``[r - 1, p, y]`` whether
+    slot ``y`` of round ``r`` sees and strongly sees slot ``p`` of round
+    ``r - 1`` (an empty slot's event clipped to ``[0, n)``, as the
+    reference clips it; the kernel masks empty slots).  With ``col_pos``,
+    ``ssm`` is the column store and a witness without a column (-1) is
+    strongly seen by none."""
+    n = sees.shape[0]
+    we = wit_table.clamp(0, n - 1).to(torch.int64)
+    y, p = we[1:], we[:-1]
+    sp = _cells(sees, y, p)
+    if col_pos is None:
+        return sp, _cells(ssm, y, p)
+    ppos = col_pos.index_select(0, p.reshape(-1)).reshape(p.shape)
+    ss = _cells(ssm, y, ppos.clamp(0, ssm.shape[1] - 1).to(torch.int64))
+    return sp, ss & (ppos >= 0)[:, :, None]
+
+
+def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
+              coin_period, *, has_forks, col_pos=None):
+    """Virtual fame voting, exactly as the reference's ``fame_scan``.
+    Returns ``(famous int8 (R * S,), decided_at int32 (R * S,))`` over the
+    witness slots, row-major (round, slot): 1 famous, 0 not, -1 undecided,
+    and the table-local round whose tally first decided the slot (-1
+    undecided).
+
+    ``wit_table`` int32 ``(R, S)`` (-1 an empty slot); ``sees`` bool ``(n,
+    n)``; ``ssm`` bool, the full ``(n, n)`` strongly-sees matrix, or with
+    ``col_pos`` (int32 ``(n,)``, -1 no column) the column store ``(n,
+    C)``; either slab may be a group rank's row view
+    (``parallel.RowGather``); ``creator`` int32 and ``coin`` uint8 (the
+    packer's coin bits) ``(n,)``, ``stake`` int32 ``(M,)`` summing to
+    ``tot_stake``; ``coin_period`` >= 1.
+    On the card one kernel launch after the device ops of
+    :func:`_fame_cells` (on a row view one gather of the cells a slab), no
+    host pull; allocates the outputs and the ``2 (R - 1) S^2`` bytes of
+    cells."""
+    _check(wit_table, "wit_table", torch.int32, 2)
+    _check(_slab_tensor(sees), "sees", torch.bool, 2)
+    _check(_slab_tensor(ssm), "ssm", torch.bool, 2)
+    _check(creator, "creator", torch.int32, 1)
+    _check(coin, "coin", torch.uint8, 1)
+    _check(stake, "stake", torch.int32, 1)
+    r_max, s_max = wit_table.shape
+    n = sees.shape[0]
+    n_members = stake.shape[0]
+    if sees.shape[1] != n:
+        raise ValueError(f"fame_scan: sees must be square, got {tuple(sees.shape)}")
+    if min(n, r_max, s_max, n_members) < 1:
+        raise ValueError("fame_scan: empty slabs, witness table or stake")
+    if creator.shape[0] != n or coin.shape[0] != n:
+        raise ValueError(f"fame_scan: creator and coin must be ({n},)")
+    tensors = [wit_table, creator, coin, stake]
+    if col_pos is not None:
+        _check(col_pos, "col_pos", torch.int32, 1)
+        if col_pos.shape[0] != n or ssm.shape[0] != n or ssm.shape[1] < 1:
+            raise ValueError(f"fame_scan: col_pos must be ({n},) and the column "
+                             f"store ({n}, C), got {tuple(col_pos.shape)} and "
+                             f"{tuple(ssm.shape)}")
+        tensors.append(col_pos)
+    elif tuple(ssm.shape) != (n, n):
+        raise ValueError(f"fame_scan: the full matrix must be ({n}, {n}), got "
+                         f"{tuple(ssm.shape)}")
+    coin_period = int(coin_period)
+    if coin_period < 1:
+        raise ValueError(f"fame_scan: a coin period of {coin_period}")
+    tot_stake = check_stake_envelope(tot_stake)
+    on_cpu = _on_cpu(*tensors)
+    if {_slab_tensor(x).device for x in (sees, ssm)} != {wit_table.device}:
+        raise ValueError("fame_scan: the slabs lie on another device than the table")
+    if on_cpu:
+        return fame_scan_reference(
+            wit_table, sees, ssm, creator, coin, stake, tot_stake, coin_period,
+            has_forks=has_forks, col_pos=col_pos,
+        )
+    smem = _FS_SMEM_PER_SLOT * s_max
+    if smem > _FS_SMEM_LIMIT:
+        raise ValueError(f"fame_scan: {s_max} slots a round exceed a block's shared memory")
+    dev = wit_table.device
+    sp, ss = _fame_cells(wit_table, sees, ssm, col_pos)
+    famous = torch.empty((r_max * s_max,), dtype=torch.int8, device=dev)
+    dec = torch.empty((r_max * s_max,), dtype=torch.int32, device=dev)
+    threads = min(_FS_MAX_THREADS, (s_max + 31) // 32 * 32)
+    err = _launch(
+        dev, _c_function("fame_scan", "fame_scan_launch"),
+        wit_table.data_ptr(), sp.data_ptr(), ss.data_ptr(), creator.data_ptr(),
+        coin.data_ptr(), stake.data_ptr(), n, n_members, r_max, s_max, tot_stake,
+        coin_period, int(has_forks or tot_stake >= (1 << 24)), famous.data_ptr(),
+        dec.data_ptr(), threads, smem,
+    )
+    _raise_on(err, "fame_scan")
+    fame_scan.launches += 1
+    return famous, dec
+
+
+fame_scan.launches = 0
 
 
 # -------------------------------------------------------------- order_scan

@@ -27,9 +27,10 @@ sees (:func:`visibility_stage`), every boolean hop through
 :func:`order_scan` and host :func:`finalize_order`.
 
 JAX's scans become Python loops over tensor ops on the device, except the
-rounds scan and the order scan, which the reference jits as one device
-program a call and the port runs as one
+rounds scan, fame voting and the order scan, which the reference jits as
+one device program a call and the port runs as one
 :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` /
+:func:`~tpu_swirld_torch.gpu.kernels.fame_scan` /
 :func:`~tpu_swirld_torch.gpu.kernels.order_scan` launch a stage call.  The
 buffers JAX donated (the ancestry slab, the column store, the rounds carry)
 are updated in place.  Every gather index is clipped exactly where the
@@ -106,12 +107,6 @@ def _shape_guard(ok: bool, message: str) -> None:
 
 def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-
-
-def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain boolean matmul (0/1 float32 products, exact; TF32 is off) for
-    the fame tally, which the reference also leaves to a plain matmul."""
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32)) > 0.5
 
 
 # --------------------------------------------------------------- phase 1
@@ -290,85 +285,16 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
     int8[r_max*s_max] over witness slots (1 famous, 0 not, -1 undecided) and
     the round whose tally first decided each slot (-1 undecided).  With
     ``col_pos``, ``ssm`` is the column-restricted store and ``col_pos`` maps
-    each witness to its column; without, ``ssm`` is the full matrix."""
-    r_max, s_max = wit_table.shape
-    n = sees.shape[0]
-    n_members = stake.shape[0]
-    w_max = r_max * s_max
-    dev = sees.device
-    # The fast tally multiplies stake values into a float32 matmul, exact
-    # only while every sum stays below 2^24 (TF32 is off).  Forks need the
-    # per-creator OR.  Otherwise take the int32 per-creator path.
-    exact_tally = has_forks or tot_stake >= (1 << 24)
+    each witness to its column; without, ``ssm`` is the full matrix.
 
-    x_event = wit_table.reshape(-1)                     # W
-    x_valid = x_event >= 0
-    xe = x_event.clamp(0, n - 1)
-    x_round = torch.arange(w_max, dtype=torch.int32, device=dev) // s_max
-    marange = torch.arange(n_members, dtype=torch.int64, device=dev)
-    w_range = torch.arange(w_max, dtype=torch.int64, device=dev)
-
-    v_prev = torch.zeros((s_max, w_max), dtype=torch.bool, device=dev)
-    famous = torch.full((w_max,), -1, dtype=torch.int8, device=dev)
-    dec_at = torch.full((w_max,), -1, dtype=torch.int32, device=dev)
-    for ry in range(1, r_max):
-        y_idx = wit_table[ry]
-        y_valid = y_idx >= 0
-        ye = y_idx.clamp(0, n - 1)
-        d = ry - x_round                                # W
-        sees_yx = sees[ye][:, xe] & y_valid[:, None] & x_valid[None, :]
-        p_idx = wit_table[ry - 1]
-        p_valid = p_idx >= 0
-        pe = p_idx.clamp(0, n - 1)
-        if col_pos is None:
-            ssy = ssm[ye][:, pe]                        # S,S
-        else:
-            ppos = col_pos[pe]
-            ssy = ssm[ye][:, ppos.clamp(0, ssm.shape[1] - 1)] & (ppos >= 0)[None, :]
-        ssy = ssy & y_valid[:, None] & p_valid[None, :]
-        pcre = creator[pe]                              # S
-        pstake = torch.where(p_valid, stake[pcre], 0)
-        not_v = ~v_prev & p_valid[:, None]
-        if exact_tally:
-            # per-creator OR before stake-weighting (forked creators may
-            # have several witnesses in round ry-1)
-            onehot = (pcre[:, None] == marange[None, :]) & p_valid[:, None]
-            w1 = (ssy[:, None, :] & onehot.T[None, :, :]).reshape(
-                s_max * n_members, s_max
-            )                                           # (S*M),S
-            yes_c = _bmm(w1, v_prev).reshape(s_max, n_members, w_max)
-            no_c = _bmm(w1, not_v).reshape(s_max, n_members, w_max)
-            st = stake[None, :, None]
-            yes = (yes_c.to(torch.int32) * st).sum(1, dtype=torch.int32)
-            no = (no_c.to(torch.int32) * st).sum(1, dtype=torch.int32)
-        else:
-            sw = (ssy.to(torch.int32) * pstake[None, :]).to(torch.float32)
-            yes = torch.matmul(sw, v_prev.to(torch.float32)).to(torch.int32)
-            no = torch.matmul(sw, not_v.to(torch.float32)).to(torch.int32)
-        v_tally = yes >= no                             # S,W
-        super_ = 3 * torch.maximum(yes, no) > 2 * tot_stake
-        is_coin = (d % coin_period) == 0                # W
-        coin_y = (coin[ye] > 0)[:, None]                # S,1
-        vote = torch.where(
-            (d == 1)[None, :],
-            sees_yx,
-            torch.where(
-                is_coin[None, :], torch.where(super_, v_tally, coin_y), v_tally
-            ),
-        )
-        vote = vote & y_valid[:, None] & x_valid[None, :] & (d >= 1)[None, :]
-        eligible = (
-            super_ & y_valid[:, None] & (x_valid & (d >= 2) & ~is_coin)[None, :]
-        )
-        any_dec = eligible.any(0)                       # W
-        # argmax over ints returns the first maximal index ("first True")
-        first_y = torch.argmax(eligible.to(torch.int32), dim=0)
-        val = v_tally[first_y, w_range]
-        newly = (famous < 0) & any_dec
-        famous = torch.where(newly, val.to(torch.int8), famous)
-        dec_at = torch.where(newly, ry, dec_at)
-        v_prev = vote
-    return famous, dec_at
+    One :func:`~tpu_swirld_torch.gpu.kernels.fame_scan` call: on the card
+    one kernel launch and no host pull, as the reference's jitted scan is
+    one device program.  A group rank's row views (``parallel.RowGather``)
+    gather only the cells the kernel reads, once a call."""
+    return kernels.fame_scan(
+        wit_table.contiguous(), sees, ssm, creator, coin, stake, tot_stake,
+        coin_period, has_forks=has_forks, col_pos=col_pos,
+    )
 
 
 # --------------------------------------------------------------- phase 6

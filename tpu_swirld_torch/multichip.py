@@ -49,7 +49,7 @@ import torch
 from tpu_swirld_torch.device import resolve_device
 
 KERNEL_NAMES = ("bmm_or", "ssm_block", "ssm_matrix", "ssm_tally", "make_mesh_row_block_fn",
-                "rounds_scan", "order_scan")
+                "rounds_scan", "fame_scan", "order_scan")
 
 
 class RankFailure(RuntimeError):
@@ -433,7 +433,8 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     rows after each ingest (:func:`assert_row_sharded`).  Returns the
     result, each pass's stats, the driver's counters, the store's stats,
     the archive's digest and counters, the ingests' wall seconds (the
-    row checks included), and this rank's peak device bytes
+    row checks included), the driver's stage calls, and this rank's peak
+    device bytes
     above what it held before, in all and by stage (:func:`stage_peaks`;
     ``None`` on the CPU)."""
     from tpu_swirld_torch.packing import pack_events
@@ -465,6 +466,7 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
             "widen_rebases", "full_rebases", "rebases", "repins", "pruned_prefix",
             "_round_hi")}
         counters["forked"] = inc._sees_d is not inc._anc_d
+        stage_calls = dict(inc.stages.calls)
     finally:
         inc.store.close()
     events = [e for chunk in chunks for e in chunk]
@@ -472,7 +474,8 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     peaks = stage_peaks(monitor, base) if cuda else None
     return {"digest": result_digest(packed, result) + archive["digest"],
             "result": result, "passes": passes, "counters": counters, "store": store,
-            "archive": archive, "wall": wall, "stage_peaks": peaks,
+            "archive": archive, "wall": wall, "stage_calls": stage_calls,
+            "stage_peaks": peaks,
             "peak_bytes": max(peaks.values()) if cuda else None}
 
 

@@ -308,6 +308,18 @@ def gather_rows(mesh: GroupMesh, shard, idx):
     return _psum(mesh, [part]) > 0
 
 
+def gather_cells(mesh: GroupMesh, shard, rows, cols):
+    """Cells of a row-sharded bool slab, bool ``(R, S, S)`` on every rank:
+    ``out[r, p, y] = slab[rows[r, y], cols[r, p]]`` for int64 ``rows`` and
+    ``cols`` of shape ``(R, S)`` (every row in ``[0, W)``, every column in
+    the slab).  One gather of the cells alone, not of their rows."""
+    n_loc = shard.shape[0]
+    loc = rows - mesh.rank * n_loc
+    own = (loc >= 0) & (loc < n_loc)
+    part = shard[loc.clamp(0, n_loc - 1)[:, None, :], cols[:, :, None]] & own[:, None, :]
+    return _psum(mesh, [part.to(torch.int8)]) > 0
+
+
 def owner_write(mesh: GroupMesh, shard, row0: int, block, col0: int = 0):
     """Write ``block`` (every rank's same values) at global rows ``[row0,
     row0 + len(block))`` and columns from ``col0``: the rows this rank
@@ -373,11 +385,12 @@ class RowGather:
     whole slab's.  A read gathers its rows on every rank
     (:func:`gather_rows`): ``g[idx]`` (an index tensor), and ``g[a:b]`` or
     ``g[i]`` (an int) from the rows ``prefetch`` (``(start, stop)``)
-    gathered at once when they hold them, else one gather.  A write ``g[a:b] = block`` or
-    ``g[a:b, c:d] = block`` (every rank's same values) lands in the rows
-    this rank owns, in place (:func:`owner_write`).  Every rank must read
-    and write the same rows in the same order, as every rank runs the same
-    stage."""
+    gathered at once when they hold them, else one gather;
+    ``g.cells(rows, cols)`` gathers single cells (:func:`gather_cells`).
+    A write ``g[a:b] = block`` or ``g[a:b, c:d] = block`` (every rank's same
+    values) lands in the rows this rank owns, in place
+    (:func:`owner_write`).  Every rank must read and write the same rows in
+    the same order, as every rank runs the same stage."""
 
     def __init__(self, mesh: GroupMesh, shard, n_rows: int, prefetch=None):
         self.mesh, self.shard = mesh, shard
@@ -412,6 +425,11 @@ class RowGather:
             raise TypeError(f"a row view reads rows by int, slice or tensor, not {idx!r}")
         got = gather_rows(self.mesh, self.shard, idx.reshape(-1).to(torch.int64))
         return got.reshape(*idx.shape, self.shape[1])
+
+    def cells(self, rows, cols):
+        """``out[r, p, y] = slab[rows[r, y], cols[r, p]]``, bool ``(R, S,
+        S)``: one gather of the cells alone (:func:`gather_cells`)."""
+        return gather_cells(self.mesh, self.shard, rows, cols)
 
     def __setitem__(self, idx, block):
         rows, cols = idx if isinstance(idx, tuple) else (idx, slice(None))
