@@ -42,7 +42,9 @@
    its window (256 members), both overflow bits, and random small shapes
    (forks, both table routes, clipped indices, padding); a span whose
    rounds are all equal, whose witnesses are none or all, or that registers
-   nothing fails.  Its bound is bytes (each input read once); it is serial
+   nothing fails.  Its bound is bytes (each input read once: the table's
+   entries once with a check, else those of the rows the events query;
+   each registered slot written once); it is serial
    over events, so its rows also print ``ns_per_event`` (``card_ms`` over
    the span's events; each timed call restores the carry first; ``ms``
    and ``host_us`` take the parents from the host, as the stages do,
@@ -85,7 +87,9 @@
 4. Both batch paths on BASELINE configs 3 and 4 (64 members, 10 000 events,
    0 and 21 forkers): the port's gossip DAG through ``run_consensus(
    device="cuda")`` with the default column-restricted strongly-sees
-   (a warm-up run, then a measured one), with ``ssm_mode="full"`` (a warm-up,
+   (a warm-up run under a dispatch profiler, which prints the bytes the
+   pass pulls to the host in all and a rounds-chunk call, then a measured
+   one), with ``ssm_mode="full"`` (a warm-up,
    then a measured one) and with ``use_pallas_ssm=True`` (measured).  For
    each measured run: events/s, per-stage seconds and calls, and the kernel
    launch counts of that run (every kernel of the path > 0, the other
@@ -411,7 +415,7 @@ from tpu_swirld_torch.event import Event
 from tpu_swirld_torch.gpu import build, kernels
 from tpu_swirld_torch.gpu import incremental as inc_mod
 from tpu_swirld_torch.gpu.pipeline import (
-    fame_scan, prepare_inputs, run_consensus, visibility_stage,
+    fame_scan, prepare_inputs, run_consensus, table_check, visibility_stage,
 )
 from tpu_swirld_torch.membership.sim import churn_schedule
 from tpu_swirld_torch.net import cluster as net_cluster
@@ -1035,6 +1039,8 @@ ORDER_STAGES = ("pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
 FAME_STAGES = ("pipeline.fame_order_cols_stage", "pipeline.fame_order_stage",
                "pipeline.inc_fame")
 STAGE_CALLS = {"rounds_stage_calls": 0, "fame_stage_calls": 0, "order_stage_calls": 0}
+# rounds-stage calls on the card over the whole run (never reset)
+ROUNDS_CALLS_TOTAL = [0]
 _OBS_STAGE_CALL = obs._stage_call
 
 
@@ -1045,6 +1051,7 @@ def _on_card(x) -> bool:
 def _counting_stage_call(name, fused_chunks, fn, args, kw, device):
     if name in ROUNDS_STAGES and _on_card(args[1]):
         STAGE_CALLS["rounds_stage_calls"] += 1
+        ROUNDS_CALLS_TOTAL[0] += 1
     if name in FAME_STAGES and _on_card(args[0]):
         STAGE_CALLS["fame_stage_calls"] += 1
     if name in ORDER_STAGES and _on_card(args[0]):
@@ -1519,12 +1526,30 @@ class ScanCase:
     tot: int
     has_forks: bool
 
-    def run(self, fn, parents, carry=None):
+    def run(self, fn, parents, carry=None, **kw):
         carry = carry if carry is not None else tuple(x.clone() for x in self.carry)
         fn(parents, self.ssm_rows, self.col_pos, self.creator, self.stake, *carry,
            start=self.start, n_valid=self.n_valid, r_base=self.r_base,
-           tot_stake=self.tot, has_forks=self.has_forks)
+           tot_stake=self.tot, has_forks=self.has_forks, **kw)
         return carry
+
+
+def ballot_steps(parents, start, stop, warps, n) -> int:
+    """The steps ``rounds_scan``'s kernel takes over events ``[start,
+    stop)`` when no run is cut: runs of at most ``warps`` events whose
+    clipped parents lie before the run's first (its first event, genesis
+    and padding always join)."""
+    steps, i0 = 0, start
+    while i0 < stop:
+        k = 1
+        while k < warps and i0 + k < stop:
+            p1, p2 = (int(x) for x in parents[i0 + k])
+            if p1 >= 0 and not (min(p1, n - 1) < i0 and min(max(p2, 0), n - 1) < i0):
+                break
+            k += 1
+        steps += 1
+        i0 += k
+    return steps
 
 
 def full_scan_case(label, packed, sees, stake_np, n_members):
@@ -1619,42 +1644,60 @@ def random_scan_case(label, seed, *, n, n_members, r_max, s_max, has_forks, colu
                     start + length - length // 8, r_base, int(stake_np.sum()), has_forks)
 
 
-def scan_bytes(case, out) -> int:
+def scan_bytes(case, out, check: bool) -> int:
     """The bytes a scan over ``case`` must move, each input read once and
     each output written once: the span's parents and its rounds' reads and
     writes, the strongly-sees bits of the witnesses each event's parent row
-    held when it ran (this run's data), the table and counts in and out,
-    the stake, and each registered witness's creator (and column)."""
-    rnd, _w, tab, _c, _o = (x.cpu().numpy() for x in out)
+    held when it ran (this run's data), the table entries it reads (the
+    whole table's once with a ``check``, which lists every witness without
+    a column; else only those of the rows the events query), each with its
+    creator (and column), the counts in and out, the stake, each registered
+    slot with its creator (and column), and the check it writes."""
+    rnd, _w, tab, cnt, _o = (x.cpu().numpy() for x in out)
+    tab_in = case.carry[2].cpu().numpy()
     r_max, s_max = tab.shape
     length = case.ssm_rows.shape[0]
-    gathered = 0
+    gathered, queried = 0, set()
     for i in range(case.start, min(case.start + length, case.n_valid)):
         p1, p2 = case.parents[i]
         if p1 < 0:
             continue
         row = max(rnd[min(p1, rnd.size - 1)], rnd[min(max(p2, 0), rnd.size - 1)]) - case.r_base
         if 0 <= row < r_max:
+            queried.add(int(row))
             gathered += int(((tab[row] >= 0) & (tab[row] < i)).sum())
+    filled = tab_in >= 0
+    read = int(filled.sum()) if check else int(filled[sorted(queried)].sum())
+    registered = max(int((tab >= 0).sum()) - int(filled.sum()), 0)
     per_witness = 8 if case.col_pos is not None else 4
-    return (17 * length + gathered + 8 * (r_max * s_max + r_max)
-            + 4 * case.stake.shape[0] + per_witness * int((tab >= 0).sum()))
+    listed = 0
+    if check and case.col_pos is not None:
+        col_pos = case.col_pos.cpu().numpy()
+        listed = int((col_pos[np.minimum(np.unique(tab[tab >= 0]), rnd.size - 1)] < 0).sum())
+    return (17 * length + gathered + (4 + per_witness) * (read + registered)
+            + 8 * r_max + 4 * case.stake.shape[0]
+            + (4 * (kernels.CHECK_HEAD + listed) if check else 0))
 
 
 def check_rounds_scan(packs, slabs, c5, failures):
     """``rounds_scan`` against its plain version on the card, all five
-    carry outputs exactly.  Fixed shapes: the full path over config 3's and
-    config 4's whole padded DAGs (N = 10 112, config 4 with non-uniform
-    stake), the 128-event columns chunk of config 3's second half that
-    registers the most witnesses (every seventh witness's column absent), a 1024-event span
-    of config 3 from there with ``r_base`` > 0, config 5's last ingest of
-    its ``C5_WINDOW`` window (256 members, 2048 events, ``r_base`` > 0), and
-    the two overflow cases (that chunk with its top witness round one row
-    past the table, then with its top row's slots already full).  Then random small
-    shapes (forks or not, both table routes, clipped indices, padding).
-    Each fixed shape is timed beside its plain version and its bound; the
+    carry outputs and the check buffer exactly.  Fixed shapes: the full
+    path over config 3's and config 4's whole padded DAGs (N = 10 112,
+    config 4 with non-uniform stake), the 128-event columns chunk of config
+    3's second half that registers the most witnesses (every seventh
+    witness's column absent), a 1024-event span of config 3 from there with
+    ``r_base`` > 0, the config-4 columns chunk that holds a fork pair of two
+    witnesses of one round in one run, config 5's last ingest of its
+    ``C5_WINDOW`` window (256 members, 2048 events, ``r_base`` > 0), and the
+    two overflow cases (that chunk with its top witness round one row past
+    the table, then with its top row's slots already full).  Then random
+    small shapes (forks or not, both table routes, clipped indices,
+    padding; their runs may be cut).  Each fixed shape is timed beside its
+    plain version and its bound, with its steps (runs of events), which
+    must be the ballot's (``ballot_steps``: no run of a DAG is cut); the
     span outputs must not be all equal and must register a witness (an
-    overflow case must set its bit)."""
+    overflow case must set its bit), and a columns case's check must find
+    a missing witness."""
     dev = slabs["config3"].device
     rng = np.random.default_rng(SEED)
     stake4 = rng.integers(1, 6, N_MEMBERS).astype(np.int32)
@@ -1663,6 +1706,7 @@ def check_rounds_scan(packs, slabs, c5, failures):
     c4 = full_scan_case("config4 full N=10112, stake 1-5", packs["config4"],
                         slabs["config4"], stake4, N_MEMBERS)
     c3_out = c3.run(kernels.rounds_scan, torch.as_tensor(c3.parents, device=dev))
+    c4_out = c4.run(kernels.rounds_scan, torch.as_tensor(c4.parents, device=dev))
     c5_packed, c5_sees = c5
     c5_full = full_scan_case("config5 window", c5_packed, c5_sees, c5_packed.stake,
                              C5_MEMBERS)
@@ -1683,11 +1727,27 @@ def check_rounds_scan(packs, slabs, c5, failures):
     top = int(rnd3[mid : mid + 128][wits3[mid : mid + 128]].max())
     filled = int(((tab3[top] >= 0) & (tab3[top] < mid)).sum())
     c3_base = max(low - 3, 1)
+    # config 4's first fork pair whose two events both become witnesses of
+    # one round and make one run (the second's parents below the first):
+    # the 128-event chunk that holds it, forks on the columns path
+    rnd4, wits4 = (x.cpu().numpy() for x in c4_out[:2])
+    par4 = c4.parents
+    pair = next(((a, b) for _m, a, b in
+                 sorted((m, min(a, b), max(a, b)) for m, a, b in packs["config4"].fork_pairs)
+                 if b == a + 1 and wits4[a] and wits4[b] and rnd4[a] == rnd4[b]
+                 and par4[b, 0] < a and max(par4[b, 1], 0) < a and a % 128 < 127), None)
+    if pair is None:
+        failures.append("rounds_scan: config 4 has no fork pair of two witnesses of one "
+                        "round in one run")
+        pair = (packs["config4"].fork_pairs[0][1], packs["config4"].fork_pairs[0][2])
+    pair_start = pair[0] // 128 * 128
     fixed = [
         c3, c4,
         span_case("config3 columns chunk 128", c3, c3_out, mid, 128),
         span_case(f"config3 span 1024, r_base {c3_base}", c3, c3_out, mid, 1024,
                   r_base=c3_base),
+        span_case(f"config4 columns chunk 128, fork pair {pair[0]}-{pair[1]} in one run",
+                  c4, c4_out, pair_start, 128),
         span_case(f"config5 window {C5_WINDOW} last ingest 2048, r_base {c5_base}",
                   c5_full, c5_out, C5_BLOCK["row0"], C5_BLOCK["rows"], r_base=c5_base,
                   r_max=c5_rows, s_max=C5_MEMBERS + 1),
@@ -1717,18 +1777,22 @@ def check_rounds_scan(packs, slabs, c5, failures):
                              + [(c, None, False) for c in randoms]):
         length = case.ssm_rows.shape[0]
         r_max, s_max = case.carry[2].shape
-        route, _smem = kernels.rounds_scan_route(r_max, s_max, case.stake.shape[0],
-                                                 case.has_forks)
+        # the plan of the launch held against the plain version (it writes a check)
+        route = kernels.rounds_scan_plan(r_max, s_max, case.stake.shape[0], case.has_forks,
+                                         kernels.CHECK_CAP).route
         par_d = torch.as_tensor(case.parents, device=dev)
-        got = case.run(kernels.rounds_scan, par_d)
+        check_got, check_want = kernels.new_check(dev), kernels.new_check(dev)
+        stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+        got = case.run(kernels.rounds_scan, par_d, check=check_got, stats=stats)
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        want = case.run(kernels.rounds_scan_reference, case.parents)
+        want = case.run(kernels.rounds_scan_reference, case.parents, check=check_want)
         t1.record()
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
+        got, want = (*got, check_got), (*want, check_want)
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
@@ -1736,12 +1800,24 @@ def check_rounds_scan(packs, slabs, c5, failures):
         rnd_span, wit_span = want[0][span], want[1][span]
         registered = int(want[3].sum()) - int(case.carry[3].sum())
         ovf = int(want[4][0])
-        print(f"rounds_scan {case.label}: equal {same}, route {route}, rounds "
-              f"{int(rnd_span.min())}-{int(rnd_span.max())}, witnesses "
-              f"{int(wit_span.sum())} of {length}, registered {registered}, overflow {ovf}",
+        chk = check_want.cpu().numpy()
+        steps, cuts = (int(x) for x in stats.cpu())
+        n = case.carry[0].shape[0]
+        stop = min(case.start + length, max(case.n_valid, case.start))
+        predicted = ballot_steps(case.parents, case.start, stop,
+                                 kernels.RS_WARPS, n)
+        print(f"rounds_scan {case.label}: equal {same} (five outputs and the check), route "
+              f"{route}, rounds {int(rnd_span.min())}-{int(rnd_span.max())}, witnesses "
+              f"{int(wit_span.sum())} of {length}, registered {registered}, overflow {ovf}, "
+              f"check: {int(chk[1])} missing, affected {int(chk[2])}; steps {steps} "
+              f"({stop - case.start} events, ballot {predicted}), runs cut {cuts}",
               flush=True)
         if not same:
             failures.append(f"rounds_scan {case.label}: kernel != plain version")
+        if timed and (cuts or steps != predicted):
+            # a DAG's runs hold no strongly-sees edge inside: none is cut
+            failures.append(f"rounds_scan {case.label}: {steps} steps, {cuts} cut, not the "
+                            f"ballot's {predicted}")
         if bit is not None:
             if not ovf & bit:
                 failures.append(f"rounds_scan {case.label}: overflow {ovf} lacks bit {bit}")
@@ -1751,27 +1827,34 @@ def check_rounds_scan(packs, slabs, c5, failures):
                             "kernel (one round, all or no witnesses, nothing registered)")
         if not timed:
             continue
+        if case.col_pos is not None and int(chk[1]) == 0:
+            failures.append(f"rounds_scan {case.label}: a check that finds no missing "
+                            "witness could not tell a wrong epilogue")
         work = tuple(x.clone() for x in case.carry)
+        # as the main path calls it: a check on the columns path only
+        check_kw = {} if case.col_pos is None else {"check": check_got}
 
-        def call(case=case, par_d=par_d, work=work):
+        def call(case=case, par_d=par_d, work=work, check_kw=check_kw):
             for w, x in zip(work, case.carry):
                 w.copy_(x)
-            case.run(kernels.rounds_scan, par_d, work)
+            case.run(kernels.rounds_scan, par_d, work, **check_kw)
 
-        def host_call(case=case, work=work):
+        def host_call(case=case, work=work, check_kw=check_kw):
             for w, x in zip(work, case.carry):
                 w.copy_(x)
-            case.run(kernels.rounds_scan, case.parents, work)
+            case.run(kernels.rounds_scan, case.parents, work, **check_kw)
 
         c_ms = card_ms(call, 5)
-        bnd = scan_bytes(case, want) / HBM_BYTES_PER_S * 1e3
-        row = {"case": case.label, "N": case.carry[0].shape[0], "events": length,
+        bnd = scan_bytes(case, want[:5], bool(check_kw)) / HBM_BYTES_PER_S * 1e3
+        row = {"case": case.label, "N": n, "events": length,
                "C": case.ssm_rows.shape[1], "r_max": r_max, "s_max": s_max,
                "M": case.stake.shape[0], "forks": case.has_forks, "route": route,
                "max_abs_err": err, "ms": time_ms(host_call, 5),
-               "host_us": host_us(lambda: case.run(kernels.rounds_scan, case.parents, work),
-                                  20),
+               "host_us": host_us(lambda: case.run(kernels.rounds_scan, case.parents, work,
+                                                   **check_kw), 20),
                "card_ms": c_ms, "ns_per_event": c_ms * 1e6 / length,
+               "steps": steps, "ns_per_step": c_ms * 1e6 / max(steps, 1),
+               "check": bool(check_kw),
                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes"}
         print("rounds_scan", json.dumps(row), flush=True)
         rows.append(row)
@@ -2266,12 +2349,22 @@ def check_launches(tag, launches, needs, never, failures):
 
 def run_main_path(name, packed, path, failures):
     """One measured ``run_consensus`` on the card through ``path`` (after a
-    warm-up where the path asks for one).  Returns the kernel launches and
-    the events/s of the measured run."""
+    warm-up where the path asks for one; the columns path's warm-up runs
+    under a dispatch profiler, which counts the bytes it pulls to the host,
+    in all and a rounds-chunk call).  Returns the kernel launches and the
+    events/s of the measured run."""
     kw, warm, needs, never = PATHS[path]
     label = f"{name} {path}"
     cfg = SwirldConfig(n_members=N_MEMBERS)
-    if warm:
+    if warm and path == "columns":
+        prof = DispatchProfiler()
+        with obs.enabled(obs.Obs(profiler=prof)):
+            warm_res = run_consensus(packed, cfg, device="cuda", **kw)
+        chunk_calls = warm_res.timings["stage_calls"].get("pipeline.rounds_chunk_stage", 0)
+        print(f"{label}: D2H {prof.d2h_bytes} bytes a pass, H2D {prof.h2d_bytes}; "
+              f"{chunk_calls} rounds-chunk calls, {prof.d2h_bytes / max(chunk_calls, 1)} "
+              "D2H bytes a call", flush=True)
+    elif warm:
         run_consensus(packed, cfg, device="cuda", **kw)
     reset_launches()
     torch.cuda.synchronize()
@@ -4898,6 +4991,9 @@ def main() -> int:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
         return 1
+    print(f"rounds check: {table_check.calls} of the {ROUNDS_CALLS_TOTAL[0]} rounds-stage "
+          "calls on the card in this process read the table (their check list was full)",
+          flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_script} s from the build to "
           "the last check", flush=True)
     print(smi, flush=True)

@@ -317,6 +317,22 @@ def test_lattice_soundness_seed_sweep(engine):
 # ----------------------------------------------------- the shipped tree
 
 
+def test_rounds_specs_model_the_check_buffer():
+    """The chunk and span specs hand their stage the check buffer the
+    drivers read back (``kernels.new_check``), and the audit of its
+    epilogue finds nothing; the full path's scan writes none."""
+    from tpu_swirld_torch.gpu import kernels
+
+    env = E.get_envelope("baseline")
+    by_id = {s.spec_id: s for s in stages.CATALOG}
+    for spec_id in ("batch.rounds_chunk", "inc.rounds_chunk", "inc.rounds_span"):
+        check = by_id[spec_id].build(env).kwargs["check"]
+        assert check.shape == (kernels.CHECK_HEAD + kernels.CHECK_CAP,)
+        assert check.dtype == torch.int32
+        assert not stages.run_spec(by_id[spec_id], env).findings, spec_id
+    assert "check" not in by_id["batch.rounds"].build(env).kwargs
+
+
 def test_baseline_proven_clean():
     rep = _audit("baseline")
     assert rep.exit_code == 0 and rep.clean, rep.render()

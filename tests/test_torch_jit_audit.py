@@ -56,6 +56,28 @@ def _tree(tmp_path, body):
     return str(tmp_path)
 
 
+def test_rounds_loops_pull_only_the_check_buffer(tmp_path):
+    """Each driver loop around the rounds stages pulls one check buffer a
+    call; the table and the rounds only through ``table_check``, when a
+    check list overflowed.  A loop that pulls the table again is seen."""
+    want_fallback = ["tab", "rnd"]
+    assert jit_audit.rounds_loop_pulls(str(ROOT)) == {
+        "_columns_pass": {"per_call": ["check"], "fallback": want_fallback},
+        "_rounds_span_fixpoint": {"per_call": ["check"], "fallback": want_fallback},
+        "_rounds_chunk_loop": {"per_call": ["check"], "fallback": want_fallback},
+    }
+    root = _tree(tmp_path, (
+        "def _columns_pass(stages, out, chk):\n"
+        "    for start in range(4):\n"
+        "        out = stages.stage_call('pipeline.rounds_chunk_stage', f, out)\n"
+        "        tab = to_host(out[2])\n"
+        "        c = to_host(chk)\n"
+    ))
+    assert jit_audit.rounds_loop_pulls(root) == {
+        "_columns_pass": {"per_call": ["out[2]", "chk"], "fallback": []}}
+    assert jit_audit.main(["--root", root, "--static-only"]) == 1
+
+
 def test_static_audit_catches_item_in_a_stage_body(tmp_path):
     root = _tree(tmp_path, (
         "def stage(x):\n"
@@ -191,6 +213,7 @@ def test_jit_audit_cli(tmp_path, capsys):
     assert jit_audit.main(["--root", str(ROOT), "--device", "cpu", "--json"]) == 0
     rep = json.loads(capsys.readouterr().out)
     assert rep["ok"] and rep["runtime"]["ok"] and rep["static"] == []
+    assert rep["rounds_pulls"] == jit_audit.rounds_loop_pulls(str(ROOT))
     root = _tree(tmp_path, (
         "def stage(x):\n    return int(x.max())\n\n"
         "def driver(stages, x):\n    return stages.stage_call('s', stage, x)\n"

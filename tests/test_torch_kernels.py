@@ -196,3 +196,24 @@ def test_build_key_covers_shared_headers(tmp_path, monkeypatch, name):
     assert edited != before
     (csrc / "another.cuh").write_text("// a new header\n")
     assert build.library_path(name) not in (before, edited)
+
+
+def test_launch_argtypes_match_the_sources():
+    """Each ctypes signature in ``kernels._ARGTYPES`` matches its
+    ``extern "C"`` function in ``gpu/csrc``: a pointer where the source
+    takes a pointer, an ``int`` where it takes an ``int``, in order (a
+    mismatch shows only on the card, as a refused call or a garbled one)."""
+    import ctypes
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(kernels.__file__).parent / "csrc"
+    sources = {p: p.read_text() for p in csrc.glob("*.cu")}
+    for name, argtypes in kernels._ARGTYPES.items():
+        found = [m for text in sources.values()
+                 for m in re.findall(r'extern "C" int ' + name + r"\(([^)]*)\)", text)]
+        assert len(found) == 1, name
+        params = [p.strip() for p in found[0].split(",")]
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        assert all(p.startswith(("const void*", "void*", "int ")) for p in params), name
+        assert argtypes == want, name

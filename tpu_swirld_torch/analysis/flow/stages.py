@@ -27,6 +27,11 @@ input                   declared interval (driver invariant)
 ``col_pos`` / ``cols``  ``[-1, C-1]`` / ``[-1, N-1]`` — -1 = no column
 ``rnd`` / ``max_round`` ``[0, N-1]`` — a round index never exceeds the
                         event count (each round needs a fresh witness)
+``check``               ``[-1, N-1]`` — the rounds scan's witness-column
+                        check (``kernels.new_check``), written whole by
+                        every chunk and span call: the drivers read it in
+                        place of the table and the rounds, so no rounds
+                        stage pulls either
 ======================  ====================================================
 
 Host arguments take the values that reach the most code: the rounds
@@ -285,6 +290,13 @@ def _rounds_chunk_args(parents_np, n, c, m, r, s, smax, n_valid, start,
     )
 
 
+def _check_arg(n):
+    """The check buffer a chunk or span call writes (``kernels.new_check``)."""
+    from tpu_swirld_torch.gpu import kernels
+
+    return _arr((kernels.CHECK_HEAD + kernels.CHECK_CAP,), _I32, -1, n - 1)
+
+
 def _b_rounds_chunk(env):
     from tpu_swirld_torch.gpu import pipeline as P
 
@@ -296,7 +308,7 @@ def _b_rounds_chunk(env):
         _rounds_chunk_args(host_parents(N), N, C, M, R, S, d["smax"], N - 1,
                            N - chunk, N - 1) + (0,),
         dict(tot_stake=d["tot"], r_max=R, s_max=S, has_forks=True,
-             chunk=chunk),
+             chunk=chunk, check=_check_arg(N)),
     )
 
 
@@ -445,7 +457,7 @@ def _i_rounds_chunk(env):
         _rounds_chunk_args(host_parents(W), W, C, M, R, S, d["smax"], W - 1,
                            W - chunk, N - 1) + (max(N - 1 - R, 0),),
         dict(tot_stake=d["tot"], r_max=R, s_max=S, has_forks=True,
-             chunk=chunk),
+             chunk=chunk, check=_check_arg(W)),
     )
 
 
@@ -464,7 +476,7 @@ def _i_rounds_span(env):
         _rounds_chunk_args(host_parents(W), W, C, M, R, S, d["smax"], W - 1,
                            W - chunk * k_chunks, N - 1) + (max(N - 1 - R, 0),),
         dict(tot_stake=d["tot"], r_max=R, s_max=S, has_forks=True,
-             chunk=chunk, k_chunks=k_chunks),
+             chunk=chunk, k_chunks=k_chunks, check=_check_arg(W)),
     )
 
 

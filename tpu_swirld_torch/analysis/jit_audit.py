@@ -19,6 +19,13 @@ module audits all three:
   A stage body is the module-level ``def`` whose name a kernel module
   passes as the function argument of a stage call; pulls *between* stage
   calls are not inside a body and are not findings.
+- :func:`rounds_loop_pulls`: the host pulls of the drivers' loops around
+  the rounds stages (``_columns_pass``, ``_rounds_span_fixpoint``,
+  ``_rounds_chunk_loop``).  Each call writes one check buffer
+  (``kernels.new_check``), and each loop must pull only that, once a call
+  (``pipeline.scan_check``); the table and the rounds are pulled only by
+  ``pipeline.table_check``, the fallback for a call whose check list
+  overflowed.
 - :func:`runtime_audit`: drives a windowed driver (``engine``:
   :class:`~tpu_swirld_torch.gpu.incremental.IncrementalConsensus`,
   :class:`~tpu_swirld_torch.store.streaming.StreamingConsensus`, or
@@ -134,6 +141,89 @@ def static_audit(root: str = ".") -> List[Dict]:
                             "stage": fn.name, "message": msg,
                         })
     return findings
+
+
+# ------------------------------------------------------- rounds loop pulls
+
+#: the drivers' loops around the rounds stages: (module, function)
+_ROUNDS_LOOPS = (
+    ("tpu_swirld_torch/gpu/pipeline.py", "_columns_pass"),
+    ("tpu_swirld_torch/gpu/incremental.py", "_rounds_span_fixpoint"),
+    ("tpu_swirld_torch/gpu/incremental.py", "_rounds_chunk_loop"),
+)
+_ROUNDS_STAGES = {"pipeline.rounds_chunk_stage", "pipeline.rounds_span_stage"}
+#: the function that reads the table and the rounds when a check list
+#: overflowed
+_CHECK_FALLBACK = "table_check"
+
+
+def _defs(trees) -> Dict[str, ast.FunctionDef]:
+    """Every module-level function and class method of the kernel modules,
+    by name."""
+    out: Dict[str, ast.FunctionDef] = {}
+    for tree in trees.values():
+        for node in tree.body:
+            if isinstance(node, ast.FunctionDef):
+                out.setdefault(node.name, node)
+            elif isinstance(node, ast.ClassDef):
+                for item in node.body:
+                    if isinstance(item, ast.FunctionDef):
+                        out.setdefault(item.name, item)
+    return out
+
+
+def _dispatches_rounds(loop: ast.AST) -> bool:
+    for node in ast.walk(loop):
+        if (isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value in _ROUNDS_STAGES):
+            return True
+    return False
+
+
+def _pulls(body: List[ast.AST], defs, seen, fallback: bool, out) -> None:
+    """``to_host`` arguments in ``body`` and in the kernel-module functions
+    it calls (by name, each once), into ``out["per_call"]`` or, under
+    :data:`_CHECK_FALLBACK`, ``out["fallback"]``."""
+    for stmt in body:
+        for node in ast.walk(stmt):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", None)
+            if name == "to_host" and node.args:
+                out["fallback" if fallback else "per_call"].append(ast.unparse(node.args[0]))
+            elif name in defs and name not in seen:
+                seen.add(name)
+                _pulls(defs[name].body, defs, seen, fallback or name == _CHECK_FALLBACK, out)
+
+
+def rounds_loop_pulls(root: str = ".") -> Dict[str, Dict[str, List[str]]]:
+    """For each loop function of :data:`_ROUNDS_LOOPS`, the host pulls made
+    in its innermost loop that dispatches a rounds stage (``{"per_call":
+    [...], "fallback": [...]}``, each pull its argument's source)."""
+    trees = {}
+    for rel in _KERNEL_MODULES:
+        path = os.path.join(root, rel)
+        if os.path.exists(path):
+            with open(path, "r", encoding="utf-8") as f:
+                trees[rel] = ast.parse(f.read(), filename=path)
+    defs = _defs(trees)
+    report: Dict[str, Dict[str, List[str]]] = {}
+    for _rel, fname in _ROUNDS_LOOPS:
+        if fname not in defs:
+            continue
+        loops = [node for node in ast.walk(defs[fname])
+                 if isinstance(node, (ast.For, ast.While)) and _dispatches_rounds(node)]
+        inner = [lp for lp in loops
+                 if not any(o is not lp and _dispatches_rounds(o)
+                            for child in lp.body for o in ast.walk(child)
+                            if isinstance(o, (ast.For, ast.While)))]
+        out: Dict[str, List[str]] = {"per_call": [], "fallback": []}
+        for lp in inner:
+            _pulls(lp.body, defs, {fname}, False, out)
+        report[fname] = out
+    return report
 
 
 # ------------------------------------------------------------ signatures
@@ -315,8 +405,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
-    report: Dict[str, Any] = {"static": static_audit(args.root)}
-    ok = not report["static"]
+    report: Dict[str, Any] = {"static": static_audit(args.root),
+                              "rounds_pulls": rounds_loop_pulls(args.root)}
+    ok = not report["static"] and all(
+        len(p["per_call"]) == 1 for p in report["rounds_pulls"].values())
     if not args.static_only:
         rt = runtime_audit(
             n_members=args.members, n_events=args.events, seed=args.seed,
@@ -330,6 +422,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     else:
         for f in report["static"]:
             print(f"{f['path']}:{f['line']}: {f['message']}")
+        for fname, p in report["rounds_pulls"].items():
+            print(f"rounds loop {fname}: pulls a call {p['per_call']}, "
+                  f"on a full check list {p['fallback']}")
         if "runtime" in report:
             rt = report["runtime"]
             print(f"stages observed: {len(rt['stages_observed'])}")

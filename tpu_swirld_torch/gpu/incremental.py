@@ -60,6 +60,7 @@ from tpu_swirld_torch.gpu.pipeline import (
     order_scan,
     prepare_inputs,
     rounds_chunk_stage,
+    scan_check,
 )
 from tpu_swirld_torch.packing import Packer
 
@@ -216,16 +217,18 @@ def compact_cols_stage(ssm_c, keep_cols):
 
 def rounds_span_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
                       rnd, wits, tab, cnt, overflow, start, r_base, *,
-                      tot_stake, r_max, s_max, has_forks, chunk, k_chunks):
+                      tot_stake, r_max, s_max, has_forks, chunk, k_chunks,
+                      check=None):
     """``k_chunks`` chunks of the rounds scan in one call (events [start,
     start + chunk * k_chunks)): one
     :func:`~tpu_swirld_torch.gpu.pipeline.rounds_chunk_stage` of that
-    length.  The carry is copied first, as there, so a probe can be re-run
-    from the same carry."""
+    length, its ``check`` included.  The carry is copied first, as there,
+    so a probe can be re-run from the same carry."""
     return rounds_chunk_stage(
         parents_np, ssm_c, col_pos, creator, stake, n_valid,
         rnd, wits, tab, cnt, overflow, start, r_base, tot_stake=tot_stake,
         r_max=r_max, s_max=s_max, has_forks=has_forks, chunk=chunk * k_chunks,
+        check=check,
     )
 
 
@@ -839,12 +842,6 @@ class IncrementalConsensus:
 
     # ------------------------------------------------------- extend pass
 
-    def _missing_columns(self, tab: torch.Tensor) -> np.ndarray:
-        """Witnesses registered in ``tab`` that have no column yet."""
-        tab_h = to_host(tab)
-        registered = np.unique(tab_h[tab_h >= 0])
-        return registered[self._colpos_w[registered] < 0]
-
     def _rounds_span_fixpoint(self, creator_d, stake_d, n_valid, has_forks,
                               w0, n_pad_new):
         """Fused rounds scan: spans of up to ``self._fuse`` chunks per call
@@ -854,56 +851,61 @@ class IncrementalConsensus:
         its sticky overflow bit is set).
 
         Every probe re-runs the span from the same carry, uploaded from the
-        host mirrors once per span and never written (the stage copies
-        it), and is accepted only when every witness registered
-        in its table already had a column for the whole run.  A missing
-        column reads as not-strongly-seen (under-promotion only), so an
-        accepted probe consumed nothing a fully informed run would not: its
-        outputs equal the per-chunk loop's.  Each failed probe adds >= 1
-        column, so the loop ends within span_len probes."""
+        host mirrors for the first span and then the previous span's
+        accepted carry on the card, never written (the stage copies it),
+        and is accepted only when every witness registered in its table
+        already had a column for the whole run (the call's check buffer,
+        one pull a probe).  A missing column reads as not-strongly-seen
+        (under-promotion only), so an accepted probe consumed nothing a
+        fully informed run would not: its outputs equal the per-chunk
+        loop's.  Each failed probe adds >= 1 column, so the loop ends
+        within span_len probes."""
         chunk = self._chunk
         n_chunks = n_pad_new // chunk
-        carry_h = (self._rnd_w, self._wits_w, self._tab_np, self._cnt_np)
+        dev = self.device
+        carry = tuple(_upload(a, dev) for a in
+                      (self._rnd_w, self._wits_w, self._tab_np, self._cnt_np))
+        check = kernels.new_check(dev)
         state = None
         ci = 0
         while ci < n_chunks:
             k = min(self._fuse, n_chunks - ci)
             start = w0 + ci * chunk
             span_len = k * chunk
-            fresh = tuple(_upload(a, self.device) for a in carry_h)
-            overflow0 = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            overflow0 = torch.zeros((1,), dtype=torch.int32, device=dev)
             for _attempt in range(span_len + 1):
                 out = self.stages.stage_call_fused(
                     "pipeline.rounds_span_stage", k, rounds_span_stage,
                     self._parents_w, self._rows(self._ssm_d, (start, start + span_len)),
-                    _upload(self._colpos_w, self.device), creator_d, stake_d,
-                    n_valid, *fresh, overflow0,
+                    _upload(self._colpos_w, dev), creator_d, stake_d,
+                    n_valid, *carry, overflow0,
                     start, self._r_base, tot_stake=self._tot,
                     r_max=self._r_cap, s_max=self._s_cap, has_forks=has_forks,
-                    chunk=chunk, k_chunks=k,
+                    chunk=chunk, k_chunks=k, check=check,
                 )
                 self.scan_steps += span_len
-                missing = self._missing_columns(out[2])
+                ovf, missing, _affected = scan_check(
+                    check, out, self._colpos_w, self._parents_w, start, span_len)
                 if missing.size == 0:
                     state = out
                     break
                 self._add_columns([int(e) for e in missing])
             else:
                 raise RuntimeError("witness-column span did not converge")
-            if int(to_host(state[4])[0]):
+            if ovf:
                 return None
             ci += k
-            if ci < n_chunks:
-                # the next span resumes from this span's accepted carry,
-                # pulled to owned host arrays once per span
-                carry_h = tuple(to_host(x, copy=True) for x in state[:4])
+            # the next span resumes from this span's accepted carry
+            carry = state[:4]
         return state
 
     def _rounds_chunk_loop(self, creator_d, stake_d, n_valid, has_forks, w0,
                            n_pad_new):
         """The per-chunk rounds loop (``fuse_chunks <= 1``): each chunk re-runs
         only when a witness it registered without a column was queried by a
-        later event of the same chunk."""
+        later event of the same chunk (the call's check buffer, one pull a
+        call).  Returns the final carry, or ``None`` when its sticky
+        overflow word is set (the caller rebases)."""
         chunk = self._chunk
         dev = self.device
         state = (
@@ -911,6 +913,7 @@ class IncrementalConsensus:
             _upload(self._tab_np, dev), _upload(self._cnt_np, dev),
             torch.zeros((1,), dtype=torch.int32, device=dev),
         )
+        check = kernels.new_check(dev)
         for start in range(w0, w0 + n_pad_new, chunk):
             for _attempt in range(chunk + 1):
                 out = self.stages.stage_call(
@@ -920,33 +923,21 @@ class IncrementalConsensus:
                     n_valid, *state, start, self._r_base,
                     tot_stake=self._tot, r_max=self._r_cap,
                     s_max=self._s_cap, has_forks=has_forks, chunk=chunk,
+                    check=check,
                 )
                 self.scan_steps += chunk
-                missing = self._missing_columns(out[2])
+                ovf, missing, affected = scan_check(
+                    check, out, self._colpos_w, self._parents_w, start, chunk)
                 if missing.size == 0:
                     state = out
                     break
-                rnd_np = to_host(out[0])
-                ce = np.arange(start, start + chunk, dtype=np.int64)
-                pc = self._parents_w[ce]
-                r0 = np.where(
-                    pc[:, 0] < 0,
-                    -1,
-                    np.maximum(rnd_np[np.maximum(pc[:, 0], 0)],
-                               rnd_np[np.maximum(pc[:, 1], 0)]),
-                )
-                affected = False
-                for w in missing:
-                    if w < start or np.any((ce > w) & (r0 == rnd_np[w])):
-                        affected = True
-                        break
                 self._add_columns([int(e) for e in missing])
                 if not affected:
                     state = out
                     break
             else:
                 raise RuntimeError("witness-column chunk did not converge")
-        return state
+        return None if ovf else state
 
     def _rows(self, slab, prefetch=None):
         """A carried slab as a stage reads and writes it by global row: the
@@ -1065,25 +1056,18 @@ class IncrementalConsensus:
             )
         self._rows_hi = w0 + n_pad_new
 
-        # ---- resumed rounds scan over the new events only
-        if self._fuse > 1:
-            state = self._rounds_span_fixpoint(
-                creator_d, stake_d, n_valid, has_forks, w0, n_pad_new,
-            )
-            if state is None:
-                return [], True
-        else:
-            state = self._rounds_chunk_loop(
-                creator_d, stake_d, n_valid, has_forks, w0, n_pad_new,
-            )
+        # ---- resumed rounds scan over the new events only; a round/slot
+        # overflow rebases, which self-heals the capacity
+        rounds_loop = (self._rounds_span_fixpoint if self._fuse > 1
+                       else self._rounds_chunk_loop)
+        state = rounds_loop(creator_d, stake_d, n_valid, has_forks, w0, n_pad_new)
+        if state is None:
+            return [], True
 
         # owned copies: roll and prune mutate these mirrors in place
         rnd_w, wits_w, tab_np, cnt_np = (
             to_host(x, copy=True) for x in state[:4]
         )
-        if int(to_host(state[4])[0]):
-            # round/slot overflow -> rebase, which self-heals the capacity
-            return [], True
         # straggler guard: a witness below the frozen vote horizon could
         # change a committed tally -> recompute from scratch instead
         wit_mask = wits_w[sl]

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,9 +71,9 @@ _ARGTYPES = {
     ],
     "ssm_matrix_launch": [_VP, _INT, _VP, _INT, _INT, _VP, _INT, _VP, _VP, _VP, _VP],
     "rounds_scan_launch": [
-        _VP, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT,
-        _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-        _VP,
+        _VP, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _INT, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+        _INT, _INT, _VP,
     ],
     "fame_scan_launch": [
         _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
@@ -419,34 +420,59 @@ ssm_tally.launches = 0
 OVF_ROUND = 1
 OVF_SLOT = 2
 
+# The witness-column check a rounds_scan call writes (``check=``), int32
+# ``[CHECK_HEAD + cap]``: the overflow word; the number of table witnesses
+# whose ``col_pos`` is -1, or -1 when more table entries lack a column
+# than the list holds (the caller then reads the table itself); the
+# "affected" flag; then those witnesses ascending, -1 after.
+CHECK_HEAD = 3
+CHECK_CAP = 256
+
 # the H100's opt-in shared memory a block, less the kernel's static words
-_RS_SMEM_LIMIT = 232448 - 64
-_RS_MAX_THREADS = 256
+# (its step results)
+_RS_SMEM_LIMIT = 232448 - 3072
+_RS_PAR_WIN = 512           # span events whose inputs the kernel stages at once
+RS_WARPS = 32               # warps of a rounds_scan block: the most events a step
 
 
-def rounds_scan_route(r_max: int, s_max: int, n_members: int,
-                      has_forks: bool):
-    """Where :func:`rounds_scan`'s kernel keeps the witness table:
-    ``("shared", bytes)`` when the table, its counts and (with forks) the
-    per-member stamps fit a block's shared memory, else ``("global",
-    bytes)``, the table read and written in device memory and only the
-    stamps in shared memory.  ``bytes`` is the dynamic shared memory of the
-    launch."""
-    stamps = 4 * n_members if has_forks else 0
-    shared = stamps + 4 * (r_max * s_max + r_max)
-    if shared <= _RS_SMEM_LIMIT:
-        return "shared", shared
-    if stamps > _RS_SMEM_LIMIT:
-        raise ValueError(f"rounds_scan: {n_members} members' stamps exceed a block's shared memory")
-    return "global", stamps
+class ScanPlan(NamedTuple):
+    route: str              # "shared" or "global": where the table lives
+    smem: int               # dynamic shared memory of the launch, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def rounds_scan_plan(r_max: int, s_max: int, n_members: int, has_forks: bool,
+                     check_cap: int = 0) -> ScanPlan:
+    """How :func:`rounds_scan`'s kernel lays out its shared memory for a
+    launch with a check list of ``check_cap`` entries (0: no check): the
+    staged span inputs (``_RS_PAR_WIN`` x 20 bytes), the counts and row
+    bounds (8 bytes a row), the stake (4 a member), with forks each warp's
+    member bitmask, and the check list (12 bytes an entry) always; the
+    witness table with each slot's column and stake (12 bytes a slot) when
+    it fits (``"shared"``), else in device memory (``"global"``)."""
+    fixed = (20 * _RS_PAR_WIN + 8 * r_max + 4 * n_members + 12 * check_cap
+             + (4 * RS_WARPS * ((n_members + 31) // 32) if has_forks else 0))
+    table = 12 * r_max * s_max
+    if fixed + table <= _RS_SMEM_LIMIT:
+        return ScanPlan("shared", fixed + table)
+    if fixed <= _RS_SMEM_LIMIT:
+        return ScanPlan("global", fixed)
+    raise ValueError(f"rounds_scan: {r_max} rows and {n_members} members exceed a "
+                     "block's shared memory")
+
+
+def new_check(device, cap: int = CHECK_CAP) -> torch.Tensor:
+    """A check buffer for :func:`rounds_scan`'s ``check=``."""
+    return torch.empty((CHECK_HEAD + cap,), dtype=torch.int32, device=device)
 
 
 def rounds_scan_reference(parents, ssm_rows, col_pos, creator, stake, rnd,
                           wits, tab, cnt, overflow, *, start, n_valid, r_base,
-                          tot_stake, has_forks):
+                          tot_stake, has_forks, check=None):
     """Plain version: the reference's per-event step
     (``tpu_swirld/tpu/pipeline.py:_make_rounds_step``), one event after
-    another, the carry updated in place.  Parents are host data, so genesis
+    another, the carry updated in place, then the check
+    (:func:`rounds_check_reference`).  Parents are host data, so genesis
     and padding are decided on the host; everything that depends on earlier
     rounds stays in tensors."""
     parents_np = parents if isinstance(parents, np.ndarray) else parents.numpy()
@@ -503,6 +529,59 @@ def rounds_scan_reference(parents, ssm_rows, col_pos, creator, stake, rnd,
         cnt.index_add_(0, rc, do.to(torch.int32))
         rnd[i : i + 1] = r
         wits[i : i + 1] = is_wit
+    if check is not None:
+        rounds_check_reference(parents_np, col_pos, rnd, tab, overflow, check,
+                               start=start, length=ssm_rows.shape[0])
+
+
+def rounds_check_reference(parents_np, col_pos, rnd, tab, overflow, check, *,
+                           start, length):
+    """Plain version of the kernel's check epilogue, in tensors: ``check``
+    (int32 ``[CHECK_HEAD + cap]``) gets the overflow word, the number of
+    distinct table witnesses whose ``col_pos`` is -1 (``np.unique(tab[tab
+    >= 0])`` filtered by ``col_pos < 0``, the order ``add_columns`` gives
+    them columns in), or -1 when more than ``cap`` table entries lack a
+    column, whether a missing witness is affected (below ``start``, or a
+    later event of ``[start, start + length)`` whose ``max(rnd[p1],
+    rnd[p2])``, -1 for a genesis, is its round), and the witnesses
+    ascending, -1 after.  Without ``col_pos`` no witness lacks a column."""
+    cap = check.shape[0] - CHECK_HEAD
+    n = rnd.shape[0]
+    dev = rnd.device
+    check[0:1] = overflow
+    check[1:] = -1
+    if col_pos is None:
+        check[1:3] = 0
+        return
+    # sort keys: a missing witness's id; every other entry, and then each
+    # repeat, pushed past every id (no sentinel value)
+    w = tab.reshape(-1).to(torch.int64)
+    missing = (w >= 0) & (col_pos.index_select(0, w.clamp(0, n - 1)) < 0)
+    n_raw = missing.to(torch.int32).sum()
+    past = 1 << 32
+    key = (w.clamp(min=0) + past * (~missing).to(torch.int64)).sort().values
+    first = torch.cat([key[:1] < past, ~(key[1:] == key[:-1])]) & (key < past)
+    listed = (key + 2 * past * (~first).to(torch.int64)).sort().values[:cap]
+    listed = torch.where(listed < past, listed, -1).clamp(max=INT32_MAX)  # int32 ids
+    k = listed.shape[0]
+    # affected: below start, or queried by a later event of the span
+    p = parents_np[start : start + length].astype(np.int64)
+    q1 = torch.as_tensor(p[:, 0], device=dev).clamp(0, n - 1)
+    q2 = torch.as_tensor(p[:, 1], device=dev).clamp(0, n - 1)
+    r0 = torch.maximum(rnd.index_select(0, q1), rnd.index_select(0, q2))
+    r0 = torch.where(torch.as_tensor(p[:, 0] < 0, device=dev), -1, r0)
+    ev = torch.arange(length, dtype=torch.int64, device=dev) + start
+    listed_ok = listed >= 0
+    w_rnd = rnd.index_select(0, listed.clamp(0, n - 1))
+    below = (listed_ok & (listed < start)).to(torch.int32).sum()
+    queried = (listed_ok[:, None] & (ev[None, :] > listed[:, None])
+               & (r0[None, :] == w_rnd[:, None])).to(torch.int32).sum()
+    complete = n_raw <= cap
+    count = first.to(torch.int32).sum()
+    affected = (below + queried) > 0
+    check[1:2] = torch.where(complete, count, -1)
+    check[2:3] = (affected & complete).to(torch.int32)
+    check[CHECK_HEAD : CHECK_HEAD + k] = torch.where(complete, listed, -1)
 
 
 def _span_parents(parents, start: int, length: int, dev: torch.device):
@@ -519,7 +598,7 @@ def _span_parents(parents, start: int, length: int, dev: torch.device):
 
 def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
                 cnt, overflow, *, start, n_valid, r_base, tot_stake,
-                has_forks):
+                has_forks, check=None, stats=None):
     """The rounds scan over events ``[start, start + L)``, ``L =
     ssm_rows.shape[0]``, resumed from the carry ``(rnd, wits, tab, cnt,
     overflow)`` and updated in place, exactly as the reference's scan over
@@ -539,8 +618,14 @@ def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
     ``(M,)`` summing to ``tot_stake``; ``rnd`` int32 ``(n,)`` (global
     rounds), ``wits`` bool ``(n,)``, ``tab`` int32 ``(r_max, s_max)`` (row
     ``k`` is round ``r_base + k``), ``cnt`` int32 ``(r_max,)``, ``overflow``
-    int32 ``(1,)``.  On the card one launch and no allocation but the
-    span's parents when they come from the host."""
+    int32 ``(1,)``.  ``check``, int32 ``(CHECK_HEAD + cap,)``, gets the
+    witness-column check (:func:`rounds_check_reference`): the one buffer
+    a caller reads back in place of the table and the rounds.  ``stats``,
+    int32 ``(2,)`` on the card, gets the kernel's steps (runs of events)
+    and the runs it cut short added to it; the plain version leaves it.
+    On the card one launch and no allocation but the span's parents when
+    they come from the host and, when the table lives in device memory,
+    its slot info."""
     _check(ssm_rows, "ssm_rows", torch.bool, 2)
     _check(creator, "creator", torch.int32, 1)
     _check(stake, "stake", torch.int32, 1)
@@ -575,28 +660,43 @@ def rounds_scan(parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab,
     tensors = [ssm_rows, creator, stake, rnd, wits, tab, cnt, overflow]
     if col_pos is not None:
         tensors.append(col_pos)
+    if check is not None:
+        _check(check, "check", torch.int32, 1)
+        if check.shape[0] <= CHECK_HEAD:
+            raise ValueError(f"rounds_scan: a check buffer holds more than {CHECK_HEAD} words")
+        tensors.append(check)
+    if stats is not None:
+        _check(stats, "stats", torch.int32, 1)
+        if stats.shape[0] != 2:
+            raise ValueError("rounds_scan: stats must be (2,)")
     if _on_cpu(*tensors):
         rounds_scan_reference(
             parents, ssm_rows, col_pos, creator, stake, rnd, wits, tab, cnt,
             overflow, start=start, n_valid=n_valid, r_base=r_base,
-            tot_stake=tot_stake, has_forks=has_forks,
+            tot_stake=tot_stake, has_forks=has_forks, check=check,
         )
         return
-    if length == 0:
+    if length == 0 and check is None:
         return
+    if stats is not None:
+        _on_cpu(rnd, stats)
     dev = rnd.device
-    route, smem = rounds_scan_route(r_max, s_max, n_members, has_forks)
-    width = max(s_max, n_members if has_forks else 1)
-    threads = min(_RS_MAX_THREADS, (width + 31) // 32 * 32)
+    cap = 0 if check is None else check.shape[0] - CHECK_HEAD
+    plan = rounds_scan_plan(r_max, s_max, n_members, bool(has_forks), cap)
+    info = (torch.empty((r_max * s_max, 2), dtype=torch.int32, device=dev)
+            if plan.route == "global" else None)
     par = _span_parents(parents, start, length, dev)
     err = _launch(
         dev, _c_function("rounds_scan", "rounds_scan_launch"),
         par.data_ptr(), ssm_rows.data_ptr(), n_cols,
         None if col_pos is None else col_pos.data_ptr(), creator.data_ptr(),
         stake.data_ptr(), n_members, rnd.data_ptr(), wits.data_ptr(),
-        tab.data_ptr(), cnt.data_ptr(), overflow.data_ptr(), n, r_max, s_max,
+        tab.data_ptr(), cnt.data_ptr(), overflow.data_ptr(),
+        None if info is None else info.data_ptr(),
+        None if check is None else check.data_ptr(), cap,
+        None if stats is None else stats.data_ptr(), n, r_max, s_max,
         start, length, n_valid, r_base, tot_stake, int(bool(has_forks)),
-        int(route == "shared"), threads, smem,
+        int(plan.route == "shared"), plan.smem,
     )
     _raise_on(err, "rounds_scan")
     rounds_scan.launches += 1

@@ -254,14 +254,16 @@ def rounds_scan_stage(parents_np, ssm, creator, stake, tot_stake, n_valid, *,
 
 def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
                        rnd, wits, tab, cnt, overflow, start, r_base=0, *,
-                       tot_stake, r_max, s_max, has_forks, chunk):
+                       tot_stake, r_max, s_max, has_forks, chunk, check=None):
     """One chunk of the rounds scan: events [start, start+chunk) resume from
     the carried (rnd, wits, tab, cnt, overflow) state, as one
     :func:`~tpu_swirld_torch.gpu.kernels.rounds_scan` call over the chunk's
     rows of ``ssm_c`` (one launch on the card).  ``r_base`` maps global
     rounds to witness-table rows (0 on the batch path).  The carry is
     copied first and the copy updated in place, so the caller can re-run
-    the chunk from the same state."""
+    the chunk from the same state.  ``check`` (``kernels.new_check``), if
+    given, gets the call's witness-column check: the one buffer the
+    drivers read back."""
     _shape_guard(
         tuple(tab.shape) == (r_max, s_max) and ssm_c.shape[0] == rnd.shape[0],
         f"rounds_chunk_stage: table {tuple(tab.shape)} is not ({r_max}, {s_max}) "
@@ -271,9 +273,53 @@ def rounds_chunk_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
     kernels.rounds_scan(
         parents_np, ssm_c[start : start + chunk], col_pos, creator, stake,
         *carry, start=start, n_valid=n_valid, r_base=r_base,
-        tot_stake=tot_stake, has_forks=has_forks,
+        tot_stake=tot_stake, has_forks=has_forks, check=check,
     )
     return carry
+
+
+def scan_check(check, out, col_pos: np.ndarray, parents: np.ndarray,
+               start: int, length: int):
+    """``(overflow, missing, affected)`` of a rounds chunk or span call over
+    events ``[start, start + length)``, from its check buffer (one pull):
+    the overflow word, the table's witnesses without a column, ascending,
+    and whether a later event of the call queried one.  When more
+    witnesses lack a column than the buffer lists, :func:`table_check`
+    reads the table and the rounds (``out``, the call's carry) instead."""
+    chk = to_host(check)
+    count = int(chk[1])
+    if count < 0:
+        return (int(chk[0]),
+                *table_check(out[0], out[2], col_pos, parents, start, length))
+    head = kernels.CHECK_HEAD
+    return int(chk[0]), chk[head : head + count].astype(np.int64), bool(chk[2])
+
+
+def table_check(rnd, tab, col_pos: np.ndarray, parents: np.ndarray,
+                start: int, length: int):
+    """``(missing, affected)`` of a rounds call read from its table and
+    rounds themselves, for a call whose check list overflowed
+    (:func:`scan_check`).  ``table_check.calls`` counts them."""
+    table_check.calls += 1
+    tab_h = to_host(tab)
+    registered = np.unique(tab_h[tab_h >= 0])
+    missing = registered[col_pos[registered] < 0]
+    if missing.size == 0:
+        return missing, False
+    rnd_np = to_host(rnd)
+    # was a missing witness's round queried later in this span?
+    ce = np.arange(start, start + length, dtype=np.int64)
+    p = parents[ce]
+    r0 = np.where(
+        p[:, 0] < 0,
+        -1,
+        np.maximum(rnd_np[np.maximum(p[:, 0], 0)], rnd_np[np.maximum(p[:, 1], 0)]),
+    )
+    affected = any(w < start or np.any((ce > w) & (r0 == rnd_np[w])) for w in missing)
+    return missing, affected
+
+
+table_check.calls = 0
 
 
 # --------------------------------------------------------------- phase 5
@@ -905,13 +951,15 @@ def _columns_pass(
     # a witness whose column is missing AND a later event in the chunk
     # queried that witness's round, compute the column and re-run just
     # that chunk; otherwise the chunk's outputs are already exact and the
-    # new columns only serve future chunks.  Witness-table overflow
-    # self-heals: the scan restarts with the flagged capacity grown (the
-    # column store survives retries).
+    # new columns only serve future chunks.  The kernel's check buffer
+    # says both (one pull a call).  Witness-table overflow self-heals: the
+    # scan restarts with the flagged capacity grown (the column store
+    # survives retries).
     chunk_size = min(128, n_pad)
     while n_pad % chunk_size:
         chunk_size //= 2
     overflow_retries = 0
+    check_d = kernels.new_check(device)
     while True:
         state = (
             torch.zeros((n_pad,), dtype=torch.int32, device=device),
@@ -920,6 +968,7 @@ def _columns_pass(
             torch.zeros((r_rounds,), dtype=torch.int32, device=device),
             torch.zeros((1,), dtype=torch.int32, device=device),
         )
+        ovf = 0
         for start in range(0, n_pad, chunk_size):
             # each failed attempt adds at least one column, and a chunk can
             # register at most chunk_size witnesses, so this bound is safe
@@ -928,42 +977,22 @@ def _columns_pass(
                     "pipeline.rounds_chunk_stage", rounds_chunk_stage,
                     parents, ssm_c, col_pos_d, creator_d, stake_d, n, *state,
                     start, tot_stake=tot, r_max=r_rounds, s_max=s_max,
-                    has_forks=has_forks, chunk=chunk_size,
+                    has_forks=has_forks, chunk=chunk_size, check=check_d,
                 )
                 n_scans += 1
-                tab = to_host(out[2])
-                registered = np.unique(tab[tab >= 0])
-                missing = registered[col_pos[registered] < 0]
+                ovf, missing, affected = scan_check(
+                    check_d, out, col_pos, parents, start, chunk_size)
                 if missing.size == 0:
                     state = out
                     break
-                rnd_np = to_host(out[0])
-                # was a missing witness's round queried later in this chunk?
-                ce = np.arange(start, start + chunk_size, dtype=np.int64)
-                p = parents[ce]
-                r0 = np.where(
-                    p[:, 0] < 0,
-                    -1,
-                    np.maximum(rnd_np[np.maximum(p[:, 0], 0)],
-                               rnd_np[np.maximum(p[:, 1], 0)]),
-                )
-                affected = False
-                for w in missing:
-                    if w < start:   # registered in an earlier chunk state?
-                        affected = True  # (shouldn't happen; be safe)
-                        break
-                    if np.any((ce > w) & (r0 == rnd_np[w])):
-                        affected = True
-                        break
                 add_columns([int(e) for e in missing])
                 if not affected:
                     state = out
                     break
             else:
                 raise RuntimeError("witness-column chunk did not converge")
-            if int(state[4]):
+            if ovf:
                 break               # overflow: stop scanning, grow, retry
-        ovf = int(state[4])
         if not ovf:
             break
         r_rounds, s_max = _healed_capacities(
