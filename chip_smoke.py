@@ -70,15 +70,20 @@
    ingests of 2 000 that carries received events, has ``r_base`` > 0 and
    receives in two rounds or more), config 5's first ``C5_ORDER_EVENTS``
    events (256 members), and small random shapes
-   (forks, emptied witness slots, ``chain`` cut short, received flags,
-   padding past ``n_valid``); an output in which nothing is received, or
-   every received event in one round, fails.  Its bound is bytes: the
+   (forks, emptied witness slots, ``chain`` cut short or 0, received
+   flags, padding past ``n_valid``, timestamp ranks that tie); an output in
+   which nothing is received, or every received event in one round, fails.
+   Its bound is bytes: the
    bytes these inputs need, each read once (``OrderCase.nbytes``: of
    ``anc`` only the cells the receipts and walks must test); its rows print
-   ``ms``, ``card_ms`` (the wrapper: the plan's device ops and the
-   launch), ``plan_card_ms`` (the plan alone, timed in turn with the
-   wrapper), ``launch_card_ms`` (their difference), ``host_us`` and
-   ``ns_per_event``.  From phase 4 on, every
+   ``ms``, ``card_ms`` (the wrapper, which is the launch alone:
+   ``launch_card_ms`` the same), ``plan_card_ms`` (the plain round plan,
+   ``kernels._order_plan``, on the card, timed in turn with the wrapper:
+   what the kernel's prologue now does inside the launch), ``peak_bytes``
+   (a call's peak allocated bytes), ``host_us`` and ``ns_per_event``.  One
+   config-3 call runs under ``torch.profiler``: the card must run the order
+   kernel once and nothing else but fills of its outputs, and the call's
+   peak allocated bytes (printed) must be its outputs'.  From phase 4 on, every
    rounds-stage call on the card (``ROUNDS_STAGES``) must launch
    ``rounds_scan`` exactly once, every fame-stage call (``FAME_STAGES``)
    ``fame_scan`` exactly once and every order-stage call (``ORDER_STAGES``)
@@ -2219,16 +2224,19 @@ def captured_order_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
 
 
 def random_order_cases(dev="cuda"):
-    """Small DAGs of the port's generator (a fork-free one and one with two
-    forkers), perturbed: witness slots emptied at random (-1), a
-    ``chain`` cut to 3 steps, received flags carried in at random and
-    events past a lowered ``n_valid``."""
+    """Small DAGs of the port's generator (fork-free ones and ones with
+    forkers), perturbed: witness slots emptied at random (-1), a ``chain``
+    cut to 3 or 2 steps or to none (every value ``INT32_MAX``), received
+    flags carried in at random, events past a lowered ``n_valid``, and
+    timestamp ranks divided by ``tie`` so that medians tie."""
     out = []
-    for seed, (m, n_events, forkers, holes, chain, recv, cut) in enumerate([
-        (5, 500, 0, 0.0, 3, 0.0, 0),
-        (7, 700, 2, 0.15, None, 0.1, 9),
-        (7, 700, 2, 0.0, 2, 0.3, 0),
-        (9, 900, 1, 0.1, None, 0.0, 40),
+    for seed, (m, n_events, forkers, holes, chain, recv, cut, tie) in enumerate([
+        (5, 500, 0, 0.0, 3, 0.0, 0, 1),
+        (7, 700, 2, 0.15, None, 0.1, 9, 1),
+        (7, 700, 2, 0.0, 2, 0.3, 0, 1),
+        (9, 900, 1, 0.1, None, 0.0, 40, 1),
+        (7, 700, 0, 0.0, 0, 0.2, 0, 1),
+        (9, 900, 1, 0.05, None, 0.1, 0, 4),
     ]):
         members, stake, events, _keys = generate_gossip_dag(
             m, n_events, seed=seed + 1, n_forkers=forkers, fork_prob=0.1)
@@ -2239,13 +2247,63 @@ def random_order_cases(dev="cuda"):
         tab = tensors[1].cpu().numpy()
         tab[rng.random(tab.shape) < holes] = -1
         tensors[1] = torch.as_tensor(tab, device=dev)
+        tensors[6] = tensors[6] // tie
         n = tensors[0].shape[0]
         received0 = (torch.as_tensor(rng.random(n) < recv, device=dev) if recv else None)
         out.append(dataclasses.replace(
             case, label=f"random {m} members, {forkers} forkers, {holes} of slots "
-            f"emptied, chain {case.chain}, received0 {recv}, n_valid - {cut}",
+            f"emptied, chain {case.chain}, received0 {recv}, n_valid - {cut}, "
+            f"t_rank // {tie}",
             tensors=tuple(tensors), n_valid=case.n_valid - cut, received0=received0))
     return out
+
+
+def call_peak_bytes(fn):
+    """The device bytes allocated at the peak of one call of ``fn`` (its
+    outputs included), over what was allocated before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def profile_order_call(case, failures):
+    """One ``order_scan`` call under ``torch.profiler`` (the card's
+    activity): the card must run the order kernel once and nothing else
+    but fills (memsets or fill kernels) of its outputs, and the call's peak
+    allocated bytes must be its three outputs' (no scratch), each rounded
+    to the allocator's 512-byte blocks.  Prints both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case.run(kernels.order_scan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        case.run(kernels.order_scan)
+        torch.cuda.synchronize()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "order_scan.json")
+    prof.export_chrome_trace(path)
+    ops = [(cat, _kernel_fn(name)) for cat, name, _a, _b in _trace_events(path)
+           if cat != "user_annotation"]
+    os.remove(path)
+    n = case.tensors[0].shape[0]
+    outputs = sum((b + 511) // 512 * 512 for b in (4 * n, 4 * n, n))
+    peak = call_peak_bytes(lambda: case.run(kernels.order_scan))
+    print(f"order_scan {case.label}: the card ran {ops} in one profiled call; "
+          f"peak allocated {peak} bytes (outputs {outputs})", flush=True)
+    order = [op for op in ops if op == ("kernel", "order_kernel")]
+    other = [op for op in ops if op not in order
+             and not (op[0] == "gpu_memset" or "fill" in op[1].lower())]
+    if len(order) != 1 or other:
+        failures.append(f"order_scan {case.label}: the card ran {ops}, not the order "
+                        "kernel once and fills of its outputs")
+    if peak > outputs:
+        failures.append(f"order_scan {case.label}: {peak} bytes allocated at the peak "
+                        f"of a call, more than its outputs' {outputs}")
 
 
 def check_order_scan(dags, packs, c5_packed, failures):
@@ -2255,9 +2313,11 @@ def check_order_scan(dags, packs, c5_packed, failures):
     driver's window over config 3 (received flags carried in, ``r_base``
     > 0) and config 5's first ``C5_ORDER_EVENTS`` events (256 members).  Then small random shapes
     (:func:`random_order_cases`).  Each fixed shape is timed beside its
-    plain version and its bound (:meth:`OrderCase.nbytes`); an output in
-    which nothing is received, or every received event in one round,
-    fails: it could not tell a wrong kernel."""
+    plain version and its bound (:meth:`OrderCase.nbytes`), with its peak
+    allocated bytes; the config-3 call is also profiled
+    (:func:`profile_order_call`).  An output in which nothing is received,
+    or every received event in one round, fails: it could not tell a wrong
+    kernel."""
     fixed = [
         order_batch_case("config3 full N=10112", packs["config3"],
                          packs["config3"].stake, N_MEMBERS),
@@ -2297,6 +2357,8 @@ def check_order_scan(dags, packs, c5_packed, failures):
         if not timed:
             continue
         anc, tab, cnt, famous, creator = case.tensors[:5]
+        if case is fixed[0]:
+            profile_order_call(case, failures)
         c_ms, plan_ms = card_ms_each([
             lambda case=case: case.run(kernels.order_scan),
             lambda: kernels._order_plan(tab, cnt, famous, creator, case.max_round, n),
@@ -2306,8 +2368,8 @@ def check_order_scan(dags, packs, c5_packed, failures):
                "received": int(newly.numel()), "max_abs_err": err,
                "ms": time_ms(lambda case=case: case.run(kernels.order_scan), 10),
                "host_us": host_us(lambda case=case: case.run(kernels.order_scan), 50),
-               "card_ms": c_ms, "plan_card_ms": plan_ms,
-               "launch_card_ms": c_ms - plan_ms,
+               "card_ms": c_ms, "plan_card_ms": plan_ms, "launch_card_ms": c_ms,
+               "peak_bytes": call_peak_bytes(lambda case=case: case.run(kernels.order_scan)),
                "ns_per_event": c_ms * 1e6 / n, "plain_ms": plain_ms,
                "bytes": case.nbytes(rr),
                "bound_by": "bytes", "library_ms": None}

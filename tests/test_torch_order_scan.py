@@ -6,11 +6,15 @@ famous witnesses are one creator's two (no unique famous witness), rounds
 of an even number of unique famous witnesses (the lower median),
 ``max_round`` cutting the fame-complete prefix, received flags carried in
 with the table's rows in a window's round frame, padding past
-``n_valid``, and a ``chain`` shorter than the longest self-chain.  The
-card route's host-side plan (``_order_plan``) and a NumPy emulation of the
-kernel (one event at a time, the walk stopped at the first self-ancestor
-that does not see the event, a counting select for the median) are held
-to the same cases.  Then the port's ``fame_order_cols_stage`` and
+``n_valid``, a ``chain`` shorter than the longest self-chain, no chain
+step (alone and with carried flags), timestamp ranks coarsened so that
+medians tie, and rounds of more than 32 unique famous witnesses.  The
+plain plan (``_order_plan``), a twin of the kernel's prologue (the plan a
+block builds round by round) and a NumPy emulation of the kernel in its
+order of work (a block of 32 events, the all-see test split over warps,
+the self-chains tabulated a window of rows at a time and searched for the
+first row that does not see an event, a radix select for the median) are
+held to the same cases.  Then the port's ``fame_order_cols_stage`` and
 ``order_window_stage`` against the reference's, the wrapper's refusals
 and its launch count, which stays 0 on the CPU."""
 
@@ -44,7 +48,10 @@ def t(a):
 
 _BATCH = {}
 #: kind -> generate_gossip_dag(members, events, seed, n_forkers, fork_prob)
-DAGS = {"plain": (5, 500, 3, 0, 0.0), "forked": (7, 700, 1, 2, 0.1)}
+DAGS = {"plain": (5, 500, 3, 0, 0.0), "forked": (7, 700, 1, 2, 0.1),
+        # 40 unique famous witnesses a receiving round: a select over more
+        # than one warp's lanes
+        "wide": (40, 1600, 2, 0, 0.0)}
 
 
 def _batch(kind):
@@ -118,37 +125,138 @@ def _ufw(case):
     return rounds, prefix
 
 
-def _emulate_kernel(case):
-    """``csrc/order_scan.cu``'s algorithm in NumPy, one event at a time."""
+# csrc/order_scan.cu's constants
+EVENTS, WARPS, DEPTH, UNROLL, THREADS = 32, 16, 16, 8, 512
+
+
+def _kernel_plan(case, r):
+    """Twin of the kernel's prologue (``round_plan``) for round ``r``:
+    None where ``r`` is not fame-complete (the block's round loop ends),
+    else its unique famous witnesses' events, packed as the kernel packs
+    them: a slot is unique when no other valid famous slot of the round has
+    its creator, and a chunk of ``THREADS`` slots is compacted by each
+    warp's ballot after the counts of the warps and chunks before it."""
+    tab, anc = case["tab"], case["anc"]
+    n, s_max = anc.shape[0], tab.shape[1]
+    t = tab[r]
+    f = case["famous"].reshape(tab.shape)[r]
+    ev = np.clip(t, 0, n - 1)
+    fam = (t >= 0) & (f == 1)
+    cre = case["creator"][ev]
+    if ((t >= 0) & (f < 0)).any() or not (case["max_round"] >= r + 2 and case["cnt"][r] > 0):
+        return None
+    packed = []
+    for s0 in range(0, s_max, THREADS):
+        slots = np.arange(s0, min(s0 + THREADS, s_max))
+        unique = np.array([fam[s] and int((fam & (cre == cre[s])).sum()) == 1
+                           for s in slots], bool)
+        for w in range(0, slots.size, 32):            # warps in order
+            ballot = unique[w : w + 32]
+            packed.extend(int(ev[s]) for s in slots[w : w + 32][ballot])
+    return packed
+
+
+def _kernel_plans(case):
+    """Every round's plan as a block meets it: the rounds up to the first
+    one that is not fame-complete."""
+    plans = []
+    for r in range(case["tab"].shape[0]):
+        ufw = _kernel_plan(case, r)
+        if ufw is None:
+            break
+        plans.append(ufw)
+    return plans
+
+
+def _radix_lower_median(vals):
+    """The kernel's select: the ``(len - 1) // 2``-th smallest int32 of
+    ``vals``, over the values with the sign bit flipped, one bit a pass
+    from the highest bit where the least and greatest value differ (the
+    bits above it are every value's), each pass counting the candidates
+    with the bit clear."""
+    u = (vals.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000
+    lo, hi = int(u.min()), int(u.max())
+    if lo == hi:
+        return int(np.array(lo ^ 0x80000000, np.uint32).view(np.int32))
+    top = (lo ^ hi).bit_length() - 1
+    want = (len(u) - 1) // 2
+    prefix = 0 if top == 31 else lo >> (top + 1) << (top + 1)
+    for b in range(top, -1, -1):
+        above = 0 if b == 31 else (0xFFFFFFFF << (b + 1)) & 0xFFFFFFFF
+        below = int((((u & above) == prefix) & (((u >> b) & 1) == 0)).sum())
+        if want >= below:
+            want -= below
+            prefix |= 1 << b
+    return int(np.array(prefix ^ 0x80000000, np.uint32).view(np.int32))
+
+
+def _emulate_kernel(case, stats=None):
+    """``csrc/order_scan.cu`` in NumPy, in its order of work: a block of
+    ``EVENTS`` consecutive events meets the rounds of the prefix in turn
+    (:func:`_kernel_plans`); its pending events are tested against every
+    unique famous witness (each warp ANDs its share, the warps' ballots are
+    ANDed); where some are received, each witness's self-chain is
+    tabulated ``DEPTH`` rows at a time (ending at genesis or after
+    ``chain`` steps), each event's value is the t_rank of its last leading
+    row that sees it, a window is added only while some event saw every
+    row of the last one, and the median is :func:`_radix_lower_median`.
+    ``stats`` (a dict) gets the most windows a walk took and the events
+    whose median value was tied."""
     anc, sp, tr = case["anc"], case["self_parent"], case["t_rank"]
     n = anc.shape[0]
-    rounds, prefix = _ufw(case)
+    plans = _kernel_plans(case)
     recv0 = case["received0"]
-    received = np.zeros(n, bool) if recv0 is None else recv0.copy()
     rr = np.full(n, -1, np.int32)
     ts = np.zeros(n, np.int32)
-    for e in range(min(case["n_valid"], n)):
-        if received[e]:
-            continue
-        for r, ws in enumerate(rounds):
-            if not (prefix[r] and ws) or not all(anc[w, e] for w in ws):
+    stats = {} if stats is None else stats
+    stats.update(windows=0, ties=0)
+    for b0 in range(0, n, EVENTS):
+        ev = np.arange(b0, min(b0 + EVENTS, n))
+        pending = ev < case["n_valid"]
+        if recv0 is not None:
+            pending &= ~recv0[ev]
+        for r, ufw in enumerate(plans):
+            if not pending.any():
+                break
+            nv = len(ufw)
+            if nv == 0:
                 continue
-            vals = []
-            for w in ws:
-                cur, v = w, INT32_MAX
-                for _ in range(case["chain"]):
-                    if not anc[cur, e]:
-                        break
-                    v = tr[cur]
-                    if sp[cur] < 0:
-                        break
-                    cur = sp[cur]
-                vals.append(v)
-            want = (len(vals) - 1) // 2
-            ts[e] = next(v for v in vals if sum(u < v for u in vals) <= want
-                         < sum(u <= v for u in vals))
-            rr[e], received[e] = r, True
-            break
+            newly = pending.copy()
+            for w in range(WARPS):                  # one warp's share, ANDed
+                for k in range(w, nv, WARPS):
+                    newly &= anc[ufw[k], ev]
+            if not newly.any():
+                continue
+            val = np.full((nv, ev.size), INT32_MAX, np.int64)
+            cur, left = list(ufw), [case["chain"]] * nv
+            alive = [newly.copy() if case["chain"] > 0 else np.zeros_like(newly)
+                     for _ in range(nv)]
+            windows = 0
+            while any(a.any() for a in alive):
+                windows += 1
+                for k in range(nv):
+                    if not alive[k].any():
+                        continue
+                    rows = []
+                    while len(rows) < DEPTH and left[k] > 0:
+                        rows.append(cur[k])
+                        left[k] -= 1
+                        if sp[cur[k]] < 0:              # genesis
+                            left[k] = 0
+                            break
+                        cur[k] = min(int(sp[cur[k]]), n - 1)
+                    sees = anc[np.array(rows)][:, ev]    # (rows, events)
+                    seen = np.where(alive[k], np.cumprod(sees, axis=0).sum(axis=0), 0)
+                    got = seen > 0
+                    val[k, got] = tr[np.array(rows)][seen[got] - 1]
+                    alive[k] = alive[k] & (seen == len(rows)) & (left[k] > 0)
+            stats["windows"] = max(stats["windows"], windows)
+            for lane in np.flatnonzero(newly):
+                med = _radix_lower_median(val[:, lane])
+                stats["ties"] += int((val[:, lane] == med).sum() > 1)
+                rr[ev[lane]], ts[ev[lane]] = r, med
+            pending &= ~newly
+    received = rr >= 0 if recv0 is None else recv0 | (rr >= 0)
     return rr, ts, received
 
 
@@ -209,6 +317,12 @@ def _window(case, r_base=2):
             "max_round": case["max_round"] - r_base, "received0": recv0}
 
 
+def _coarse_t_rank(case):
+    """Timestamp ranks divided by 4: neighbouring ranks merge, so a
+    median's value is often held by several witnesses."""
+    return {**case, "t_rank": case["t_rank"] // 4}
+
+
 CASES = {
     "fork-free": ("plain", lambda c: c),
     "forked": ("forked", lambda c: c),
@@ -219,6 +333,10 @@ CASES = {
     "padding past n_valid": ("forked", lambda c: {**c, "n_valid": c["n_valid"] - 7}),
     "chain shorter than the longest self-chain": ("plain", lambda c: {**c, "chain": 3}),
     "no chain step": ("plain", lambda c: {**c, "chain": 0}),
+    "tied timestamp ranks": ("plain", _coarse_t_rank),
+    "more than 32 unique famous witnesses": ("wide", lambda c: c),
+    "no chain step with carried received flags": (
+        "forked", lambda c: {**_window(c), "chain": 0}),
 }
 
 
@@ -241,10 +359,17 @@ def test_order_scan_matches_reference(name):
         received0=None if r0 is None else t(r0),
     )
     assert all(torch.equal(a, b) for a, b in zip(via, got))
-    # the kernel's algorithm agrees: the early-stopped walk is exact on an
-    # ancestry closure
-    for g, w in zip(_emulate_kernel(case), want):
+    # the kernel's algorithm agrees: the searched windows of tabulated
+    # chain rows are exact on an ancestry closure
+    stats = {}
+    for g, w in zip(_emulate_kernel(case, stats), want):
         assert np.array_equal(g, w), name
+    if case["chain"] > DEPTH:
+        assert stats["windows"] > 1       # a walk went past its first window
+    if name == "tied timestamp ranks":
+        assert stats["ties"] > 0
+    if name == "more than 32 unique famous witnesses":
+        assert max(len(u) for u in _kernel_plans(case)) > 32
     rr, ts, received = want
     newly = rr >= 0
     # outputs that could tell a wrong kernel: received in several rounds,
@@ -283,6 +408,26 @@ def test_order_plan_packs_each_rounds_unique_famous_witnesses(name):
         assert ufw_ev[r, :k].tolist() == ws[:k]
     if name == "even counts of unique famous witnesses":
         assert any(int(v) % 2 == 0 and int(v) > 0 for v in nv)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_prologue_matches_order_plan(name):
+    """The plan each block of the kernel builds (its twin,
+    :func:`_kernel_plans`) is the plain ``_order_plan``: the same unique
+    famous witnesses in slot order in every round of the prefix, and no
+    round past it."""
+    kind, make = CASES[name]
+    case = make(_batch(kind))
+    ufw_ev, nv = kernels._order_plan(
+        t(case["tab"]), t(case["cnt"]), t(case["famous"]), t(case["creator"]),
+        case["max_round"], case["anc"].shape[0],
+    )
+    plans = _kernel_plans(case)
+    assert plans and any(plans)
+    for r in range(case["tab"].shape[0]):
+        ufw = plans[r] if r < len(plans) else []
+        assert int(nv[r]) == len(ufw), (name, r)
+        assert ufw_ev[r, : len(ufw)].tolist() == ufw, (name, r)
 
 
 @pytest.mark.parametrize("kind", ["plain", "forked"])
@@ -384,3 +529,14 @@ def test_order_scan_refuses(fault, exc):
     with pytest.raises(exc):
         kernels.order_scan(*args, **kw)
     assert kernels.order_scan.launches == 0
+
+
+def test_order_walks_counts_the_tabulated_rows():
+    """``dev/order_walks.py``, which sized the kernel's window of chain
+    rows: on a small DAG its walks each hold at least the witness's own
+    row, and some walk is longer than one row."""
+    from tpu_swirld_torch.dev.order_walks import walk_depths
+
+    shape, nv, depths = walk_depths(5, 300, 3, "cpu")
+    assert len(nv) == shape[0] and max(nv) > 0
+    assert depths.size > 0 and depths.min() >= 1 and depths.max() > 1

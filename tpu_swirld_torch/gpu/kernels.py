@@ -80,8 +80,8 @@ _ARGTYPES = {
         _VP, _VP, _INT, _INT, _VP,
     ],
     "order_scan_launch": [
-        _VP, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
-        _VP, _VP,
+        _VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _INT,
+        _INT, _INT, _INT, _VP, _VP, _VP, _INT, _VP,
     ],
 }
 
@@ -923,6 +923,13 @@ fame_scan.launches = 0
 
 # -------------------------------------------------------------- order_scan
 
+# the H100's opt-in shared memory a block, less the kernel's static bytes;
+# the order kernel keeps 73 int32 words a slot there (csrc/order_scan.cu,
+# Smem: the round's slots, its packed witnesses, their chain windows of 16
+# rows and the 32 lanes' values)
+_OS_SMEM_LIMIT = 232448 - 512
+_OS_SMEM_PER_SLOT = 73 * 4
+
 
 def _order_rounds(wit_table, wit_count, famous, creator, max_round, n: int):
     """The order scan's facts of every round at once, on the tensors'
@@ -952,10 +959,13 @@ def _order_rounds(wit_table, wit_count, famous, creator, max_round, n: int):
 
 
 def _order_plan(wit_table, wit_count, famous, creator, max_round, n: int):
-    """The kernel's per-round input, made on the device with no host pull:
-    int32 ``(R, S)`` holding each round's unique famous witnesses' events
-    first, in slot order, and int32 ``(R,)`` their count, 0 for a round
-    outside the fame-complete prefix (a round that receives nothing)."""
+    """Plain version of the plan that each block of the order kernel builds
+    in shared memory as it reaches a round (``csrc/order_scan.cu``,
+    ``round_plan``): int32 ``(R, S)`` holding each round's unique famous
+    witnesses' events first, in slot order, and int32 ``(R,)`` their count,
+    0 for a round outside the fame-complete prefix (a round that receives
+    nothing).  The card's route does not call it; the tests and
+    ``chip_smoke.OrderCase.nbytes`` do."""
     we_all, ufw, prefix = _order_rounds(wit_table, wit_count, famous, creator,
                                         max_round, n)
     first = torch.argsort((~ufw).to(torch.int32), dim=1, stable=True)
@@ -1027,12 +1037,14 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     ``(R, S)`` (-1 an empty slot), ``wit_count`` int32 ``(R,)``, ``famous``
     int8 ``(R * S,)`` (1 famous, 0 not, -1 undecided), ``creator``,
     ``self_parent`` (-1 at genesis) and ``t_rank`` int32 ``(n,)``,
-    ``max_round`` (an int or a device scalar) in the table's round frame,
-    ``received0`` bool ``(n,)`` or None.  Returns ``(round_received int32
-    (n,) (-1 = not received), ts_rank int32 (n,) (0 where not newly
-    received), received bool (n,))``.  On the card one kernel launch after
-    a few device ops that pack each round's unique famous witnesses, no
-    host pull; allocates the outputs and one ``(S, n)`` int32 scratch."""
+    ``max_round`` (an int, or an int32 or int64 device scalar) in the
+    table's round frame, ``received0`` bool ``(n,)`` or None.  Returns
+    ``(round_received int32 (n,) (-1 = not received), ts_rank int32 (n,)
+    (0 where not newly received), received bool (n,))``.  On the card one
+    C call and one kernel launch, which builds the round plan itself: no
+    other device op, no host pull, no scratch; it allocates the three
+    outputs alone.  Raises ``ValueError`` where ``S`` slots a round need
+    more shared memory than a block has (about 790)."""
     _check(anc, "anc", torch.bool, 2)
     _check(wit_table, "wit_table", torch.int32, 2)
     _check(wit_count, "wit_count", torch.int32, 1)
@@ -1067,18 +1079,30 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
             anc, wit_table, wit_count, famous, creator, self_parent, t_rank,
             max_round, n_valid, chain=chain, received0=received0,
         )
+    smem = _OS_SMEM_PER_SLOT * s_max
+    if smem > _OS_SMEM_LIMIT:
+        raise ValueError(f"order_scan: {s_max} slots a round exceed a block's shared memory")
+    mr_ptr, mr_64, mr_value = None, 0, 0
+    if isinstance(max_round, torch.Tensor):
+        if max_round.dtype not in (torch.int32, torch.int64) or max_round.numel() != 1:
+            raise TypeError(f"order_scan: max_round on the card must be one int32 or "
+                            f"int64 value, got {max_round.dtype} {tuple(max_round.shape)}")
+        mr_ptr, mr_64 = max_round.data_ptr(), int(max_round.dtype == torch.int64)
+    else:
+        # the kernel compares it with r + 2 <= r_max + 1: clamped, exact
+        mr_value = max(min(int(max_round), INT32_MAX), -INT32_MAX)
     dev = anc.device
-    ufw_ev, nv = _order_plan(wit_table, wit_count, famous, creator, max_round, n)
-    received = (received0.clone() if received0 is not None
-                else torch.zeros((n,), dtype=torch.bool, device=dev))
     rr = torch.empty((n,), dtype=torch.int32, device=dev)
     ts = torch.empty((n,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((s_max, n), dtype=torch.int32, device=dev)
+    received = torch.empty((n,), dtype=torch.bool, device=dev)
     err = _launch(
         dev, _c_function("order_scan", "order_scan_launch"),
-        anc.data_ptr(), n, ufw_ev.data_ptr(), nv.data_ptr(), r_max, s_max,
-        self_parent.data_ptr(), t_rank.data_ptr(), n_valid, chain,
-        received.data_ptr(), rr.data_ptr(), ts.data_ptr(), scratch.data_ptr(),
+        anc.data_ptr(), n, wit_table.data_ptr(), wit_count.data_ptr(),
+        famous.data_ptr(), creator.data_ptr(), r_max, s_max,
+        self_parent.data_ptr(), t_rank.data_ptr(),
+        None if received0 is None else received0.data_ptr(), mr_ptr, mr_64,
+        mr_value, max(0, min(n_valid, n)), min(chain, INT32_MAX),
+        received.data_ptr(), rr.data_ptr(), ts.data_ptr(), smem,
     )
     _raise_on(err, "order_scan")
     order_scan.launches += 1
