@@ -53,17 +53,23 @@
    config-4 DAGs (N 10 112, the columns pass's rounds), config 4's over
    every row of its round window (the mesh batch's shape, forks), the
    incremental driver's window over config 4 (its last call over 5 ingests
-   of 2 000: the column store, ``r_base`` > 0), config 5's first
-   ``C5_ORDER_EVENTS`` events (256 members), and small random shapes
-   (coin rounds with a third of the strongly-sees cells dropped, a
-   creator's two witnesses in a round, the column store with absent
-   columns and emptied slots, stake past 2**24); an output that decides
-   nothing, or decides every slot in one round, fails.  Its bound is
-   bytes: the bytes these inputs need, each read once
-   (``FameCase.nbytes``: of the cells only those between the rounds some
-   slot tallies in); its rows print ``ms``, ``card_ms`` (the wrapper: the
-   cells' device ops and the launch), ``plan_card_ms`` (the cells alone),
-   ``launch_card_ms`` and ``host_us``.  ``order_scan`` (round received, timestamp
+   of 2 000: the column store, ``r_base`` > 0, the table whole at the
+   window's slot capacity), config 5's first ``C5_ORDER_EVENTS`` events
+   (256 members), and small random shapes (coin rounds with a third of the
+   strongly-sees cells dropped, a creator's two witnesses in a round, the
+   column store with absent columns and emptied slots, stake past 2**24,
+   stake up to 2**20 with forks, a table at 2 019 slots a round, rounds of
+   300 slots); the plain version runs on the used slots, padded back
+   (``FameCase.run_plain``); an output that decides nothing, or decides
+   every slot in one round, fails.  Its bound is bytes: the bytes these
+   inputs need, each read once (``FameCase.nbytes``: of the cells only
+   those between the rounds some slot tallies in); its rows print ``ms``,
+   ``card_ms`` (the wrapper, one launch that reads its own cells),
+   ``plan_card_ms`` (the plain cell gather ``kernels._fame_cells`` on the
+   card, which the route no longer runs), ``launch_card_ms`` (=
+   ``card_ms``), ``peak_bytes`` and ``host_us``; the config-3 call is
+   profiled (:func:`profile_fame_call`: the fame kernel alone on the card,
+   the peak its outputs).  ``order_scan`` (round received, timestamp
    rank and received flags exactly): the full path's order scan over the
    config-3 and config-4 DAGs (N 10 112, config 4 with non-uniform stake),
    the incremental driver's window over config 3 (its last call over 5
@@ -1891,6 +1897,26 @@ class FameCase:
         return fn(*self.tensors, self.tot, self.coin_period, has_forks=self.has_forks,
                   col_pos=self.col_pos)
 
+    def run_plain(self):
+        """The plain version on the table's used slots, padded back with
+        empty slots (-1 in both outputs; the reference ignores empty
+        slots): at a window's slot capacity the plain tally is a slots x
+        members x slots matmul a round."""
+        tab = self.tensors[0]
+        r_max, s_max = tab.shape
+        width = int(kernels._fame_plan(tab, self.tensors[3], self.tensors[5],
+                                       self.tensors[1].shape[0])[0].max())
+        used = max(width, 1)
+        out = kernels.fame_scan_reference(
+            tab[:, :used].contiguous(), *self.tensors[1:], self.tot, self.coin_period,
+            has_forks=self.has_forks, col_pos=self.col_pos)
+        padded = []
+        for x in out:
+            grid = torch.full((r_max, s_max), -1, dtype=x.dtype, device=x.device)
+            grid[:, :used] = x.reshape(r_max, used)
+            padded.append(grid.reshape(-1))
+        return tuple(padded)
+
     def nbytes(self, dec) -> int:
         """The bytes fame voting must move on these inputs, given the
         rounds ``dec`` that decided each slot, each read once: the table
@@ -1938,7 +1964,7 @@ def captured_fame_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
     """The last ``fame_scan`` call of the incremental driver (on the card,
     the reference defaults) over the first ``n_chunks`` ingests of
     ``chunk`` events: the window's sees slab and column store, its table
-    in the window's round frame cut to the used slots."""
+    in the window's round frame at the window's slot capacity (whole)."""
     members, stake, events = dag[:3]
     inc = IncrementalConsensus(members, stake, SwirldConfig(n_members=len(members)),
                                device=dev)
@@ -1961,25 +1987,60 @@ def captured_fame_case(label, dag, n_chunks, dev="cuda", chunk=INC_CHUNK):
                     kw["col_pos"].clone())
 
 
+def synthetic_fame_case(kind, dev="cuda"):
+    """A seeded synthetic table, slot ``x`` seen by a share ``q_x`` (0.05,
+    0.5 or 0.97) of the next round and strongly seen by 0.85 of each
+    round, so that slots decide both ways and some later.  ``"wide"``: 6
+    rounds x 300 witness slots (a thirtieth emptied), 300 members, no
+    forks: several mask words and tiles.  ``"runs"``: 6 rounds x 100
+    slots of 21 members, slots 0-69 member 0's, 70-84 members 1-5's three
+    each, 85-99 one each: forked creators' runs across mask words, one
+    word whole."""
+    rng = np.random.default_rng(21 if kind == "wide" else 33)
+    r_max, s_max, m, n = (6, 300, 300, 1920) if kind == "wide" else (6, 100, 21, 640)
+    tab = (np.arange(r_max)[:, None] * s_max + np.arange(s_max)[None, :]).astype(np.int32)
+    if kind == "wide":
+        tab[rng.random(tab.shape) < 1 / 30] = -1
+        creator = np.arange(n) % m
+    else:
+        slot = np.arange(n) % s_max
+        creator = np.where(slot < 70, 0, np.where(slot < 85, 1 + (slot - 70) // 3, slot - 79))
+    q = rng.choice([0.05, 0.5, 0.97], size=n, p=[0.3, 0.2, 0.5])
+    stake = rng.integers(1, 6, m).astype(np.int32)
+    arrays = (tab, rng.random((n, n)) < q[None, :], rng.random((n, n)) < 0.85,
+              creator.astype(np.int32), rng.integers(0, 2, n).astype(np.uint8), stake)
+    tensors = tuple(torch.as_tensor(a, device=dev) for a in arrays)
+    return FameCase(f"random {m} members, synthetic {kind}, table {r_max} x {s_max}",
+                    tensors, int(stake.sum()), 10, kind == "runs")
+
+
 def random_fame_cases(dev="cuda"):
     """Small DAGs of the port's generator through :func:`batch_inputs`,
     perturbed: a seeded third of the strongly-sees cells dropped with a
     coin round every second round (coin bits become votes), witnesses
     given another witness's creator in every second round (a forker's two
     witnesses: the per-creator rule decides), the column store with a
-    seventh of the witness columns absent and empty slots, and stake past
-    2**24 without forks."""
+    seventh of the witness columns absent and empty slots, stake past
+    2**24 without forks, stake up to 2**20 a member with forks (many
+    bit-planes), a table padded to config 4's window slot capacity of
+    2 019; then rounds of 300 slots and forked creators' runs across mask
+    words (:func:`synthetic_fame_case`)."""
     out = []
-    for seed, m, n_events, forkers, stake_mul, mode in [
-        (1, 5, 500, 0, 1, "coin"),
-        (2, 7, 700, 0, 1, "shared creators"),
-        (4, 8, 800, 2, 1, "columns, holes"),
-        (4, 9, 900, 0, 1 << 22, "stake past 2**24"),
+    for seed, m, n_events, forkers, stake_hi, mode in [
+        (1, 5, 500, 0, 6, "coin"),
+        (2, 7, 700, 0, 6, "shared creators"),
+        (4, 8, 800, 2, 6, "columns, holes"),
+        (4, 9, 900, 0, 6 << 22, "stake past 2**24"),
+        (5, 8, 800, 2, 1 << 20, "stake up to 2**20"),
+        (6, 7, 700, 2, 6, "slot capacity 2019"),
     ]:
         members, stake, events, _keys = generate_gossip_dag(
             m, n_events, seed=seed, n_forkers=forkers, fork_prob=0.1)
         rng = np.random.default_rng(seed - 1)
-        stake_np = rng.integers(1, 6, m).astype(np.int32) * stake_mul
+        if stake_hi > 6 << 20:
+            stake_np = rng.integers(1, 6, m).astype(np.int32) * (1 << 22)
+        else:
+            stake_np = rng.integers(1, stake_hi, m).astype(np.int32)
         packed = pack_events(events, members, stake_np)
         case = fame_batch_case("", packed, stake_np, m, dev=dev)
         tab, sees, ssm, creator, coin, stake_t = case.tensors
@@ -2005,10 +2066,66 @@ def random_fame_cases(dev="cuda"):
             t_np[rng.random(t_np.shape) < 0.1] = -1
             tab = torch.as_tensor(t_np, device=dev)
             case = dataclasses.replace(case, col_pos=torch.as_tensor(col_pos, device=dev))
+        elif mode == "slot capacity 2019":
+            wide = torch.full((tab.shape[0], 2019), -1, dtype=tab.dtype, device=dev)
+            wide[:, : tab.shape[1]] = tab
+            tab = wide
         out.append(dataclasses.replace(
             case, label=f"random {m} members, {forkers} forkers, {mode}{case.label}",
             tensors=(tab, sees, ssm, creator, coin, stake_t)))
-    return out
+    return out + [synthetic_fame_case(kind, dev) for kind in ("wide", "runs")]
+
+
+def profiled_device_ops(fn, name):
+    """The device ops ``(category, kernel function)`` of one call of ``fn``
+    under ``torch.profiler`` (the card's activity), after a warm call.  A
+    capture with no device op at all is the profiler's miss, not a call
+    that ran nothing (a later profiler session in one process has come
+    back empty on the card while the same call showed its kernel in
+    another run): the call is then captured once more, and a call that
+    runs nothing comes back empty again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"{name}.json")
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        ops = [(cat, _kernel_fn(kname)) for cat, kname, _a, _b in _trace_events(path)
+               if cat != "user_annotation"]
+        os.remove(path)
+        if ops:
+            break
+        print(f"{name}: the profiler captured no device op (capture {attempt + 1})",
+              flush=True)
+    return ops
+
+
+def profile_fame_call(case, failures):
+    """One ``fame_scan`` call under ``torch.profiler``
+    (:func:`profiled_device_ops`): the card must run the fame kernel once
+    and nothing else but fills (memsets or fill kernels), and the call's
+    peak allocated bytes must be its two outputs' (no scratch, no cells),
+    each rounded to the allocator's 512-byte blocks.  Prints both."""
+    ops = profiled_device_ops(lambda: case.run(kernels.fame_scan), "fame_scan")
+    slots = case.tensors[0].numel()
+    outputs = sum((b + 511) // 512 * 512 for b in (slots, 4 * slots))
+    peak = call_peak_bytes(lambda: case.run(kernels.fame_scan))
+    print(f"fame_scan {case.label}: the card ran {ops} in one profiled call; "
+          f"peak allocated {peak} bytes (outputs {outputs})", flush=True)
+    fame = [op for op in ops if op == ("kernel", "fame_kernel")]
+    other = [op for op in ops if op not in fame
+             and not (op[0] == "gpu_memset" or "fill" in op[1].lower())]
+    if len(fame) != 1 or other:
+        failures.append(f"fame_scan {case.label}: the card ran {ops}, not the fame "
+                        "kernel once and fills of its outputs")
+    if peak > outputs:
+        failures.append(f"fame_scan {case.label}: {peak} bytes allocated at the peak "
+                        f"of a call, more than its outputs' {outputs}")
 
 
 def check_fame_scan(dags, packs, c5_packed, failures):
@@ -2017,12 +2134,14 @@ def check_fame_scan(dags, packs, c5_packed, failures):
     4's whole padded DAGs (N = 10 112, the columns pass's rounds), config
     4's over every row of its round window (the mesh batch's shape, with
     forks), the incremental driver's window over config 4 (its last call
-    over 5 ingests of 2 000: the column store, ``r_base`` > 0) and config
-    5's first ``C5_ORDER_EVENTS`` events (256 members).  Then small random
-    shapes (:func:`random_fame_cases`).  Each fixed shape is timed beside
-    its plain version and its bound (:meth:`FameCase.nbytes`); an output
-    that decides nothing, or decides every slot in one round, fails: it
-    could not tell a wrong kernel."""
+    over 5 ingests of 2 000: the column store, ``r_base`` > 0, its table
+    whole) and config 5's first ``C5_ORDER_EVENTS`` events (256 members).
+    Then small random shapes (:func:`random_fame_cases`).  Each fixed shape
+    is timed beside its plain version, its bound (:meth:`FameCase.nbytes`)
+    and the plain cell gather, with its peak allocated bytes; the config-3
+    call is also profiled (:func:`profile_fame_call`).  An output that
+    decides nothing, or decides every slot in one round, fails: it could
+    not tell a wrong kernel."""
     fixed = [
         fame_batch_case("config3 full N=10112", packs["config3"], packs["config3"].stake,
                         N_MEMBERS),
@@ -2041,7 +2160,7 @@ def check_fame_scan(dags, packs, c5_packed, failures):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        want = case.run(kernels.fame_scan_reference)
+        want = case.run_plain()
         t1.record()
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
@@ -2063,16 +2182,22 @@ def check_fame_scan(dags, packs, c5_packed, failures):
         if not timed:
             continue
         sees, ssm = case.tensors[1:3]
+        if case is fixed[0]:
+            profile_fame_call(case, failures)
         c_ms, plan_ms = card_ms_each([
             lambda case=case: case.run(kernels.fame_scan),
             lambda: kernels._fame_cells(tab, sees, ssm, case.col_pos),
         ])
+        width, _planes, head = kernels._fame_plan(tab, case.tensors[3], case.tensors[5],
+                                                  sees.shape[0])
         row = {"case": case.label, "N": sees.shape[0], "r_max": r_max, "s_max": s_max,
+               "width": int(width.max()), "forked_slots": int((head >= 0).sum()),
                "columns": case.col_pos is not None, "has_forks": case.has_forks,
                "decided": int(decided.numel()), "max_abs_err": err,
                "ms": time_ms(lambda case=case: case.run(kernels.fame_scan), 10),
                "host_us": host_us(lambda case=case: case.run(kernels.fame_scan), 50),
-               "card_ms": c_ms, "plan_card_ms": plan_ms, "launch_card_ms": c_ms - plan_ms,
+               "card_ms": c_ms, "plan_card_ms": plan_ms, "launch_card_ms": c_ms,
+               "peak_bytes": call_peak_bytes(lambda case=case: case.run(kernels.fame_scan)),
                "plain_ms": plain_ms, "bytes": case.nbytes(dec),
                "bound_by": "bytes", "library_ms": None}
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2272,24 +2397,13 @@ def call_peak_bytes(fn):
 
 
 def profile_order_call(case, failures):
-    """One ``order_scan`` call under ``torch.profiler`` (the card's
-    activity): the card must run the order kernel once and nothing else
-    but fills (memsets or fill kernels) of its outputs, and the call's peak
-    allocated bytes must be its three outputs' (no scratch), each rounded
-    to the allocator's 512-byte blocks.  Prints both."""
-    from torch.profiler import ProfilerActivity, profile
-
-    case.run(kernels.order_scan)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        case.run(kernels.order_scan)
-        torch.cuda.synchronize()
-    os.makedirs(TRACE_DIR, exist_ok=True)
-    path = os.path.join(TRACE_DIR, "order_scan.json")
-    prof.export_chrome_trace(path)
-    ops = [(cat, _kernel_fn(name)) for cat, name, _a, _b in _trace_events(path)
-           if cat != "user_annotation"]
-    os.remove(path)
+    """One ``order_scan`` call under ``torch.profiler``
+    (:func:`profiled_device_ops`): the card must run the order kernel once
+    and nothing else but fills (memsets or fill kernels) of its outputs,
+    and the call's peak allocated bytes must be its three outputs' (no
+    scratch), each rounded to the allocator's 512-byte blocks.  Prints
+    both."""
+    ops = profiled_device_ops(lambda: case.run(kernels.order_scan), "order_scan")
     n = case.tensors[0].shape[0]
     outputs = sum((b + 511) // 512 * 512 for b in (4 * n, 4 * n, n))
     peak = call_peak_bytes(lambda: case.run(kernels.order_scan))

@@ -496,7 +496,6 @@ def _i_fame(env):
          _arr((M,), _I32, 0, d["smax"])),         # stake
         dict(tot_stake=d["tot"], coin_period=env.coin_period, r_max=R,
              s_max=S, has_forks=True),
-        pulls=("gpu/incremental.py:_used_slots",),
     )
 
 

@@ -51,7 +51,6 @@ from tpu_swirld_torch.gpu.pipeline import (
     ConsensusResult,
     _bucket,
     _columns_pass,
-    _pad_slots,
     _suffix_rows,
     _unique_famous,
     _whiten_sigs,
@@ -245,17 +244,14 @@ def _used_slots(wit_table) -> int:
 def fame_window_stage(sees, ssm_c, col_pos, wit_table, creator, coin, stake,
                       *, tot_stake, coin_period, r_max, s_max, has_forks):
     """Fame voting over the retained round window (rows [0, r_max)) only,
-    on the used slots (exact, :func:`~tpu_swirld_torch.gpu.pipeline.
-    _pad_slots`).  Returns ``(famous, decided_at)`` over ``r_max * s_max``
+    on the whole table at the window's slot capacity ``s_max``: the
+    kernel's cost follows each round's own width, so no slot cut is pulled
+    to the host.  Returns ``(famous, decided_at)`` over ``r_max * s_max``
     slots."""
-    tab = wit_table[:r_max]
-    s_used = _used_slots(tab)
-    famous, dec = fame_scan(
-        tab[:, :s_used].contiguous(), sees, ssm_c, creator, coin, stake,
-        tot_stake, coin_period, has_forks=has_forks, col_pos=col_pos,
+    return fame_scan(
+        wit_table[:r_max], sees, ssm_c, creator, coin, stake, tot_stake,
+        coin_period, has_forks=has_forks, col_pos=col_pos,
     )
-    return (_pad_slots(famous, r_max, s_used, s_max),
-            _pad_slots(dec, r_max, s_used, s_max))
 
 
 def order_window_stage(anc, wit_table, wit_count, famous, creator,

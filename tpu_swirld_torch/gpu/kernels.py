@@ -76,8 +76,8 @@ _ARGTYPES = {
         _INT, _INT, _VP,
     ],
     "fame_scan_launch": [
-        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-        _VP, _VP, _INT, _INT, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+        _INT, _INT, _INT, _VP, _VP, _INT, _INT, _INT, _VP,
     ],
     "order_scan_launch": [
         _VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _INT,
@@ -707,11 +707,44 @@ rounds_scan.launches = 0
 
 # --------------------------------------------------------------- fame_scan
 
-# the H100's opt-in shared memory a block, less the kernel's static words;
-# the fame kernel keeps three int32 and three byte arrays of S slots there
+# the H100's opt-in shared memory a block, less the kernel's static words
 _FS_SMEM_LIMIT = 232448 - 64
-_FS_SMEM_PER_SLOT = 15
-_FS_MAX_THREADS = 1024
+_FS_WARPS = 16              # warps of a fame block, a witness slot each
+_FS_SS_WORDS = 12288        # the staged strongly-sees rows a block aims for (48 KB)
+# where the kernel reads its cells: the slabs by witness index (the full
+# matrix, or the column store through col_pos), or gathered cells
+_FS_SLAB, _FS_COLUMNS, _FS_CELLS = 0, 1, 2
+
+
+def _fame_smem_words(s_max: int, warps: int, ss_words: int, exact: bool) -> int:
+    """The fame kernel's dynamic shared memory in 32-bit words, as
+    ``csrc/fame_scan.cu:smem_words`` carves it: two vote masks a slot, 32
+    stake planes and the staged strongly-sees rows; with ``exact`` four
+    masks (the forked slots, those not their creator's last, the runs'
+    other and last positions) and the slot at each position of the plan's
+    order (16 bits)."""
+    sw = (s_max + 31) // 32
+    words = 2 * warps * sw + 32 * sw + ss_words
+    if exact:
+        words += 4 * sw + (s_max + 1) // 2
+    return words
+
+
+def fame_launch_shape(s_max: int, exact: bool):
+    """``(warps, ss_words, smem_bytes)`` of a fame launch over
+    ``s_max`` slots a round, from the shape alone: 16 warps and a tile of
+    strongly-sees rows up to 48 KB (a whole round's voters where they fit);
+    where that exceeds a block's shared memory the least tile (32 voters),
+    then 8 warps.  Raises ``ValueError`` past that: past 18 584 slots with
+    ``exact``, 23 200 without."""
+    sw = (s_max + 31) // 32
+    ss_min = 32 * (sw | 1)
+    ss_full = max(ss_min, min(_FS_SS_WORDS, 32 * sw * (sw | 1)))
+    for warps, ss_words in ((_FS_WARPS, ss_full), (_FS_WARPS, ss_min), (8, ss_min)):
+        smem = 4 * _fame_smem_words(s_max, warps, ss_words, exact)
+        if smem <= _FS_SMEM_LIMIT:
+            return warps, ss_words, smem
+    raise ValueError(f"fame_scan: {s_max} slots a round exceed a block's shared memory")
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -823,13 +856,16 @@ def _cells(slab, rows, cols):
 
 
 def _fame_cells(wit_table, sees, ssm, col_pos):
-    """The fame kernel's input, gathered on the device with no host pull:
-    bool ``(R - 1, S, S)`` ``sp`` and ``ss``, ``[r - 1, p, y]`` whether
-    slot ``y`` of round ``r`` sees and strongly sees slot ``p`` of round
-    ``r - 1`` (an empty slot's event clipped to ``[0, n)``, as the
+    """The cells the fame kernel reads, gathered on the device with no host
+    pull: bool ``(R - 1, S, S)`` ``sp`` and ``ss``, ``[r - 1, p, y]``
+    whether slot ``y`` of round ``r`` sees and strongly sees slot ``p`` of
+    round ``r - 1`` (an empty slot's event clipped to ``[0, n)``, as the
     reference clips it; the kernel masks empty slots).  With ``col_pos``,
     ``ssm`` is the column store and a witness without a column (-1) is
-    strongly seen by none."""
+    strongly seen by none.  The kernel's input on a group rank's row views
+    (one gather of the cells a slab); on plain slabs the kernel reads the
+    same cells itself, and ``chip_smoke.py`` times this as their plain
+    gather."""
     n = sees.shape[0]
     we = wit_table.clamp(0, n - 1).to(torch.int64)
     y, p = we[1:], we[:-1]
@@ -841,6 +877,35 @@ def _fame_cells(wit_table, sees, ssm, col_pos):
     return sp, ss & (ppos >= 0)[:, :, None]
 
 
+def _fame_plan(wit_table, creator, stake, n: int):
+    """Plain version of the plan that each block of the fame kernel builds
+    in shared memory as it reaches a round (``csrc/fame_scan.cu``):
+    ``(width, planes, head)``, int32 ``(R,)`` one past each round's last
+    witness slot (0 for none); bool ``(R, 32, S)``, bit ``b`` of the stake
+    (as uint32) of each slot's creator, False for an empty slot or a creator
+    outside the stake; int32 ``(R, S)``, for a slot whose creator has
+    another slot in the round that creator's first slot, else -1 (the runs
+    of the kernel's list: a forked creator's mask is the slots naming its
+    first slot).  The card's route does not call it; the tests and
+    ``chip_smoke.py`` do."""
+    r_max, s_max = wit_table.shape
+    dev = wit_table.device
+    m = stake.shape[0]
+    valid = wit_table >= 0
+    slots = torch.arange(s_max, dtype=torch.int32, device=dev)
+    width = torch.where(valid, slots + 1, 0).amax(dim=1).to(torch.int32)
+    cre = creator[wit_table.clamp(0, n - 1).to(torch.int64)]
+    known = valid & (cre >= 0) & (cre < m)
+    cre = torch.where(known, cre, -1)
+    st = torch.where(known, stake[cre.clamp(0, m - 1).to(torch.int64)], 0)
+    bits = torch.arange(32, dtype=torch.int64, device=dev)
+    planes = ((st.to(torch.int64) & 0xFFFFFFFF)[:, None, :] >> bits[None, :, None]) & 1 == 1
+    same = (cre[:, :, None] == cre[:, None, :]) & known[:, :, None] & known[:, None, :]
+    first = torch.argmax(same.to(torch.int32), dim=2)   # the first slot of the creator
+    head = torch.where(same.sum(dim=2) > 1, first, -1).to(torch.int32)
+    return width, planes, head
+
+
 def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
               coin_period, *, has_forks, col_pos=None):
     """Virtual fame voting, exactly as the reference's ``fame_scan``.
@@ -849,17 +914,20 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
     and the table-local round whose tally first decided the slot (-1
     undecided).
 
-    ``wit_table`` int32 ``(R, S)`` (-1 an empty slot); ``sees`` bool ``(n,
+    ``wit_table`` int32 ``(R, S)`` (-1 an empty slot; any slot capacity:
+    the kernel's cost follows each round's own width); ``sees`` bool ``(n,
     n)``; ``ssm`` bool, the full ``(n, n)`` strongly-sees matrix, or with
     ``col_pos`` (int32 ``(n,)``, -1 no column) the column store ``(n,
     C)``; either slab may be a group rank's row view
     (``parallel.RowGather``); ``creator`` int32 and ``coin`` uint8 (the
     packer's coin bits) ``(n,)``, ``stake`` int32 ``(M,)`` summing to
     ``tot_stake``; ``coin_period`` >= 1.
-    On the card one kernel launch after the device ops of
-    :func:`_fame_cells` (on a row view one gather of the cells a slab), no
-    host pull; allocates the outputs and the ``2 (R - 1) S^2`` bytes of
-    cells."""
+    On the card one C call and one kernel launch, which reads its cells
+    from the slabs itself: no other device op, no host pull, no scratch; it
+    allocates the outputs alone.  On a group rank's row views the cells are
+    gathered first (:func:`_fame_cells`, one gather a slab).  Raises
+    ``ValueError`` where ``S`` slots a round need more shared memory than
+    a block has (:func:`fame_launch_shape`)."""
     _check(wit_table, "wit_table", torch.int32, 2)
     _check(_slab_tensor(sees), "sees", torch.bool, 2)
     _check(_slab_tensor(ssm), "ssm", torch.bool, 2)
@@ -890,7 +958,8 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
     if coin_period < 1:
         raise ValueError(f"fame_scan: a coin period of {coin_period}")
     tot_stake = check_stake_envelope(tot_stake)
-    on_cpu = _on_cpu(*tensors)
+    views = not (isinstance(sees, torch.Tensor) and isinstance(ssm, torch.Tensor))
+    on_cpu = _on_cpu(*tensors, *(() if views else (sees, ssm)))
     if {_slab_tensor(x).device for x in (sees, ssm)} != {wit_table.device}:
         raise ValueError("fame_scan: the slabs lie on another device than the table")
     if on_cpu:
@@ -898,20 +967,23 @@ def fame_scan(wit_table, sees, ssm, creator, coin, stake, tot_stake,
             wit_table, sees, ssm, creator, coin, stake, tot_stake, coin_period,
             has_forks=has_forks, col_pos=col_pos,
         )
-    smem = _FS_SMEM_PER_SLOT * s_max
-    if smem > _FS_SMEM_LIMIT:
-        raise ValueError(f"fame_scan: {s_max} slots a round exceed a block's shared memory")
+    exact = bool(has_forks or tot_stake >= (1 << 24))
+    warps, ss_words, smem = fame_launch_shape(s_max, exact)
+    if views:
+        src, ld = _FS_CELLS, s_max
+        sees, ssm = _fame_cells(wit_table, sees, ssm, col_pos)
+    else:
+        src, ld = (_FS_SLAB if col_pos is None else _FS_COLUMNS), ssm.shape[1]
     dev = wit_table.device
-    sp, ss = _fame_cells(wit_table, sees, ssm, col_pos)
     famous = torch.empty((r_max * s_max,), dtype=torch.int8, device=dev)
     dec = torch.empty((r_max * s_max,), dtype=torch.int32, device=dev)
-    threads = min(_FS_MAX_THREADS, (s_max + 31) // 32 * 32)
     err = _launch(
         dev, _c_function("fame_scan", "fame_scan_launch"),
-        wit_table.data_ptr(), sp.data_ptr(), ss.data_ptr(), creator.data_ptr(),
-        coin.data_ptr(), stake.data_ptr(), n, n_members, r_max, s_max, tot_stake,
-        coin_period, int(has_forks or tot_stake >= (1 << 24)), famous.data_ptr(),
-        dec.data_ptr(), threads, smem,
+        wit_table.data_ptr(), sees.data_ptr(), ssm.data_ptr(),
+        None if col_pos is None else col_pos.data_ptr(), creator.data_ptr(),
+        coin.data_ptr(), stake.data_ptr(), n, ld, n_members, r_max, s_max,
+        tot_stake, coin_period, int(exact), src, famous.data_ptr(),
+        dec.data_ptr(), warps, ss_words, smem,
     )
     _raise_on(err, "fame_scan")
     fame_scan.launches += 1
