@@ -86,7 +86,12 @@
    ``launch_card_ms`` the same), ``plan_card_ms`` (the plain round plan,
    ``kernels._order_plan``, on the card, timed in turn with the wrapper:
    what the kernel's prologue now does inside the launch), ``peak_bytes``
-   (a call's peak allocated bytes), ``host_us`` and ``ns_per_event``.  One
+   (a call's peak allocated bytes), ``host_us`` and ``ns_per_event``.  The
+   config-5 case also runs on two column windows, its events' halves, as
+   a group rank runs its own events (``cols``, ``anc`` a view of the
+   window's columns): each window against its plain version on the same
+   view and against that slice of the whole call's outputs, exactly, and
+   timed as the fixed shapes are (:func:`order_window_rows`).  One
    config-3 call runs under ``torch.profiler``: the card must run the order
    kernel once and nothing else but fills of its outputs, and the call's
    peak allocated bytes (printed) must be its outputs'.  From phase 4 on, every
@@ -343,20 +348,25 @@
    columns) over 1 nccl and 2 gloo ranks, each rank holding only its own
    rows (``multichip.row_block_rank``, both routes): every rank's block
    equal to ``ssm_block``'s and its plain version's.  (d) The streaming
-   driver with its window row-sharded over 2 gloo ranks
+   driver with its window row-sharded over gloo ranks
    (``multichip.streaming_rank``, ``pallas=True``) through
    ``tests/test_mesh_stream.py:170``'s forked schedule (12 members, 1 000
-   events, 4 forkers, ingests of 250) and its smoke (:61, 6 members, 300
-   events, ingests of 100, whose prunes move rows across the shards):
+   events, 4 forkers, ingests of 250) over 2 and 4 ranks and its smoke
+   (:61, 6 members, 300 events, ingests of 100, whose prunes move rows
+   across the shards) over 2:
    every rank's slabs its own ``W / D``
    rows after every ingest, its digests and archive digest equal to the
    one-process ``StreamingConsensus``'s on the card, no repin,
    ``fame_scan`` and ``order_scan`` launched once a fame- and an
    order-stage call of its driver (``inc_fame``, ``inc_order``, a
-   rebase's ``fame_order_cols_stage``); each rank's
-   bytes handed to collectives a pass, own slab bytes and peak device
-   bytes, in all and by stage (``multichip.watch_stage_peaks``), beside
-   the one-process driver's.  Prints when each group was done and the
+   rebase's ``fame_order_cols_stage``); every order-stage call of a rank
+   runs two collectives (its column exchange and the join of the
+   outputs) and hands them at most ``(D - 1) W^2 / D^2 + 8 W`` bytes
+   (``order_bytes_bound``, ``W`` the pass's window rows), else the rank
+   fails; each rank's bytes handed to collectives a pass, in all and by
+   stage, its order stage's bytes a pass beside the bound, own slab bytes
+   and peak device bytes, in all and by stage
+   (``multichip.watch_stage_peaks``), beside the one-process driver's.  Prints when each group was done and the
    seconds of the phase.
 20. The port's bench (``tpu_swirld_torch.bench``) in this process, its
    ``lint`` / ``mc`` / ``scale_audit`` stamps those of phases 16(a), 17(d) and
@@ -412,7 +422,7 @@ from tpu_swirld_torch import (
     save_packed, ssm_matrix_sharded,
 )
 from tpu_swirld_torch import (
-    bench, chaos, chaos_run, multichip, obs, soak, transport, viz,
+    bench, chaos, chaos_run, multichip, obs, parallel, soak, transport, viz,
 )
 from tpu_swirld_torch.analysis import jit_audit, lint_paths, lint_summary, races
 from tpu_swirld_torch.analysis.lint import SUPPRESSION_GATES, suppression_gate
@@ -730,7 +740,7 @@ FLOW_EDGE = {"members": 4, "stake": 178_956_970, "n": 256, "k": 64, "cols": 64,
 # Meshes over several processes (phase 19): the groups, (backend, ranks),
 # and what each runs; every rank on this one card
 GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke"),
-              ("gloo", 4): ("dryrun",), ("nccl", 1): ("dryrun", "block")}
+              ("gloo", 4): ("dryrun", "forks"), ("nccl", 1): ("dryrun", "block")}
 GROUP_BATCH_CONFIG = "config3"
 GROUP_BLOCK = {"row0": 4096, "rows": 1024, "cols": 256}   # phase 9's extension block
 # (d) tests/test_mesh_stream.py:170's forked window and :61's smoke (its
@@ -2076,27 +2086,33 @@ def random_fame_cases(dev="cuda"):
     return out + [synthetic_fame_case(kind, dev) for kind in ("wide", "runs")]
 
 
+#: the trace categories of the card's own ops
+DEVICE_OP_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def profiled_device_ops(fn, name):
     """The device ops ``(category, kernel function)`` of one call of ``fn``
-    under ``torch.profiler`` (the card's activity), after a warm call.  A
-    capture with no device op at all is the profiler's miss, not a call
-    that ran nothing (a later profiler session in one process has come
-    back empty on the card while the same call showed its kernel in
-    another run): the call is then captured once more, and a call that
-    runs nothing comes back empty again."""
+    under ``torch.profiler`` (host and card, as phase 13's traces, whose
+    sessions have never come back empty; the card's ops are kept), after a
+    warm call.  A capture with no device op at all is the profiler's miss,
+    not a call that ran nothing (a card-only session soon after another
+    in one process has come back empty twice in a row while the same call
+    showed its kernel in another run): the call is then captured again,
+    up to three times, and a call that runs nothing comes back empty each
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     os.makedirs(TRACE_DIR, exist_ok=True)
     path = os.path.join(TRACE_DIR, f"{name}.json")
-    for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         prof.export_chrome_trace(path)
         ops = [(cat, _kernel_fn(kname)) for cat, kname, _a, _b in _trace_events(path)
-               if cat != "user_annotation"]
+               if cat in DEVICE_OP_CATEGORIES]
         os.remove(path)
         if ops:
             break
@@ -2210,17 +2226,21 @@ def check_fame_scan(dags, packs, c5_packed, failures):
 class OrderCase:
     """One ``order_scan`` call: its tensors (``anc``, the witness table and
     counts, ``famous``, ``creator``, ``self_parent``, ``t_rank``), its host
-    ints and the received flags it resumes from (never written)."""
+    ints and the received flags it resumes from (never written); with
+    ``cols = (x0, x1)``, the call on that column window, ``anc`` the
+    window's columns."""
     label: str
     tensors: tuple
     max_round: int
     n_valid: int
     chain: int
     received0: object = None
+    cols: object = None
 
     def run(self, fn):
         return fn(*self.tensors, self.max_round, self.n_valid, chain=self.chain,
-                  received0=self.received0)
+                  received0=self.received0,
+                  **({} if self.cols is None else {"cols": self.cols}))
 
     def nbytes(self, rr) -> int:
         """The bytes the order scan must move on these inputs, given the
@@ -2235,16 +2255,18 @@ class OrderCase:
         and creators at the table's slots (int32) for the plan; the
         received flags in and out and the two int32 outputs.  Each of those
         bytes costs a compare or two, so at the card's scalar peak the
-        operations never bound it."""
+        operations never bound it.  On a column window, what its events
+        need."""
         anc, tab, cnt, famous, creator, self_parent, _t_rank = self.tensors
         n = anc.shape[0]
+        x0, x1 = (0, n) if self.cols is None else self.cols
         r_max, s_max = tab.shape
         dev = anc.device
         ufw_ev, nv = kernels._order_plan(tab, cnt, famous, creator, self.max_round, n)
-        pending = torch.arange(n, device=dev) < self.n_valid
+        pending = torch.arange(x0, x1, device=dev) < self.n_valid
         if self.received0 is not None:
-            pending &= ~self.received0
-        touched = torch.zeros_like(anc)
+            pending &= ~self.received0[x0:x1]
+        touched = torch.zeros(anc.shape, dtype=torch.bool, device=dev)
         walked = torch.zeros((n,), dtype=torch.bool, device=dev)
         for r, k in enumerate(nv.tolist()):
             if k == 0:
@@ -2256,7 +2278,7 @@ class OrderCase:
             touched[w[first], cols] = True
             if self.chain == 0:             # the all-see test alone
                 touched[w] |= newly
-            alive, cur = newly.expand(k, n).clone(), w
+            alive, cur = newly.expand(k, x1 - x0).clone(), w
             for _ in range(self.chain):     # chains of distinct creators: rows distinct
                 if not bool(alive.any()):
                     break
@@ -2268,7 +2290,8 @@ class OrderCase:
                 cur = torch.where(nxt >= 0, nxt, cur)
             pending &= ~newly
         return (int(touched.sum()) + 8 * int(walked.sum()) + 9 * r_max * s_max
-                + 4 * r_max + (n if self.received0 is not None else 0) + 9 * n)
+                + 4 * r_max + (x1 - x0 if self.received0 is not None else 0)
+                + 9 * (x1 - x0))
 
 
 def batch_inputs(packed, stake_np, n_members, dev="cuda"):
@@ -2420,6 +2443,55 @@ def profile_order_call(case, failures):
                         f"of a call, more than its outputs' {outputs}")
 
 
+def order_window_rows(case, whole, failures):
+    """``order_scan`` on column windows, as a group rank runs its own
+    events: ``case``'s events split in two halves, each call on a view of
+    its window's columns of ``anc`` (the rows' stride the whole slab's)
+    against its plain version on the same view and against that slice of
+    ``whole``, the whole call's outputs, all three exactly; each timed as
+    the fixed shapes are, its bound the bytes its events need."""
+    anc = case.tensors[0]
+    n = anc.shape[0]
+    rows = []
+    for x0, x1 in ((0, n // 2), (n // 2, n)):
+        win = dataclasses.replace(case, label=f"{case.label}, columns [{x0}, {x1})",
+                                  tensors=(anc[:, x0:x1], *case.tensors[1:]), cols=(x0, x1))
+        got = win.run(kernels.order_scan)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = win.run(kernels.order_scan_reference)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        same = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        same_whole = all(torch.equal(g, w[x0:x1]) for g, w in zip(got, whole))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        rr = want[0]
+        print(f"order_scan {win.label}: equal to its plain version {same}, to the whole "
+              f"call's slice {same_whole}, received {int((rr >= 0).sum())}", flush=True)
+        if not (same and same_whole):
+            failures.append(f"order_scan {win.label}: the window != its plain version or "
+                            "the whole call's slice")
+        (c_ms,) = card_ms_each([lambda win=win: win.run(kernels.order_scan)])
+        row = {"case": win.label, "N": n, "cols": [x0, x1],
+               "r_max": win.tensors[1].shape[0], "s_max": win.tensors[1].shape[1],
+               "chain": win.chain, "received0": win.received0 is not None,
+               "received": int((rr >= 0).sum()), "max_abs_err": err,
+               "ms": time_ms(lambda win=win: win.run(kernels.order_scan), 10),
+               "host_us": host_us(lambda win=win: win.run(kernels.order_scan), 50),
+               "card_ms": c_ms, "launch_card_ms": c_ms,
+               "peak_bytes": call_peak_bytes(lambda win=win: win.run(kernels.order_scan)),
+               "ns_per_event": c_ms * 1e6 / (x1 - x0), "plain_ms": plain_ms,
+               "bytes": win.nbytes(rr), "bound_by": "bytes", "library_ms": None}
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        print("order_scan", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def check_order_scan(dags, packs, c5_packed, failures):
     """``order_scan`` against its plain version on the card, all three
     outputs exactly.  Fixed shapes: the full path's order scan over config
@@ -2429,9 +2501,10 @@ def check_order_scan(dags, packs, c5_packed, failures):
     (:func:`random_order_cases`).  Each fixed shape is timed beside its
     plain version and its bound (:meth:`OrderCase.nbytes`), with its peak
     allocated bytes; the config-3 call is also profiled
-    (:func:`profile_order_call`).  An output in which nothing is received,
-    or every received event in one round, fails: it could not tell a wrong
-    kernel."""
+    (:func:`profile_order_call`); the config-5 case also on two column
+    windows (:func:`order_window_rows`).  An output in which nothing is
+    received, or every received event in one round, fails: it could not
+    tell a wrong kernel."""
     fixed = [
         order_batch_case("config3 full N=10112", packs["config3"],
                          packs["config3"].stake, N_MEMBERS),
@@ -2490,6 +2563,8 @@ def check_order_scan(dags, packs, c5_packed, failures):
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         print("order_scan", json.dumps(row), flush=True)
         rows.append(row)
+        if case is fixed[3]:
+            rows += order_window_rows(case, got, failures)
     return rows
 
 
@@ -4811,15 +4886,51 @@ def group_stream_reference(name, schedule):
         single.store.close()
 
 
+def order_bytes_bound(w, d):
+    """The most bytes a rank of ``d`` may hand its collectives in one call
+    of the group's order stage over a ``w``-row window: its column
+    exchange's blocks for the other ranks and the join of the two int32
+    outputs of every event."""
+    return (d - 1) * w * w // (d * d) + 8 * w
+
+
+def group_order_traffic(tag, out, world, failures):
+    """A rank's collectives by stage over a stream, summed over its passes,
+    and its order stage's bytes a pass beside the bound: each order-stage
+    call must run two collectives (the column exchange and the join) and
+    hand them at most :func:`order_bytes_bound` of the pass's window rows,
+    and some pass must run one.  Returns ``(by_stage, order)``."""
+    order = []
+    for st in out["passes"]:
+        rec = st["group_stages"].get("pipeline.inc_order")
+        if rec is None:
+            continue
+        bound = order_bytes_bound(st["group_window_rows"], world)
+        order.append({"window_rows": st["group_window_rows"], "calls": rec["stage_calls"],
+                      "bytes": rec["bytes"], "peak_call_bytes": rec["peak_call_bytes"],
+                      "bound": bound})
+        if rec["calls"] != 2 * rec["stage_calls"] or rec["peak_call_bytes"] > bound:
+            failures.append(f"{tag}: an order-stage call ran {rec} collectives and bytes, "
+                            f"over its two and {bound} bytes")
+    if not order:
+        failures.append(f"{tag}: no order-stage call")
+    return parallel.stage_totals(st["group_stages"] for st in out["passes"]), order
+
+
 def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
     """Phase 19(d): every rank's streaming run of schedule ``name`` against
     the one-process driver's (each rank checked its slabs' rows after
-    every ingest)."""
+    every ingest), and its order stage's collectives within their bound
+    (:func:`group_order_traffic`)."""
     members, stake, chunks = schedule
     packed = pack_events([e for c in chunks for e in c], members, stake)
     for rank, rep in enumerate(reports):
         out = rep["result"]["results"][out_i]
         used = rep["result"]["launches"][out_i]
+        by_stage, order = group_order_traffic(f"{tag} rank {rank} stream {name}", out,
+                                              len(reports), failures)
+        print(f"{tag} rank {rank} stream {name}: collectives by stage "
+              f"{json.dumps(by_stage)}; order stage a pass {json.dumps(order)}", flush=True)
         digests = result_digests(packed, out["result"])
         print(f"{tag} rank {rank} stream {name}: collectives a pass "
               f"{[st['group_calls'] for st in out['passes']]}, bytes to them "

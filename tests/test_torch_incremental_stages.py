@@ -310,7 +310,8 @@ def test_fame_and_order_window_stages(forked_columns_pass):
     got = inc.order_window_stage(
         g_aux["anc"], t(tab), t(cnt), t(fam), t(creator), t(self_parent),
         t(t_rank), int(w_out["max_round"]), packed.n, t(recv0),
-        r_max=r_ord, s_max=s_max, chain=int(packed.seq.max()) + 1,
+        r_max=r_ord, s_max=s_max, s_used=inc._used_slots(np.asarray(tab)[:r_ord]),
+        chain=int(packed.seq.max()) + 1,
     )
     assert all(same(g, w) for g, w in zip(got, want))
     assert (to_host(got[0]) >= 0).any()

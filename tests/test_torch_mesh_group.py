@@ -9,14 +9,25 @@ forked window (:170) and the widening rebase (as ``tests/test_torch_mesh.py``
 runs it).  Every rank holds only its ``W / D`` rows of each slab after every
 ingest (``multichip.assert_row_sharded``, checked in the rank); every pass's
 stats, the result, the archive and the store's accounting equal the
-reference's on every rank."""
+reference's on every rank.  A pass's collectives by stage
+(``group_stages``) add up to its ``group_calls`` and ``group_bytes``; each
+order-stage call runs two collectives, the column exchange and the join,
+and hands at most ``(D - 1) W^2 / D^2 + 8 W`` bytes (no rank gathers the
+window's ``W`` rows).  The driver's fame and order window stages over a
+group's row views equal the reference's window stages, fame's cell
+gathers covering ``(R - 1) x s_used^2`` cells of the used slots."""
 
+import numpy as np
 import pytest
 
 from tpu_swirld import parallel as ref_parallel
 from tpu_swirld.config import SwirldConfig as RefConfig
 from tpu_swirld.sim import generate_gossip_dag
+from tpu_swirld.tpu import pipeline as ref_pipeline
 from tpu_swirld_torch import multichip
+from tpu_swirld_torch.gpu import incremental as inc
+from tpu_swirld_torch.parallel import BETWEEN_STAGES
+from tests.test_torch_group_columns import window_stages_rank
 from tests.test_torch_incremental import port_events
 from tests.test_torch_pipeline import assert_same
 from tests.test_torch_store import (
@@ -71,6 +82,27 @@ def groups():
     return run
 
 
+def order_bytes_bound(w, d):
+    """The most bytes a group rank may hand the order stage a call: its
+    column exchange's blocks for the other ranks and the joined outputs
+    (two int32 of each of the ``w`` events)."""
+    return (d - 1) * w * w // (d * d) + 8 * w
+
+
+def _check_stages(stages, calls, sent, w, d):
+    """A pass's collectives by stage: they add up, and each order-stage
+    call runs the column exchange and the join, within its bound.  Returns
+    the pass's order-stage calls."""
+    assert sum(r["calls"] for r in stages.values()) == calls
+    assert sum(r["bytes"] for r in stages.values()) == sent
+    assert stages.get(BETWEEN_STAGES, {"stage_calls": 0})["stage_calls"] == 0
+    order = stages.get("pipeline.inc_order", {"calls": 0, "stage_calls": 0,
+                                              "peak_call_bytes": 0})
+    assert order["calls"] == 2 * order["stage_calls"]
+    assert order["peak_call_bytes"] <= order_bytes_bound(w, d)
+    return order["stage_calls"]
+
+
 def _lockstep(d, outs, name):
     """The reference's mesh driver over ``d`` devices through the same
     schedule, every pass's stats compared with every rank's."""
@@ -78,17 +110,22 @@ def _lockstep(d, outs, name):
     want = ref_parallel.MeshStreamingConsensus(ref_parallel.make_mesh(d), members,
                                                stake, cfg, **kw)
     try:
+        order_calls = [0] * len(outs)
         for i, chunk in enumerate(chunks):
             sw = want.ingest(chunk)
             for k in VOLATILE:
                 sw.pop(k, None)
-            for out in outs:
+            for j, out in enumerate(outs):
                 sg = dict(out["passes"][i])
-                assert sg.pop("group_calls") > 0 and sg.pop("group_bytes") > 0
+                calls, sent = sg.pop("group_calls"), sg.pop("group_bytes")
+                assert calls > 0 and sent > 0
+                order_calls[j] += _check_stages(sg.pop("group_stages"), calls, sent,
+                                                sg.pop("group_window_rows"), d)
                 assert sg.pop("rank_resident_bytes") * d == sg["resident_bytes"]
                 for k in VOLATILE:
                     sg.pop(k, None)
                 assert sg == sw, (name, i)
+        assert min(order_calls) > 0 and len(set(order_calls)) == 1, order_calls
         for out in outs:
             assert_same(want.result(), out["result"])
             arch = want.store.archive
@@ -144,3 +181,65 @@ class _Result:
 
     def result(self):
         return self._result
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_group_window_stages_match_reference(d, tmp_path):
+    """The driver's fame and order window stages over a gloo group's row
+    views (``tests/test_torch_group_columns.py:window_stages_rank``) on a
+    forked window, fame's table at a slot capacity above its used width:
+    every rank's outputs equal the reference's window stages; fame's two
+    cell gathers cover ``(R - 1) x s_used^2`` cells each, not the
+    capacity's; order hands its column exchange and the join alone,
+    ``(D - 1) W^2 / D^2 + 8 W`` bytes."""
+    import jax.numpy as jnp
+
+    from tests.test_torch_fame_scan import _batch as fame_batch, _columns
+    from tests.test_torch_order_scan import _batch as order_batch, _window
+
+    f = _columns(fame_batch("forked"))
+    o = _window(order_batch("forked"))
+    assert np.array_equal(f["creator"], o["creator"])
+    r_max, s_used = f["tab"].shape
+    s_cap, r_fame = s_used + 5, r_max - 2
+    fame_tab = np.full((r_max, s_cap), -1, np.int32)
+    fame_tab[:, :s_used] = f["tab"]
+    assert inc._used_slots(fame_tab[:r_fame]) == s_used
+    r_ord = o["tab"].shape[0] - 1
+    path = tmp_path / "window.npz"
+    np.savez(path, sees=f["sees"], ssm=f["ssm"], col_pos=f["col_pos"], fame_tab=fame_tab,
+             creator=f["creator"], coin=f["coin"], stake=f["stake"], tot_stake=f["tot"],
+             coin_period=f["coin_period"], r_max=r_fame, s_max=s_cap, s_used=s_used,
+             has_forks=f["has_forks"], anc=o["anc"], tab=o["tab"], cnt=o["cnt"],
+             famous=o["famous"], self_parent=o["self_parent"], t_rank=o["t_rank"],
+             max_round=o["max_round"], n_valid=o["n_valid"], received0=o["received0"],
+             r_ord=r_ord, chain=o["chain"])
+    reports = multichip.launch(window_stages_rank, d, args=(str(path),), device="cpu",
+                               backend="gloo", timeout=300)
+    want_fame = ref_pipeline.fame_window_stage(
+        *(jnp.asarray(x) for x in (f["sees"], f["ssm"], f["col_pos"], fame_tab,
+                                   f["creator"], f["coin"], f["stake"])),
+        tot_stake=f["tot"], coin_period=f["coin_period"], r_max=r_fame, s_max=s_cap,
+        has_forks=f["has_forks"], matmul_dtype_name="float32")
+    want_order = ref_pipeline.order_window_stage(
+        *(jnp.asarray(o[k]) for k in ("anc", "tab", "cnt", "famous", "creator",
+                                      "self_parent", "t_rank")),
+        np.int32(o["max_round"]), np.int32(o["n_valid"]), jnp.asarray(o["received0"]),
+        r_max=r_ord, s_max=o["tab"].shape[1], chain=o["chain"])
+    w = o["anc"].shape[0]
+    for rep in reports:
+        out = rep["result"]
+        for g, x in zip(out["fame"], want_fame):
+            assert np.array_equal(g, np.asarray(x))
+        for g, x in zip(out["order"], want_order):
+            assert np.array_equal(g, np.asarray(x))
+        # fame is handed the used slots; the card's route gathers their cells
+        assert out["fame_handed"] == [(r_fame, s_used)]
+        cells = 2 * (r_fame - 1) * s_used ** 2
+        assert out["stages"]["fame cells"] == {"calls": 2, "bytes": cells, "stage_calls": 1,
+                                               "peak_call_bytes": cells}
+        order = out["stages"]["pipeline.inc_order"]
+        sent = (d - 1) * (w // d) ** 2 + 8 * w
+        assert sent <= order_bytes_bound(w, d)
+        assert order == {"calls": 2, "bytes": sent, "stage_calls": 1, "peak_call_bytes": sent}
+    assert (np.asarray(want_order[0]) >= 0).any() and (np.asarray(want_fame[0]) == 1).any()

@@ -14,9 +14,13 @@ block builds round by round) and a NumPy emulation of the kernel in its
 order of work (a block of 32 events, the all-see test split over warps,
 the self-chains tabulated a window of rows at a time and searched for the
 first row that does not see an event, a radix select for the median) are
-held to the same cases.  Then the port's ``fame_order_cols_stage`` and
-``order_window_stage`` against the reference's, the wrapper's refusals
-and its launch count, which stays 0 on the CPU."""
+held to the same cases.  The scan on column windows (``cols``, as a group
+rank runs its own events over their columns): the wrapper on views of the
+windows' columns, the plain version and the emulation on each window,
+assembled, equal the reference's whole call.  Then the port's
+``fame_order_cols_stage`` and ``order_window_stage`` against the
+reference's, the wrapper's refusals and its launch count, which stays 0 on
+the CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,9 +194,12 @@ def _radix_lower_median(vals):
     return int(np.array(prefix ^ 0x80000000, np.uint32).view(np.int32))
 
 
-def _emulate_kernel(case, stats=None):
-    """``csrc/order_scan.cu`` in NumPy, in its order of work: a block of
-    ``EVENTS`` consecutive events meets the rounds of the prefix in turn
+def _emulate_kernel(case, stats=None, cols=None):
+    """``csrc/order_scan.cu`` in NumPy, in its order of work, over the
+    events of the column window ``cols = (x0, x1)`` (all when None), read
+    from the slab of those columns as the kernel reads it (event ``e`` at
+    column ``e - x0``): a block of ``EVENTS`` consecutive events from
+    ``x0`` meets the rounds of the prefix in turn
     (:func:`_kernel_plans`); its pending events are tested against every
     unique famous witness (each warp ANDs its share, the warps' ballots are
     ANDed); where some are received, each witness's self-chain is
@@ -202,16 +209,18 @@ def _emulate_kernel(case, stats=None):
     row of the last one, and the median is :func:`_radix_lower_median`.
     ``stats`` (a dict) gets the most windows a walk took and the events
     whose median value was tied."""
-    anc, sp, tr = case["anc"], case["self_parent"], case["t_rank"]
-    n = anc.shape[0]
+    sp, tr = case["self_parent"], case["t_rank"]
+    n = case["anc"].shape[0]
+    x0, x1 = (0, n) if cols is None else cols
+    slab = np.ascontiguousarray(case["anc"][:, x0:x1])
     plans = _kernel_plans(case)
     recv0 = case["received0"]
-    rr = np.full(n, -1, np.int32)
-    ts = np.zeros(n, np.int32)
+    rr = np.full(x1 - x0, -1, np.int32)
+    ts = np.zeros(x1 - x0, np.int32)
     stats = {} if stats is None else stats
     stats.update(windows=0, ties=0)
-    for b0 in range(0, n, EVENTS):
-        ev = np.arange(b0, min(b0 + EVENTS, n))
+    for b0 in range(x0, x1, EVENTS):
+        ev = np.arange(b0, min(b0 + EVENTS, x1))
         pending = ev < case["n_valid"]
         if recv0 is not None:
             pending &= ~recv0[ev]
@@ -224,7 +233,7 @@ def _emulate_kernel(case, stats=None):
             newly = pending.copy()
             for w in range(WARPS):                  # one warp's share, ANDed
                 for k in range(w, nv, WARPS):
-                    newly &= anc[ufw[k], ev]
+                    newly &= slab[ufw[k], ev - x0]
             if not newly.any():
                 continue
             val = np.full((nv, ev.size), INT32_MAX, np.int64)
@@ -245,7 +254,7 @@ def _emulate_kernel(case, stats=None):
                             left[k] = 0
                             break
                         cur[k] = min(int(sp[cur[k]]), n - 1)
-                    sees = anc[np.array(rows)][:, ev]    # (rows, events)
+                    sees = slab[np.array(rows)][:, ev - x0]   # (rows, events)
                     seen = np.where(alive[k], np.cumprod(sees, axis=0).sum(axis=0), 0)
                     got = seen > 0
                     val[k, got] = tr[np.array(rows)][seen[got] - 1]
@@ -254,9 +263,9 @@ def _emulate_kernel(case, stats=None):
             for lane in np.flatnonzero(newly):
                 med = _radix_lower_median(val[:, lane])
                 stats["ties"] += int((val[:, lane] == med).sum() > 1)
-                rr[ev[lane]], ts[ev[lane]] = r, med
+                rr[ev[lane] - x0], ts[ev[lane] - x0] = r, med
             pending &= ~newly
-    received = rr >= 0 if recv0 is None else recv0 | (rr >= 0)
+    received = rr >= 0 if recv0 is None else recv0[x0:x1] | (rr >= 0)
     return rr, ts, received
 
 
@@ -388,6 +397,45 @@ def test_order_scan_matches_reference(name):
     assert kernels.order_scan.launches == 0
 
 
+@pytest.mark.parametrize("name", ["fork-free", "forked",
+                                  "received0 in a window's round frame",
+                                  "padding past n_valid", "no chain step"])
+@pytest.mark.parametrize("edges", [(0, 256), (0, 96, 416), (0, 32, 33, 200, 480)])
+def test_order_scan_on_column_windows_assembles_the_reference(name, edges):
+    """The order scan over column windows, as a group rank runs its own
+    events: the wrapper on each window's columns of ``anc`` (a view: its
+    rows' stride is the whole slab's), the plain version on a contiguous
+    copy and the kernel's NumPy emulation on the window, every window's
+    outputs, assembled in order, equal to the JAX reference's whole call.
+    The windows split the padded events unevenly: a block of the kernel
+    starts at its window's first event."""
+    kind, make = CASES[name]
+    case = make(_batch(kind))
+    want = _reference(case)
+    n = case["anc"].shape[0]
+    edges = (*edges[:-1], n)
+    r0 = case["received0"]
+    args = _args(case, t)
+    parts = []
+    for x0, x1 in zip(edges, edges[1:]):
+        view = args[0][:, x0:x1]
+        assert view.stride(0) == n
+        kw = dict(chain=case["chain"], received0=None if r0 is None else t(r0),
+                  cols=(x0, x1))
+        got = kernels.order_scan(view, *args[1:], case["max_round"], case["n_valid"], **kw)
+        plain = kernels.order_scan_reference(view.contiguous(), *args[1:], case["max_round"],
+                                             case["n_valid"], **kw)
+        emulated = _emulate_kernel(case, cols=(x0, x1))
+        for g, p, e in zip(got, plain, emulated):
+            assert g.shape == (x1 - x0,) and torch.equal(g, p)
+            assert np.array_equal(g.numpy(), e)
+        parts.append(got)
+    for k, w in enumerate(want):
+        assert np.array_equal(torch.cat([p[k] for p in parts]).numpy(), w), (name, k)
+    assert (want[0] >= 0).any()
+    assert kernels.order_scan.launches == 0
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_order_plan_packs_each_rounds_unique_famous_witnesses(name):
     """The card route's plan, made with no host pull: each round's unique
@@ -471,7 +519,8 @@ def test_order_window_stage_matches_reference(kind):
     )
     got = inc.order_window_stage(
         *(t(x) for x in args), c["max_round"], c["n_valid"], t(c["received0"]),
-        r_max=r_ord, s_max=s_max, chain=c["chain"],
+        r_max=r_ord, s_max=s_max, s_used=inc._used_slots(c["tab"][:r_ord]),
+        chain=c["chain"],
     )
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
@@ -498,6 +547,10 @@ def _good():
     ("received0 of the wrong length", ValueError),
     ("a negative chain", ValueError),
     ("tensors on two devices", ValueError),
+    ("a column window past the events", ValueError),
+    ("anc wider than its column window", ValueError),
+    ("an empty column window", ValueError),
+    ("anc's columns strided", ValueError),
 ])
 def test_order_scan_refuses(fault, exc):
     args, kw = _good()
@@ -524,6 +577,14 @@ def test_order_scan_refuses(fault, exc):
         kw["received0"] = torch.zeros(n - 1, dtype=torch.bool)
     elif fault == "a negative chain":
         kw["chain"] = -1
+    elif fault == "a column window past the events":
+        args[0], kw["cols"] = args[0][:, n - 8 :], (n - 8, n + 1)
+    elif fault == "anc wider than its column window":
+        args[0], kw["cols"] = args[0][:, :9], (0, 8)
+    elif fault == "an empty column window":
+        args[0], kw["cols"] = args[0][:, :0], (4, 4)
+    elif fault == "anc's columns strided":
+        args[0], kw["cols"] = args[0][:, 0:16:2], (0, 8)
     else:
         kw["max_round"] = torch.tensor(kw["max_round"], device="meta")
     with pytest.raises(exc):

@@ -36,10 +36,9 @@ Host control flow runs as Python runs it:
   proof (SW008 at the loop).  A loop that still moves raises
   :class:`LoopSummaryError`.  Exploration passes run quiet; one loud
   pass over the converged state reports.
-- **Host pulls** (``to_host``, and ``incremental._used_slots``, whose
-  ``nonzero`` is one): a fake tensor has no value, so a pull returns the
-  value its stage spec declares (:class:`PullDecl`), and the report lists
-  every pull site with the value assumed.  A pull no spec declares, or a
+- **Host pulls** (``to_host``): a fake tensor has no value, so a pull
+  returns the value its stage spec declares (:class:`PullDecl`), and the
+  report lists every pull site with the value assumed.  A pull no spec declares, or a
   ``.item()`` / ``int(tensor)`` (``aten._local_scalar_dense``) anywhere,
   raises :class:`UndeclaredPullError` (exit 2, as an unknown op).
 
@@ -777,18 +776,12 @@ def _patched(interp: _Interp):
 
     mods = _audited_modules()
     saved_host = {m: m.__dict__.get("to_host") for m in (pipeline, incremental, kernels)}
-    saved_slots = incremental._used_slots
-
-    def used_slots(wit_table):
-        return interp.pull("gpu/incremental.py:_used_slots", wit_table)
-
     _ACTIVE = interp
     try:
         for m in mods:
             m.range = _SummaryRange
         for m in saved_host:
             m.to_host = interp.to_host
-        incremental._used_slots = used_slots
         yield
     finally:
         _ACTIVE = None
@@ -796,7 +789,6 @@ def _patched(interp: _Interp):
             m.__dict__.pop("range", None)
         for m, fn in saved_host.items():
             m.to_host = fn
-        incremental._used_slots = saved_slots
 
 
 # ----------------------------------------------------------- arguments

@@ -140,11 +140,6 @@ PULLS: Dict[str, PullDecl] = {
             "every witness slot used (the widest fame and order)",
             lambda t, dims: np.full(tuple(t.shape), dims["S"], dtype=np.int32),
         ),
-        PullDecl(
-            "gpu/incremental.py:_used_slots",
-            "every witness slot used (the widest fame and order)",
-            lambda t, dims: int(t.shape[1]),
-        ),
     )
 }
 
@@ -516,8 +511,8 @@ def _i_order(env):
          R,                                       # max_round_local (host)
          W,                                       # n_valid (host)
          _mask((W,))),                            # received0
-        dict(r_max=R, s_max=S, chain=d["chain"]),
-        pulls=("gpu/incremental.py:_used_slots",) + _ORDER_PULLS,
+        dict(r_max=R, s_max=S, s_used=S, chain=d["chain"]),
+        pulls=_ORDER_PULLS,
     )
 
 

@@ -13,8 +13,10 @@ on the card: the one-process ``StreamingConsensus``, the one-process
 prints the peak device bytes above what was held, in all and by stage
 (``multichip.stage_peaks``), the slab bytes after each ingest (a rank's
 own beside the window's), the collectives a pass and the bytes handed to
-them, and the ingests' wall seconds, then one JSON line with all of it,
-the card's name and power limit.  Exits 1 unless every driver's digest
+them, in all and (for a rank) summed by stage over the passes, with the
+order stage's bytes a pass and the window's rows, and the ingests' wall
+seconds, then one JSON line with all of it, the card's name and power
+limit.  Exits 1 unless every driver's digest
 (result and archive) is the one process's.
 """
 
@@ -31,7 +33,7 @@ import torch
 from tpu_swirld_torch import crypto, multichip
 from tpu_swirld_torch.config import SwirldConfig
 from tpu_swirld_torch.packing import pack_events
-from tpu_swirld_torch.parallel import MeshStreamingConsensus, make_mesh
+from tpu_swirld_torch.parallel import MeshStreamingConsensus, make_mesh, stage_totals
 from tpu_swirld_torch.sim import generate_gossip_dag
 from tpu_swirld_torch.store import StreamingConsensus
 
@@ -93,6 +95,10 @@ def main(argv=None) -> int:
         "resident_bytes": [st["resident_bytes"] for st in rep["result"]["passes"]],
         "group_calls": [st["group_calls"] for st in rep["result"]["passes"]],
         "group_bytes": [st["group_bytes"] for st in rep["result"]["passes"]],
+        "group_stages": stage_totals(st["group_stages"] for st in rep["result"]["passes"]),
+        "order_bytes": [st["group_stages"].get("pipeline.inc_order", {}).get("bytes", 0)
+                        for st in rep["result"]["passes"]],
+        "window_rows": [st["group_window_rows"] for st in rep["result"]["passes"]],
         "launches": rep["launches"],
     } for rep in reports]
     for name in ("one_process", "one_process_mesh"):
@@ -103,7 +109,9 @@ def main(argv=None) -> int:
         print(f"group rank {rank}: {r['wall']} s, peak {r['peak_bytes']} bytes, by stage "
               f"{json.dumps(r['stage_peaks'])}; own slab bytes {r['rank_resident_bytes']} "
               f"of {r['resident_bytes']}; collectives {r['group_calls']}, bytes "
-              f"{r['group_bytes']}", flush=True)
+              f"{r['group_bytes']}; order stage bytes {r['order_bytes']} of windows "
+              f"{r['window_rows']} rows; by stage {json.dumps(r['group_stages'])}",
+              flush=True)
     want = out["one_process"]["digest"]
     same = [out["one_process_mesh"]["digest"] == want] + [
         r["digest"] == want for r in out["group"]]

@@ -59,6 +59,9 @@ class StageClock:
         self.device = device
         self.seconds: Dict[str, float] = {}
         self.calls: Dict[str, int] = {}
+        # scope(name): a context manager around each stage call, or None
+        # (a group rank's collective traffic by stage, parallel.Traffic)
+        self.scope = None
 
     def stage_call(self, name: str, fn, *args, **kw):
         return self._call(name, 1, fn, args, kw)
@@ -70,8 +73,9 @@ class StageClock:
 
     def _call(self, name, fused_chunks, fn, args, kw):
         t0 = time.perf_counter()
+        scope = self.scope(name) if self.scope is not None else contextlib.nullcontext()
         with (torch.profiler.record_function(name)
-              if torch.autograd._profiler_enabled() else contextlib.nullcontext()):
+              if torch.autograd._profiler_enabled() else contextlib.nullcontext()), scope:
             out = obs._stage_call(name, fused_chunks, fn, args, kw, self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -10,7 +10,15 @@
 //   ancestor (INT32_MAX when chain is 0)
 //
 // and e is received.  Events never received keep rr = -1 and ts = 0, and
-// received = received0 | received here.  A round r is fame-complete when
+// received = received0 | received here.
+//
+// A call covers the events of a column window [x0, x1) (the whole [0, n)
+// on one process): anc is then the slab of those columns of every row,
+// row i's byte for event e at anc[i * ld + (e - x0)], and rr, ts and
+// received hold the window's events, event e at e - x0.  A rank of a
+// process group runs its own events over the column slab it received
+// (tpu_swirld_torch/parallel.py, exchange_columns): the walks read rows of
+// any event, and only their columns of this window.  A round r is fame-complete when
 // every witness slot of it is decided, max_round >= r + 2 and wit_count[r]
 // > 0; its unique famous witnesses (UFWs) are its famous slots whose
 // creator has no other famous slot in the round, in slot order.
@@ -75,7 +83,7 @@
 // Plain C interface (bound with ctypes): order_scan_launch returns the
 // cudaError_t of the launch, 0 on success.  Launches on the caller's
 // stream, allocates nothing: received, rr and ts are the caller's, written
-// whole; received0 (may be null) is only read.
+// whole over the window; received0 (may be null, [n]) is only read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,7 +100,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int INT32_MAX_ = 0x7fffffff;
 
 struct Order {
-  const uint8_t* anc;        // [n][n]: anc[i][j], j an ancestor of i
+  const uint8_t* anc;        // [n][ld]: anc[i][e - x0], e an ancestor of i
   const int* tab;            // [r_max][s_max], -1 an empty slot
   const int* cnt;            // [r_max]
   const int8_t* famous;      // [r_max * s_max]: 1, 0, -1 undecided
@@ -103,10 +111,12 @@ struct Order {
   const void* max_round;     // device scalar (int32 or int64) or null
   int max_round_is64;
   int max_round_value;       // when max_round is null
-  uint8_t* received;         // [n]
-  int* rr;                   // [n]
-  int* ts;                   // [n]
+  uint8_t* received;         // [x1 - x0]
+  int* rr;                   // [x1 - x0]
+  int* ts;                   // [x1 - x0]
   int n, r_max, s_max, n_valid, chain;
+  int x0, x1;                // the column window: events [x0, x1)
+  int ld;                    // the slab's row stride, >= x1 - x0
 };
 
 // The dynamic shared memory of a block, S = s_max entries each.
@@ -239,10 +249,11 @@ __global__ void __launch_bounds__(THREADS) order_kernel(Order a) {
   __shared__ int out_rr[EVENTS], out_ts[EVENTS];
   const Smem m = carve(smem, a.s_max);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int e = blockIdx.x * EVENTS + lane;   // every warp's lane l: event l
-  const size_t n = (size_t)a.n;
-  const bool rec0 = e < a.n && a.received0 != nullptr && a.received0[e];
-  unsigned pending = __ballot_sync(FULL, e < a.n && e < a.n_valid && !rec0);
+  const int e = a.x0 + blockIdx.x * EVENTS + lane;   // every warp's lane l: event l
+  const size_t ld = (size_t)a.ld;
+  const int col = e - a.x0;                   // e's column in the slab
+  const bool rec0 = e < a.x1 && a.received0 != nullptr && a.received0[e];
+  unsigned pending = __ballot_sync(FULL, e < a.x1 && e < a.n_valid && !rec0);
   if (tid < EVENTS) {
     out_rr[tid] = -1;
     out_ts[tid] = 0;
@@ -264,7 +275,7 @@ __global__ void __launch_bounds__(THREADS) order_kernel(Order a) {
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int k = k0 + u * WARPS;
-        v[u] = (see && k < nv) ? __ldg(a.anc + (size_t)m.ufw[k] * n + e) : 1;
+        v[u] = (see && k < nv) ? __ldg(a.anc + (size_t)m.ufw[k] * ld + col) : 1;
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) see = see && v[u];
@@ -320,7 +331,7 @@ __global__ void __launch_bounds__(THREADS) order_kernel(Order a) {
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
             const int d = d0 + u;
-            v[u] = (go && d < len) ? __ldg(a.anc + (size_t)rows[d] * n + e) : 0;
+            v[u] = (go && d < len) ? __ldg(a.anc + (size_t)rows[d] * ld + col) : 0;
           }
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
@@ -352,12 +363,12 @@ __global__ void __launch_bounds__(THREADS) order_kernel(Order a) {
   }
   __syncthreads();
   if (tid < EVENTS) {
-    const int ev = blockIdx.x * EVENTS + tid;
-    if (ev < a.n) {
-      const bool r0 = a.received0 != nullptr && a.received0[ev];
-      a.rr[ev] = out_rr[tid];
-      a.ts[ev] = out_ts[tid];
-      a.received[ev] = r0 || out_rr[tid] >= 0;
+    const int c = blockIdx.x * EVENTS + tid;  // the event's column
+    if (a.x0 + c < a.x1) {
+      const bool r0 = a.received0 != nullptr && a.received0[a.x0 + c];
+      a.rr[c] = out_rr[tid];
+      a.ts[c] = out_ts[tid];
+      a.received[c] = r0 || out_rr[tid] >= 0;
     }
   }
 }
@@ -373,7 +384,7 @@ cudaError_t launch(const Order& a, int smem, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  const int blocks = (a.n + EVENTS - 1) / EVENTS;
+  const int blocks = (a.x1 - a.x0 + EVENTS - 1) / EVENTS;
   order_kernel<J><<<blocks, THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
@@ -381,8 +392,8 @@ cudaError_t launch(const Order& a, int smem, cudaStream_t s) {
 }  // namespace
 
 extern "C" int order_scan_launch(
-    const void* anc, int n, const void* tab, const void* cnt, const void* famous,
-    const void* creator, int r_max, int s_max, const void* self_parent,
+    const void* anc, int n, int x0, int x1, int ld, const void* tab,
+    const void* cnt, const void* famous, const void* creator, int r_max, int s_max, const void* self_parent,
     const void* t_rank, const void* received0, const void* max_round,
     int max_round_is64, int max_round_value, int n_valid, int chain,
     void* received, void* rr, void* ts, int smem_bytes, void* stream) {
@@ -390,8 +401,8 @@ extern "C" int order_scan_launch(
           (const int8_t*)famous, (const int*)creator, (const int*)self_parent,
           (const int*)t_rank, (const uint8_t*)received0, max_round,
           max_round_is64, max_round_value, (uint8_t*)received, (int*)rr,
-          (int*)ts, n, r_max, s_max, n_valid, chain};
-  if (n <= 0) return 0;
+          (int*)ts, n, r_max, s_max, n_valid, chain, x0, x1, ld};
+  if (x1 <= x0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   // J registers a lane hold the values for the median: 32 J >= s_max >= nv
   if (s_max <= 64) return (int)launch<2>(a, smem_bytes, s);

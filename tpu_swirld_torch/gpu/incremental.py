@@ -51,6 +51,7 @@ from tpu_swirld_torch.gpu.pipeline import (
     ConsensusResult,
     _bucket,
     _columns_pass,
+    _pad_slots,
     _suffix_rows,
     _unique_famous,
     _whiten_sigs,
@@ -234,33 +235,46 @@ def rounds_span_stage(parents_np, ssm_c, col_pos, creator, stake, n_valid,
 # ------------------------------------------------------------ fame, order
 
 
-def _used_slots(wit_table) -> int:
-    """One past the last slot column holding a witness in any row (at
-    least 1): every slot from there on is empty in every row."""
-    used = torch.nonzero((wit_table >= 0).any(0))
-    return int(used.max()) + 1 if used.numel() else 1
+def _used_slots(tab_np: np.ndarray) -> int:
+    """One past the last slot column holding a witness in any row of a
+    host witness table (at least 1): every slot from there on is empty in
+    every row."""
+    used = np.flatnonzero((tab_np >= 0).any(0))
+    return int(used[-1]) + 1 if used.size else 1
 
 
 def fame_window_stage(sees, ssm_c, col_pos, wit_table, creator, coin, stake,
-                      *, tot_stake, coin_period, r_max, s_max, has_forks):
-    """Fame voting over the retained round window (rows [0, r_max)) only,
-    on the whole table at the window's slot capacity ``s_max``: the
-    kernel's cost follows each round's own width, so no slot cut is pulled
-    to the host.  Returns ``(famous, decided_at)`` over ``r_max * s_max``
-    slots."""
-    return fame_scan(
-        wit_table[:r_max], sees, ssm_c, creator, coin, stake, tot_stake,
-        coin_period, has_forks=has_forks, col_pos=col_pos,
+                      *, tot_stake, coin_period, r_max, s_max, has_forks,
+                      s_used=None):
+    """Fame voting over the retained round window (rows [0, r_max)) only.
+    Returns ``(famous, decided_at)`` over ``r_max * s_max`` slots.
+
+    With ``s_used`` None, on the whole table at the window's slot capacity
+    ``s_max``: the kernel's cost follows each round's own width, so no slot
+    cut is needed.  A group rank, whose row views gather the cells fame
+    reads, passes the used width (from the host's table) and votes on those
+    slots alone, padded back to ``s_max`` (``pipeline._pad_slots``)."""
+    tab = wit_table[:r_max]
+    if s_used is None:
+        return fame_scan(
+            tab, sees, ssm_c, creator, coin, stake, tot_stake, coin_period,
+            has_forks=has_forks, col_pos=col_pos,
+        )
+    famous, dec = fame_scan(
+        tab[:, :s_used].contiguous(), sees, ssm_c, creator, coin, stake,
+        tot_stake, coin_period, has_forks=has_forks, col_pos=col_pos,
     )
+    return (_pad_slots(famous, r_max, s_used, s_max),
+            _pad_slots(dec, r_max, s_used, s_max))
 
 
 def order_window_stage(anc, wit_table, wit_count, famous, creator,
                        self_parent, t_rank, max_round_local, n_valid,
-                       received0, *, r_max, s_max, chain):
+                       received0, *, r_max, s_max, s_used, chain):
     """Order extraction over the first ``r_max`` retained rounds, resuming
-    from the carried received flags, on the used slots."""
+    from the carried received flags, on the used slots ``[0, s_used)`` (a
+    width the caller reads from the host's table: no pull)."""
     tab = wit_table[:r_max]
-    s_used = _used_slots(tab)
     fam = famous.reshape(-1)[: r_max * s_max].reshape(r_max, s_max)
     return order_scan(
         anc, tab[:, :s_used].contiguous(), wit_count[:r_max],
@@ -307,6 +321,9 @@ class IncrementalConsensus:
 
     #: the stage name of a strongly-sees block (the mesh driver's differs)
     _block_stage = "pipeline.ssm_block_stage"
+    #: fame votes on the whole table (a group rank's driver: on its used
+    #: slots, whose cells its row views gather)
+    _fame_on_used_slots = False
 
     def __init__(
         self,
@@ -1095,6 +1112,8 @@ class IncrementalConsensus:
             creator_d, _upload(self._coin_w, dev), stake_d, tot_stake=self._tot,
             coin_period=self.config.coin_period, r_max=self._r_fame,
             s_max=self._s_cap, has_forks=has_forks,
+            s_used=(_used_slots(self._tab_np[: self._r_fame])
+                    if self._fame_on_used_slots else None),
         )
         fam = np.full((self._r_cap, self._s_cap), -1, np.int8)
         fam[: self._r_fame] = to_host(famous_d).reshape(self._r_fame, self._s_cap)
@@ -1130,7 +1149,8 @@ class IncrementalConsensus:
                 _upload(fam.reshape(-1), dev), creator_d, parents_d[:, 0],
                 _upload(t_rank, dev), self._max_round - self._r_base,
                 n_valid, _upload(self._recv_w, dev),
-                r_max=r_ord_eff, s_max=self._s_cap, chain=self._chain_cap,
+                r_max=r_ord_eff, s_max=self._s_cap,
+                s_used=_used_slots(self._tab_np[:r_ord_eff]), chain=self._chain_cap,
             )
             rr_np = to_host(rr_d)
             tsr_np = to_host(ts_d)

@@ -80,8 +80,8 @@ _ARGTYPES = {
         _INT, _INT, _INT, _VP, _VP, _INT, _INT, _INT, _VP,
     ],
     "order_scan_launch": [
-        _VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _INT,
-        _INT, _INT, _INT, _VP, _VP, _VP, _INT, _VP,
+        _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP,
+        _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _INT, _VP,
     ],
 }
 
@@ -1048,28 +1048,30 @@ def _order_plan(wit_table, wit_count, famous, creator, max_round, n: int):
 
 def order_scan_reference(anc, wit_table, wit_count, famous, creator,
                          self_parent, t_rank, max_round, n_valid: int, *,
-                         chain: int, received0=None):
+                         chain: int, received0=None, cols=None):
     """Plain version, as the port ran the order scan before its kernel:
     which rounds can receive anything (inside the prefix, with a unique
     famous witness) is computed for all rounds at once and pulled to the
     host, the reference's ``lax.cond`` a host ``if``; each receiving round
     walks the self-chains ``chain`` steps as tensor ops and sorts for the
-    median."""
+    median.  With ``cols = (x0, x1)``, ``anc`` is the ``(n, x1 - x0)``
+    slab of those columns and the outputs are the window's events'."""
     r_max, s_max = wit_table.shape
     n = anc.shape[0]
+    x0, x1 = (0, n) if cols is None else cols
     dev = anc.device
     we_all, ufw, prefix = _order_rounds(wit_table, wit_count, famous, creator,
                                         max_round, n)
     go = to_host(prefix & ufw.any(dim=1))
     nv_all = to_host(ufw.sum(dim=1))
 
-    ev_valid = torch.arange(n, dtype=torch.int64, device=dev) < n_valid
+    ev_valid = torch.arange(n, dtype=torch.int64, device=dev)[x0:x1] < n_valid
     received = (
-        received0.clone() if received0 is not None
-        else torch.zeros((n,), dtype=torch.bool, device=dev)
+        received0[x0:x1].clone() if received0 is not None
+        else torch.zeros((x1 - x0,), dtype=torch.bool, device=dev)
     )
-    rr_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    ts_out = torch.zeros((n,), dtype=torch.int32, device=dev)
+    rr_out = torch.full((x1 - x0,), -1, dtype=torch.int32, device=dev)
+    ts_out = torch.zeros((x1 - x0,), dtype=torch.int32, device=dev)
     for r in range(r_max):
         if not go[r]:
             continue
@@ -1079,7 +1081,7 @@ def order_scan_reference(anc, wit_table, wit_count, famous, creator,
         newly = all_see & ~received & ev_valid
         # earliest-seeing timestamps via self-chain walk (w -> genesis)
         cur = we
-        tsw = torch.full((s_max, n), INT32_MAX, dtype=torch.int32, device=dev)
+        tsw = torch.full((s_max, x1 - x0), INT32_MAX, dtype=torch.int32, device=dev)
         for _ in range(chain):
             tsw = torch.where(anc[cur], t_rank[cur][:, None], tsw)
             nxt = self_parent[cur]
@@ -1097,7 +1099,7 @@ def order_scan_reference(anc, wit_table, wit_count, famous, creator,
 
 
 def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
-               t_rank, max_round, n_valid, *, chain, received0=None):
+               t_rank, max_round, n_valid, *, chain, received0=None, cols=None):
     """Round received and consensus timestamp ranks over the maximal
     fame-complete prefix of rounds, exactly as the reference's
     ``order_scan``: an event below ``n_valid`` not yet received is received
@@ -1112,11 +1114,20 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     ``max_round`` (an int, or an int32 or int64 device scalar) in the
     table's round frame, ``received0`` bool ``(n,)`` or None.  Returns
     ``(round_received int32 (n,) (-1 = not received), ts_rank int32 (n,)
-    (0 where not newly received), received bool (n,))``.  On the card one
-    C call and one kernel launch, which builds the round plan itself: no
-    other device op, no host pull, no scratch; it allocates the three
-    outputs alone.  Raises ``ValueError`` where ``S`` slots a round need
-    more shared memory than a block has (about 790)."""
+    (0 where not newly received), received bool (n,))``.
+
+    ``cols = (x0, x1)`` restricts the call to the events of that column
+    window: ``anc`` is then the ``(n, x1 - x0)`` slab of those columns of
+    every row (a view of the whole slab's columns, or a group rank's
+    column slab: its rows need only be contiguous), and the three outputs
+    are the window's, ``(x1 - x0,)``, equal to that slice of the whole
+    call's.  ``None`` is the whole window ``(0, n)``, ``anc`` square.
+
+    On the card one C call and one kernel launch, which builds the round
+    plan itself: no other device op, no host pull, no scratch; it
+    allocates the three outputs alone.  Raises ``ValueError`` where ``S``
+    slots a round need more shared memory than a block has (about
+    790)."""
     _check(anc, "anc", torch.bool, 2)
     _check(wit_table, "wit_table", torch.int32, 2)
     _check(wit_count, "wit_count", torch.int32, 1)
@@ -1127,8 +1138,17 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
     n = anc.shape[0]
     r_max, s_max = wit_table.shape
     chain, n_valid = int(chain), int(n_valid)
-    if anc.shape[1] != n:
-        raise ValueError(f"order_scan: anc must be square, got {tuple(anc.shape)}")
+    if cols is None:
+        if anc.shape[1] != n:
+            raise ValueError(f"order_scan: anc must be square, got {tuple(anc.shape)}")
+        x0, x1 = 0, n
+    else:
+        x0, x1 = (int(c) for c in cols)
+        if not 0 <= x0 < x1 <= n or anc.shape[1] != x1 - x0:
+            raise ValueError(f"order_scan: a column window {cols} of {n} events "
+                             f"over an anc slab of shape {tuple(anc.shape)}")
+    if anc.stride(1) != 1 and anc.shape[1] > 1:
+        raise ValueError("order_scan: anc's rows must be contiguous")
     if min(n, r_max, s_max) < 1:
         raise ValueError("order_scan: empty ancestry or witness table")
     if wit_count.shape[0] != r_max or famous.shape[0] != r_max * s_max:
@@ -1138,7 +1158,7 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
         raise ValueError(f"order_scan: creator, self_parent and t_rank must be ({n},)")
     if chain < 0:
         raise ValueError(f"order_scan: a chain of {chain} steps")
-    tensors = [anc, wit_table, wit_count, famous, creator, self_parent, t_rank]
+    tensors = [wit_table, wit_count, famous, creator, self_parent, t_rank]
     if received0 is not None:
         _check(received0, "received0", torch.bool, 1)
         if received0.shape[0] != n:
@@ -1146,10 +1166,13 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
         tensors.append(received0)
     if isinstance(max_round, torch.Tensor):
         tensors.append(max_round.reshape(1))
+    # anc may be a view of some columns (the kernel takes its rows' stride)
+    if anc.device != wit_table.device:
+        raise ValueError(f"order_scan: anc on {anc.device}, the table on {wit_table.device}")
     if _on_cpu(*tensors):
         return order_scan_reference(
             anc, wit_table, wit_count, famous, creator, self_parent, t_rank,
-            max_round, n_valid, chain=chain, received0=received0,
+            max_round, n_valid, chain=chain, received0=received0, cols=cols,
         )
     smem = _OS_SMEM_PER_SLOT * s_max
     if smem > _OS_SMEM_LIMIT:
@@ -1164,13 +1187,13 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
         # the kernel compares it with r + 2 <= r_max + 1: clamped, exact
         mr_value = max(min(int(max_round), INT32_MAX), -INT32_MAX)
     dev = anc.device
-    rr = torch.empty((n,), dtype=torch.int32, device=dev)
-    ts = torch.empty((n,), dtype=torch.int32, device=dev)
-    received = torch.empty((n,), dtype=torch.bool, device=dev)
+    rr = torch.empty((x1 - x0,), dtype=torch.int32, device=dev)
+    ts = torch.empty((x1 - x0,), dtype=torch.int32, device=dev)
+    received = torch.empty((x1 - x0,), dtype=torch.bool, device=dev)
     err = _launch(
         dev, _c_function("order_scan", "order_scan_launch"),
-        anc.data_ptr(), n, wit_table.data_ptr(), wit_count.data_ptr(),
-        famous.data_ptr(), creator.data_ptr(), r_max, s_max,
+        anc.data_ptr(), n, x0, x1, anc.stride(0), wit_table.data_ptr(),
+        wit_count.data_ptr(), famous.data_ptr(), creator.data_ptr(), r_max, s_max,
         self_parent.data_ptr(), t_rank.data_ptr(),
         None if received0 is None else received0.data_ptr(), mr_ptr, mr_64,
         mr_value, max(0, min(n_valid, n)), min(chain, INT32_MAX),

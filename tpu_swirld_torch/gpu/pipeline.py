@@ -360,15 +360,22 @@ def order_scan(anc, wit_table, wit_count, famous, creator, self_parent,
 
     One :func:`~tpu_swirld_torch.gpu.kernels.order_scan` call: on the card
     one kernel launch and no host pull, as the reference's jitted scan is
-    one device program.  A group rank's row view (``parallel.RowGather``)
-    gathers the window's rows once first."""
-    if not isinstance(anc, torch.Tensor):
-        anc = anc[0 : anc.shape[0]]
-    return kernels.order_scan(
-        anc, wit_table, wit_count, famous, creator, self_parent.contiguous(),
-        t_rank.contiguous(), max_round, n_valid, chain=chain,
-        received0=received0,
-    )
+    one device program.  On a group rank's row view (``parallel.RowGather``)
+    the call covers the rank's own events, over their columns of every row
+    (``own_columns``: one all-to-all), and the ranks' outputs are then
+    joined (``join_columns``: one sum of ``8 W`` bytes); no rank gathers
+    the window."""
+    args = (wit_table, wit_count, famous, creator, self_parent.contiguous(),
+            t_rank.contiguous(), max_round, n_valid)
+    if isinstance(anc, torch.Tensor):
+        return kernels.order_scan(anc, *args, chain=chain, received0=received0)
+    slab, cols = anc.own_columns()
+    rr, ts, _received = kernels.order_scan(slab, *args, chain=chain,
+                                           received0=received0, cols=cols)
+    rr, ts = anc.join_columns(torch.stack([rr, ts]))
+    # an event is received where it was, or where it is received now
+    received = rr >= 0 if received0 is None else received0 | (rr >= 0)
+    return rr, ts, received
 
 
 def fame_order_cols_stage(anc, sees, ssm_c, col_pos, wit_table, wit_count,

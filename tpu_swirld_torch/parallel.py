@@ -51,11 +51,12 @@ with :func:`reshard_rows`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from datetime import timedelta
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,17 +137,70 @@ def make_mesh(n_shards: int = 1, device="cuda") -> Mesh:
 BACKENDS = ("gloo", "nccl")
 
 
+#: the stage of a collective run outside every driver stage (a growth's
+#: or a prune's row moves between stages, a rebase, a widening)
+BETWEEN_STAGES = "between stages"
+
+
+def _stage_record() -> Dict[str, int]:
+    return {"calls": 0, "bytes": 0, "stage_calls": 0, "peak_call_bytes": 0}
+
+
 @dataclasses.dataclass
 class Traffic:
     """What a rank handed to its group's collectives: calls and payload
-    bytes (each call's tensor, once)."""
+    bytes (each call's tensor once; of an all-to-all, the blocks it sends
+    the other ranks), in all and by the driver stage that ran them.
+
+    ``by_stage[stage]`` counts the collectives (``calls``, ``bytes``), the
+    stage's calls (``stage_calls``) and the most bytes one of them handed
+    (``peak_call_bytes``).  A driver runs each stage inside
+    :meth:`during` (``StageClock.scope``); a collective outside every
+    stage counts under :data:`BETWEEN_STAGES`."""
 
     calls: int = 0
     bytes: int = 0
+    by_stage: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
+    stage: str = BETWEEN_STAGES
 
-    def add(self, t: torch.Tensor) -> None:
+    def add(self, t: torch.Tensor, nbytes: Optional[int] = None) -> None:
+        """One collective handed ``t`` (``nbytes`` of it, when given)."""
+        nbytes = t.numel() * t.element_size() if nbytes is None else int(nbytes)
         self.calls += 1
-        self.bytes += t.numel() * t.element_size()
+        self.bytes += nbytes
+        rec = self.by_stage.setdefault(self.stage, _stage_record())
+        rec["calls"] += 1
+        rec["bytes"] += nbytes
+
+    @contextlib.contextmanager
+    def during(self, stage: str):
+        """Count the collectives run inside as ``stage``'s, one call of it."""
+        prev, sent = self.stage, self.bytes
+        self.stage = stage
+        try:
+            yield
+        finally:
+            self.stage = prev
+            rec = self.by_stage.setdefault(stage, _stage_record())
+            rec["stage_calls"] += 1
+            rec["peak_call_bytes"] = max(rec["peak_call_bytes"], self.bytes - sent)
+
+    def take_stages(self) -> Dict[str, Dict[str, int]]:
+        """``by_stage`` since the last take; counting starts afresh."""
+        out, self.by_stage = self.by_stage, {}
+        return out
+
+
+def stage_totals(records) -> Dict[str, Dict[str, int]]:
+    """Several :attr:`Traffic.by_stage` records (a pass's ``group_stages``
+    each) as one: counts summed, ``peak_call_bytes`` the most of any."""
+    out: Dict[str, Dict[str, int]] = {}
+    for by_stage in records:
+        for stage, rec in by_stage.items():
+            tot = out.setdefault(stage, _stage_record())
+            for k, v in rec.items():
+                tot[k] = max(tot[k], v) if k == "peak_call_bytes" else tot[k] + v
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,6 +374,36 @@ def gather_cells(mesh: GroupMesh, shard, rows, cols):
     return _psum(mesh, [part.to(torch.int8)]) > 0
 
 
+def exchange_columns(mesh: GroupMesh, shard):
+    """This rank's columns of every row of a row-sharded square bool slab
+    of ``W = D n_loc`` rows, bool ``(W, n_loc)``: rank ``r`` gets columns
+    ``[r n_loc, (r + 1) n_loc)``, the events it owns.  One all-to-all of
+    ``(n_loc, n_loc)`` blocks: each rank sends every other rank that
+    rank's columns of its own rows, ``(D - 1) n_loc^2`` bytes, and keeps
+    its own block."""
+    n_loc, w = shard.shape
+    d = mesh.size
+    if w != d * n_loc:
+        raise ValueError(f"a column exchange of a ({n_loc}, {w}) row shard over "
+                         f"{d} ranks: the slab must be square")
+    send = shard.reshape(n_loc, d, n_loc).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    mesh.traffic.add(send, nbytes=(d - 1) * n_loc * n_loc)
+    dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8),
+                           group=mesh.group)
+    return recv.reshape(w, n_loc)
+
+
+def join_columns(mesh: GroupMesh, part):
+    """Every rank's int32 ``(k, n_loc)`` part, its own columns of a ``(k,
+    D n_loc)`` table, joined on every rank: one sum of the rank's part in
+    its columns, zeros elsewhere."""
+    k, n_loc = part.shape
+    whole = part.new_zeros((k, mesh.size * n_loc))
+    whole[:, mesh.rank * n_loc : (mesh.rank + 1) * n_loc] = part
+    return _psum(mesh, [whole])
+
+
 def owner_write(mesh: GroupMesh, shard, row0: int, block, col0: int = 0):
     """Write ``block`` (every rank's same values) at global rows ``[row0,
     row0 + len(block))`` and columns from ``col0``: the rows this rank
@@ -386,9 +470,13 @@ class RowGather:
     (:func:`gather_rows`): ``g[idx]`` (an index tensor), and ``g[a:b]`` or
     ``g[i]`` (an int) from the rows ``prefetch`` (``(start, stop)``)
     gathered at once when they hold them, else one gather;
-    ``g.cells(rows, cols)`` gathers single cells (:func:`gather_cells`).
-    A write ``g[a:b] = block`` or ``g[a:b, c:d] = block`` (every rank's same
-    values) lands in the rows this rank owns, in place
+    ``g.cells(rows, cols)`` gathers single cells (:func:`gather_cells`);
+    ``g.own_columns()`` exchanges columns, so that a rank holds its own
+    events' columns of every row (:func:`exchange_columns`), and
+    ``g.join_columns(part)`` puts every rank's values of its events
+    together (:func:`join_columns`).  A write ``g[a:b] = block`` or
+    ``g[a:b, c:d] = block`` (every rank's same values) lands in the rows
+    this rank owns, in place
     (:func:`owner_write`).  Every rank must read and write the same rows in
     the same order, as every rank runs the same stage."""
 
@@ -430,6 +518,19 @@ class RowGather:
         """``out[r, p, y] = slab[rows[r, y], cols[r, p]]``, bool ``(R, S,
         S)``: one gather of the cells alone (:func:`gather_cells`)."""
         return gather_cells(self.mesh, self.shard, rows, cols)
+
+    def own_columns(self):
+        """``(slab, (x0, x1))``: the columns of this rank's own events
+        ``[x0, x1)`` of every row, bool ``(W, x1 - x0)``
+        (:func:`exchange_columns`; the slab must be square)."""
+        n_loc = self.shard.shape[0]
+        x0 = self.mesh.rank * n_loc
+        return exchange_columns(self.mesh, self.shard), (x0, x0 + n_loc)
+
+    def join_columns(self, part):
+        """The int32 ``(k, x1 - x0)`` values of every rank's own events,
+        ``(k, W)`` on every rank (:func:`join_columns`)."""
+        return join_columns(self.mesh, part)
 
     def __setitem__(self, idx, block):
         rows, cols = idx if isinstance(idx, tuple) else (idx, slice(None))
@@ -773,20 +874,29 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
     extension, the column store's block writes, the rounds scan, fame
     voting, order extraction) run over a :class:`RowGather` view of each
     slab, which gathers the rows they read and writes the rows they write
-    by owner; every strongly-sees block is the row-sharded block over the
-    rank's shard; a prune or a growth moves the rows that change owner
-    (:func:`reshard_rows`).  Three steps assemble whole slabs: a batch
-    rebase computes the whole DAG's slabs on every rank (then keeps its
-    rows, through ``slab_put``), a widening pulls the whole window to the
-    host, as the one-process driver does, and the rebase spill reads its
-    rows from the batch slab.  ``group_calls`` and ``group_bytes`` in a
-    pass's stats are the collectives this rank joined during it and the
-    bytes it handed them (``GroupMesh.traffic``)."""
+    by owner; fame gathers the cells it reads, of the table's used slots
+    alone; order extraction runs each rank's own events over their columns
+    of every row (one all-to-all, ``(D - 1) W^2 / D^2`` bytes), then joins
+    the outputs (``8 W`` bytes); every strongly-sees block is the
+    row-sharded block over the rank's shard; a prune or a growth moves the
+    rows that change owner (:func:`reshard_rows`).  Three steps assemble
+    whole slabs: a batch rebase computes the whole DAG's slabs on every
+    rank (then keeps its rows, through ``slab_put``), a widening pulls the
+    whole window to the host, as the one-process driver does, and the
+    rebase spill reads its rows from the batch slab.  In a pass's stats
+    ``group_calls`` and ``group_bytes`` are the collectives this rank
+    joined during it and the bytes it handed them (``GroupMesh.traffic``),
+    ``group_stages`` the same by stage (``Traffic.by_stage``) and
+    ``group_window_rows`` the window's rows ``W`` at the pass's end."""
+
+    #: fame votes over the table's used slots: its cells are gathered
+    _fame_on_used_slots = True
 
     def __init__(self, mesh: GroupMesh, members, stake=None, config=None, **kw):
         self.mesh = mesh
         kw.setdefault("slab_put", self._own_rows)
         super().__init__(mesh, members, stake, config, **kw)
+        self.stages.scope = mesh.traffic.during
         self.flightrec_label = "streaming-group"
 
     # ---------------------------------------------------------- placement
@@ -849,12 +959,16 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
         return super().resident_visibility_bytes
 
     def ingest(self, events=()) -> dict:
-        calls, sent = self.mesh.traffic.calls, self.mesh.traffic.bytes
+        traffic = self.mesh.traffic
+        calls, sent = traffic.calls, traffic.bytes
+        traffic.take_stages()
         st = super().ingest(events)
         self._repin()
         st["mesh_repins"] = self.repins
-        st["group_calls"] = self.mesh.traffic.calls - calls
-        st["group_bytes"] = self.mesh.traffic.bytes - sent
+        st["group_calls"] = traffic.calls - calls
+        st["group_bytes"] = traffic.bytes - sent
+        st["group_stages"] = traffic.take_stages()
+        st["group_window_rows"] = self._w_pad
         st["rank_resident_bytes"] = self.rank_resident_bytes
         return st
 
