@@ -353,7 +353,15 @@
    ``tests/test_mesh_stream.py:170``'s forked schedule (12 members, 1 000
    events, 4 forkers, ingests of 250) over 2 and 4 ranks and its smoke
    (:61, 6 members, 300 events, ingests of 100, whose prunes move rows
-   across the shards) over 2:
+   across the shards) over 2, and its straggler (:141, a 5-node
+   simulation's 260 turns in ingests of 50, then a witness forged at round
+   1, which takes a full rebase) over 2 and 4: every full rebase of a rank
+   over its own ``N / D`` rows of the DAG's slabs (none of more rows, nor
+   of more than ``W / D`` in the lift), its visibility stage handing at
+   most ``sum_t |X_t| N + D`` bytes a rebase (``X_t`` rank ``t``'s rows
+   that are later ranks' parents), the peak of its rebase stages
+   (``REBASE_STAGES``) within ``rebase_peak_bound`` and, for the straggler
+   at 4 ranks, below the one process's (``group_rebase_checks``);
    every rank's slabs its own ``W / D``
    rows after every ingest, its digests and archive digest equal to the
    one-process ``StreamingConsensus``'s on the card, no repin,
@@ -449,7 +457,7 @@ from tpu_swirld_torch.obs import (
 from tpu_swirld_torch.obs.report import render_report
 from tpu_swirld_torch.packing import pack_events, pack_node
 from tpu_swirld_torch.sim import (
-    chunked_ingest_schedule, generate_gossip_dag, stream_gossip_dag,
+    chunked_ingest_schedule, generate_gossip_dag, make_straggler_event, stream_gossip_dag,
 )
 
 N_MEMBERS = 64
@@ -739,12 +747,15 @@ FLOW_EDGE = {"members": 4, "stake": 178_956_970, "n": 256, "k": 64, "cols": 64,
              "seeing_rows": 8, "density": 0.05}
 # Meshes over several processes (phase 19): the groups, (backend, ranks),
 # and what each runs; every rank on this one card
-GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke"),
-              ("gloo", 4): ("dryrun", "forks"), ("nccl", 1): ("dryrun", "block")}
+GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke", "straggler"),
+              ("gloo", 4): ("dryrun", "forks", "straggler"), ("nccl", 1): ("dryrun", "block")}
 GROUP_BATCH_CONFIG = "config3"
 GROUP_BLOCK = {"row0": 4096, "rows": 1024, "cols": 256}   # phase 9's extension block
-# (d) tests/test_mesh_stream.py:170's forked window and :61's smoke (its
-# prunes move rows across the shards), on the ssm_tally route
+# (d) tests/test_mesh_stream.py:170's forked window, :61's smoke (its
+# prunes move rows across the shards) and :141's straggler witness forged at
+# round 1 after a 5-node simulation's 260 turns (a full rebase on every
+# rank, over its own rows of the DAG's slabs; the straggler forks its
+# creator's chain), on the ssm_tally route
 GROUP_STREAMS = {
     "forks": {"members": 12, "events": 1000, "seed": 4, "forkers": 4, "ingest": 250,
               "driver": {"chunk": 64, "window_bucket": 512, "prune_min": 128,
@@ -752,7 +763,14 @@ GROUP_STREAMS = {
     "smoke": {"members": 6, "events": 300, "seed": 9, "forkers": 0, "ingest": 100,
               "driver": {"chunk": 64, "window_bucket": 256, "prune_min": 64,
                          "ingest_chunk": 128}},
+    "straggler": {"simulation": (5, 23, 260), "forkers": 1, "ingest": 50,
+                  "driver": {"block": 64, "chunk": 32, "window_bucket": 256,
+                             "prune_min": 64}},
 }
+# a full rebase's own stages on a group rank, whose peaks rebase_peak_bound
+# holds (as PERF.md states it)
+REBASE_STAGES = ("pipeline.visibility_stage", "pipeline.rounds_chunk_stage",
+                 "pipeline.fame_order_cols_stage")
 GROUP_TIMEOUT = 300
 # The port's bench (phase 20), in this process through tpu_swirld_torch.bench.
 # (a) --stream at config 5's full width (256 members, BASELINE.json
@@ -4852,25 +4870,35 @@ def check_group_block(tag, reports, out_i, single, plain, failures):
 
 
 def group_stream_schedule(name):
-    """Phase 19(d)'s schedule ``name``: ``(members, stake, chunks)``."""
+    """Phase 19(d)'s schedule ``name``: ``(members, stake, chunks,
+    config)``; the straggler's ends with its forged witness."""
     g = GROUP_STREAMS[name]
+    if "simulation" in g:
+        n_nodes, seed, turns = g["simulation"]
+        sim = make_simulation(n_nodes, seed=seed)
+        sim.run(turns)
+        node, lag = sim.nodes[0], sim.nodes[-1]
+        events = [node.hg[e] for e in node.order_added]
+        chunks = [events[i : i + g["ingest"]] for i in range(0, len(events), g["ingest"])]
+        chunks.append([make_straggler_event(node, lag.pk, lag.sk, at_round=1)])
+        return node.members, [node.stake[m] for m in node.members], chunks, node.config
     members, stake, events, _keys = generate_gossip_dag(
         g["members"], g["events"], seed=g["seed"], n_forkers=g["forkers"])
     return members, stake, [events[i : i + g["ingest"]]
-                            for i in range(0, len(events), g["ingest"])]
+                            for i in range(0, len(events), g["ingest"])], \
+        SwirldConfig(n_members=g["members"])
 
 
 def group_stream_reference(name, schedule):
     """The one-process streaming driver's run of schedule ``name`` on the
     card: its digests, archive digest, and peak device bytes above what
     was held, in all and by stage (``multichip.stage_peaks``)."""
-    members, stake, chunks = schedule
+    members, stake, chunks, cfg = schedule
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    single = StreamingConsensus(members, stake,
-                                SwirldConfig(n_members=GROUP_STREAMS[name]["members"]),
-                                device="cuda", **GROUP_STREAMS[name]["driver"])
+    single = StreamingConsensus(members, stake, cfg, device="cuda",
+                                **GROUP_STREAMS[name]["driver"])
     monitor = multichip.watch_stage_peaks(single)
     try:
         for chunk in chunks:
@@ -4917,12 +4945,66 @@ def group_order_traffic(tag, out, world, failures):
     return parallel.stage_totals(st["group_stages"] for st in out["passes"]), order
 
 
+def rebase_peak_bound(rec, d, block):
+    """The most device bytes above a group rank's base that a full rebase
+    may reach in its own stages (:data:`REBASE_STAGES`), from its record
+    (``GroupStreamingConsensus.rebase_slabs``), as ``PERF.md`` states it:
+    the slabs the rank held when it began; its ``N / D`` rows of
+    ``anc``, of ``sees`` when forked, and the order stage's column slab
+    (``N^2 / D`` each); the exchange's pieces, ``2 N^2 / (D P)``; the column
+    store, ``N / D`` rows of ``ssm_cols``; and per event row, the closure's
+    temporaries (8 rows of a block each), the crossing rows twice (handed
+    and kept) and 128 bytes of vectors."""
+    n = rec["n_pad"]
+    pieces = parallel.BatchShards.EXCHANGE_PIECES
+    return (rec["resident_bytes"] + (2 + int(rec["forked"])) * n * n // d
+            + 2 * n * n // (d * pieces) + n * rec["ssm_cols"] // d
+            + n * (8 * block + 2 * rec["crossing_rows"] + 128))
+
+
+def group_rebase_checks(tag, name, out, want, world, failures):
+    """A rank's full rebases in stream ``name``: no slab over ``N / D`` or
+    ``W / D`` rows; its visibility stage's bytes over the stream within
+    ``sum_t |X_t| N + O(D)`` a rebase; the peak of its rebase stages
+    within :func:`rebase_peak_bound`, and the straggler's at 4 ranks below
+    the one-process driver's in the same stages.  Prints each beside the
+    one process's."""
+    recs = out["rebase_slabs"]
+    block = GROUP_STREAMS[name]["driver"].get("block", 128)
+    vis = sum(st["group_stages"].get("pipeline.visibility_stage", {}).get("bytes", 0)
+              for st in out["passes"])
+    vis_bound = sum(r["crossing_rows"] * r["n_pad"] + world for r in recs)
+    peak = max(out["stage_peaks"].get(s, 0) for s in REBASE_STAGES)
+    bound = max(rebase_peak_bound(r, world, block) for r in recs)
+    one = max(want["stage_peaks"].get(s, 0) for s in REBASE_STAGES)
+    print(f"{tag} stream {name}: full rebases {json.dumps(recs)}; visibility stage "
+          f"{vis} bytes (bound {vis_bound}); rebase stages' peak {peak} bytes (bound "
+          f"{bound}; one process {one}), by stage "
+          f"{json.dumps({s: out['stage_peaks'].get(s) for s in REBASE_STAGES})}; one "
+          f"process {json.dumps({s: want['stage_peaks'].get(s) for s in REBASE_STAGES})}",
+          flush=True)
+    if not recs:
+        failures.append(f"{tag} stream {name}: no full rebase")
+    for r in recs:
+        if not (0 < r["batch_rows"] <= r["n_pad"] // world
+                and 0 < r["window_rows"] <= r["w_pad"] // world):
+            failures.append(f"{tag} stream {name}: a rebase's slab over N / D or W / D "
+                            f"rows: {r}")
+    if vis > vis_bound:
+        failures.append(f"{tag} stream {name}: the visibility stage handed {vis} bytes, "
+                        f"over {vis_bound}")
+    if peak > bound or (name == "straggler" and world >= 4 and peak >= one):
+        failures.append(f"{tag} stream {name}: rebase stages' peak {peak} bytes, bound "
+                        f"{bound}, one process {one}")
+
+
 def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
     """Phase 19(d): every rank's streaming run of schedule ``name`` against
     the one-process driver's (each rank checked its slabs' rows after
-    every ingest), and its order stage's collectives within their bound
-    (:func:`group_order_traffic`)."""
-    members, stake, chunks = schedule
+    every ingest), its order stage's collectives within their bound
+    (:func:`group_order_traffic`) and its full rebases' rows, bytes and
+    peaks (:func:`group_rebase_checks`)."""
+    members, stake, chunks, _cfg = schedule
     packed = pack_events([e for c in chunks for e in c], members, stake)
     for rank, rep in enumerate(reports):
         out = rep["result"]["results"][out_i]
@@ -4945,9 +5027,11 @@ def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
         if digests != want["digests"] or out["archive"]["digest"] != want["archive"]:
             failures.append(f"{tag} rank {rank}: the streaming run's digests != the "
                             "one-process driver's")
+        group_rebase_checks(f"{tag} rank {rank}", name, out, want, len(reports), failures)
         c = out["counters"]
         if c["repins"] or c["forked"] != (GROUP_STREAMS[name]["forkers"] > 0) or (
-                name == "smoke" and not c["pruned_prefix"]):
+                name == "smoke" and not c["pruned_prefix"]) or (
+                name == "straggler" and c["full_rebases"] < 2):
             failures.append(f"{tag} rank {rank} stream {name}: counters {c}")
         if (used["ssm_tally"] < 1 or used["bmm_or"] < 1 or used["rounds_scan"] < 1
                 or used["order_scan"] < 1 or used["ssm_block"]):
@@ -4979,9 +5063,9 @@ def run_multichip_phase(packs, failures):
                  "block": (multichip.row_block_rank, (block_path, (GROUP_BLOCK["row0"],),
                                                       GROUP_BLOCK["rows"])),
                  **{name: (multichip.streaming_rank, (
-                     members, stake, SwirldConfig(n_members=GROUP_STREAMS[name]["members"]),
-                     chunks, {**GROUP_STREAMS[name]["driver"], "pallas": True}))
-                    for name, (members, stake, chunks) in schedules.items()}}
+                     members, stake, cfg_s, chunks,
+                     {**GROUP_STREAMS[name]["driver"], "pallas": True}))
+                    for name, (members, stake, chunks, cfg_s) in schedules.items()}}
         groups = {}
         for (backend, world), legs in GROUP_RUNS.items():
             tag = f"multichip {backend} x{world}"

@@ -41,6 +41,32 @@ def exchange_rank(mesh, w, seed) -> dict:
             "joined": joined.numpy()}
 
 
+def pieces_rank(mesh, w, seed, pieces, n_rows, n_loc_new, shift, piece_rows) -> dict:
+    """This rank's rows of the seeded ``(w, w)`` slab through
+    :func:`exchange_columns` in one all-to-all and in ``pieces``, and
+    through ``reshard_rows(n_rows, n_loc_new, shift)`` in one sum and in
+    sums of at most ``piece_rows`` rows: the outputs, the collectives and
+    bytes each handed, and the most rows of a slab the pieced reshard
+    allocated."""
+    from tpu_swirld_torch.parallel import reshard_rows
+
+    whole = _slab(w, seed)
+    n_loc = w // mesh.size
+    shard = torch.from_numpy(whole[mesh.rank * n_loc : (mesh.rank + 1) * n_loc]).clone()
+    out, handed, rows = {}, {}, []
+    for name, fn in (
+        ("exchange", lambda: exchange_columns(mesh, shard)),
+        ("exchange pieces", lambda: exchange_columns(mesh, shard, pieces)),
+        ("reshard", lambda: reshard_rows(mesh, shard, n_rows, n_loc_new, shift=shift)),
+        ("reshard pieces", lambda: reshard_rows(mesh, shard, n_rows, n_loc_new, shift=shift,
+                                                piece_rows=piece_rows, record=rows.append)),
+    ):
+        calls, sent = mesh.traffic.calls, mesh.traffic.bytes
+        out[name] = fn().numpy()
+        handed[name] = (mesh.traffic.calls - calls, mesh.traffic.bytes - sent)
+    return {"digest": repr(handed), "out": out, "handed": handed, "rows": max(rows)}
+
+
 def window_stages_rank(mesh, path) -> dict:
     """The driver's fame and order window stages over row views of this
     rank's rows of the slabs saved at ``path`` (fame on the table's used

@@ -5,9 +5,12 @@ reference's ``MeshStreamingConsensus`` over as many devices of the 8-device
 host platform of ``tests/conftest.py``.  Tolerance: exact equality.
 
 The schedules are ``tests/test_mesh_stream.py``'s: the smoke (:61), the
-forked window (:170) and the widening rebase (as ``tests/test_torch_mesh.py``
-runs it).  Every rank holds only its ``W / D`` rows of each slab after every
-ingest (``multichip.assert_row_sharded``, checked in the rank); every pass's
+forked window (:170), the straggler witness below the frozen vote horizon
+(:141, a full rebase on every rank) and the widening rebase (as
+``tests/test_torch_mesh.py`` runs it).  Every rank holds only its ``W / D``
+rows of each slab after every ingest (``multichip.assert_row_sharded``,
+checked in the rank), and no full rebase allocates a slab of more than
+``N / D`` rows of the DAG's ``N`` or ``W / D`` of the window's; every pass's
 stats, the result, the archive and the store's accounting equal the
 reference's on every rank.  A pass's collectives by stage
 (``group_stages``) add up to its ``group_calls`` and ``group_bytes``; each
@@ -22,7 +25,7 @@ import pytest
 
 from tpu_swirld import parallel as ref_parallel
 from tpu_swirld.config import SwirldConfig as RefConfig
-from tpu_swirld.sim import generate_gossip_dag
+from tpu_swirld.sim import generate_gossip_dag, make_simulation, make_straggler_event
 from tpu_swirld.tpu import pipeline as ref_pipeline
 from tpu_swirld_torch import multichip
 from tpu_swirld_torch.gpu import incremental as inc
@@ -34,7 +37,8 @@ from tests.test_torch_store import (
     STORE_VOLATILE, VOLATILE, assert_batch_parity, fixed_chunks, port_config, stale_event,
 )
 
-# name -> (generate_gossip_dag args, driver settings, ingest size, pallas)
+# name -> (generate_gossip_dag args, or the straggler's (simulation members,
+# seed, turns), driver settings, ingest size, pallas)
 SCHEDULES = {
     "smoke": ((6, 300, 9, 0), dict(chunk=64, window_bucket=256, prune_min=64,
                                    ingest_chunk=128), 100, False),
@@ -42,15 +46,29 @@ SCHEDULES = {
                                      ingest_chunk=256), 250, True),
     "widening": ((8, 1000, 11, 0), dict(chunk=64, window_bucket=256, prune_min=64,
                                         ingest_chunk=256), 200, True),
+    "straggler": ((5, 23, 260), dict(block=64, chunk=32, window_bucket=256,
+                                     prune_min=64), 50, False),
 }
-RANKS = {2: ("smoke", "forks", "widening"), 4: ("smoke", "forks")}
+RANKS = {2: ("smoke", "forks", "widening", "straggler"), 4: ("smoke", "forks", "straggler")}
 
 
 def _schedule(name):
     """``(members, stake, reference chunks, config, driver settings,
     pallas)``; the widening schedule ends with a stale-view sync naming
-    long-pruned history."""
-    (m, n, seed, forkers), kw, size, pallas = SCHEDULES[name]
+    long-pruned history, the straggler schedule with a witness forged at
+    round 1 by the simulation's last node (``make_straggler_event``)."""
+    args, kw, size, pallas = SCHEDULES[name]
+    if name == "straggler":
+        n_nodes, seed, turns = args
+        sim = make_simulation(n_nodes, seed=seed)
+        sim.run(turns)
+        node, lag = sim.nodes[0], sim.nodes[-1]
+        events = [node.hg[e] for e in node.order_added]
+        chunks = fixed_chunks(events, size)
+        chunks.append([make_straggler_event(node, lag.pk, lag.sk, at_round=1)])
+        return (node.members, [node.stake[m] for m in node.members], chunks,
+                node.config, kw, pallas)
+    m, n, seed, forkers = args
     members, stake, events, keys = generate_gossip_dag(m, n, seed=seed, n_forkers=forkers)
     chunks = fixed_chunks(events, size)
     if name == "widening":
@@ -161,6 +179,29 @@ def test_group_streaming_lockstep_with_reference(groups, d, name):
         assert outs[0]["counters"]["pruned_prefix"] > 0
     else:
         assert outs[0]["counters"]["forked"]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_group_straggler_rebase_rank_rows(groups, d):
+    """The straggler's full rebases on a group rank: the cold start and the
+    straggler, each over the rank's own rows of the DAG's slabs.  No slab
+    it allocated had more than ``N / D`` rows (``N`` the pass's events,
+    padded to whole blocks a rank) or, in the lift, ``W / D``; its
+    visibility stage handed exactly ``sum_t |X_t| N`` bytes, ``X_t`` rank
+    ``t``'s rows that are parents of later ranks' events."""
+    block = SCHEDULES["straggler"][1]["block"]
+    for out in groups(d)["straggler"]:
+        recs = out["rebase_slabs"]
+        assert out["counters"]["full_rebases"] == len(recs) >= 2
+        for rec in recs:
+            assert rec["n_pad"] % (d * block) == 0 and rec["w_pad"] % d == 0
+            assert 0 < rec["batch_rows"] <= rec["n_pad"] // d
+            assert 0 < rec["window_rows"] <= rec["w_pad"] // d
+        assert recs[-1]["crossing_rows"] > 0
+        vis = [st["group_stages"].get("pipeline.visibility_stage", {"bytes": 0})["bytes"]
+               for st in out["passes"]]
+        assert sum(vis) == sum(r["crossing_rows"] * r["n_pad"] for r in recs)
+        assert vis[-1] == recs[-1]["crossing_rows"] * recs[-1]["n_pad"] > 0
 
 
 def test_group_streaming_widening_rebase(groups):

@@ -1,7 +1,7 @@
 """A card's share of the streaming window when the window is row-sharded
 over a process group, at config 3's size, on one CUDA card:
 
-    python3 -m tpu_swirld_torch.dev.group_residency [--ranks 2]
+    python3 -m tpu_swirld_torch.dev.group_residency [--ranks 2] [--straggler K]
 
 Config 3 is BASELINE.json's ``configs[2]``, ``generate_gossip_dag(64,
 10000, seed=1)`` (fork-free), fed in ingests of 1000 with the streaming
@@ -18,6 +18,16 @@ order stage's bytes a pass and the window's rows, and the ingests' wall
 seconds, then one JSON line with all of it, the card's name and power
 limit.  Exits 1 unless every driver's digest
 (result and archive) is the one process's.
+
+``--straggler K`` feeds the first ``K`` ingests, then a straggler
+witness of member 7 forged at round 1 (its self-parent the member's first
+event, its other parent the first round-1 event of another member, as
+``tests/test_torch_store.py`` forges it; it forks the member's chain),
+so that one full rebase runs over the ``K x 1000`` events and their
+straggler; it then prints, for each driver, the peaks of the rebase's
+stages (``REBASE_STAGES``) and, for each rank, its visibility stage's
+bytes and each full rebase's record (``rebase_slabs``: shapes, the most
+rows of a slab, the crossing rows).
 """
 
 from __future__ import annotations
@@ -32,12 +42,28 @@ import torch
 
 from tpu_swirld_torch import crypto, multichip
 from tpu_swirld_torch.config import SwirldConfig
+from tpu_swirld_torch.event import Event
+from tpu_swirld_torch.gpu.pipeline import run_consensus
 from tpu_swirld_torch.packing import pack_events
 from tpu_swirld_torch.parallel import MeshStreamingConsensus, make_mesh, stage_totals
 from tpu_swirld_torch.sim import generate_gossip_dag
 from tpu_swirld_torch.store import StreamingConsensus
 
 MEMBERS, EVENTS, SEED, INGEST = 64, 10_000, 1, 1000
+#: a full rebase's own stages
+REBASE_STAGES = ("pipeline.visibility_stage", "pipeline.rounds_chunk_stage",
+                 "pipeline.fame_order_cols_stage")
+STRAGGLER_MEMBER = 7
+
+
+def straggler(events, keys, members, stake, cfg):
+    """A witness of member ``STRAGGLER_MEMBER`` forged at round 1 over
+    ``events`` (their rounds from one batch pass on the card)."""
+    rnd = run_consensus(pack_events(events, members, stake), cfg, device="cuda").round
+    pk, sk = keys[STRAGGLER_MEMBER]
+    sp = next(e for e in events if e.c == pk)
+    op = next(e for i, e in enumerate(events) if e.c != pk and rnd[i] == 1)
+    return Event(d=b"straggler", p=(sp.id, op.id), t=max(sp.t, op.t) + 1, c=pk).signed(sk)
 
 
 def one_process(make, chunks, packed) -> dict:
@@ -65,6 +91,8 @@ def one_process(make, chunks, packed) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=2, help="row shards (gloo ranks)")
+    ap.add_argument("--straggler", type=int, default=None, metavar="K",
+                    help="a straggler witness after ingest K, then stop")
     args = ap.parse_args(argv)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -72,11 +100,16 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     crypto.set_backend("sim")
-    members, stake, events, _keys = generate_gossip_dag(MEMBERS, EVENTS, seed=SEED)
+    members, stake, events, keys = generate_gossip_dag(MEMBERS, EVENTS, seed=SEED)
     chunks = [events[i : i + INGEST] for i in range(0, len(events), INGEST)]
-    packed = pack_events(events, members, stake)
     cfg = SwirldConfig(n_members=MEMBERS)
-    out = {"card": smi, "ranks": args.ranks}
+    if args.straggler is not None:
+        chunks = chunks[: args.straggler]
+        events = [e for c in chunks for e in c]
+        chunks.append([straggler(events, keys, members, stake, cfg)])
+        events = events + chunks[-1]
+    packed = pack_events(events, members, stake)
+    out = {"card": smi, "ranks": args.ranks, "straggler": args.straggler}
     out["one_process"] = one_process(
         lambda: StreamingConsensus(members, stake, cfg, device="cuda"), chunks, packed)
     out["one_process_mesh"] = one_process(
@@ -99,12 +132,24 @@ def main(argv=None) -> int:
         "order_bytes": [st["group_stages"].get("pipeline.inc_order", {}).get("bytes", 0)
                         for st in rep["result"]["passes"]],
         "window_rows": [st["group_window_rows"] for st in rep["result"]["passes"]],
+        "visibility_bytes": [st["group_stages"].get("pipeline.visibility_stage", {})
+                             .get("bytes", 0) for st in rep["result"]["passes"]],
+        "rebase_slabs": rep["result"].get("rebase_slabs"),
         "launches": rep["launches"],
     } for rep in reports]
     for name in ("one_process", "one_process_mesh"):
         r = out[name]
         print(f"{name}: {r['wall']} s, peak {r['peak_bytes']} bytes, by stage "
               f"{json.dumps(r['stage_peaks'])}; slab bytes {r['resident_bytes']}", flush=True)
+    if args.straggler is not None:
+        for name in ("one_process", "one_process_mesh"):
+            print(f"{name} rebase stages: " + json.dumps(
+                {s: out[name]["stage_peaks"].get(s) for s in REBASE_STAGES}), flush=True)
+        for rank, r in enumerate(out["group"]):
+            print(f"group rank {rank} rebase stages: " + json.dumps(
+                {s: r["stage_peaks"].get(s) for s in REBASE_STAGES})
+                + f"; visibility bytes a pass {r['visibility_bytes']}; full rebases "
+                + json.dumps(r["rebase_slabs"]), flush=True)
     for rank, r in enumerate(out["group"]):
         print(f"group rank {rank}: {r['wall']} s, peak {r['peak_bytes']} bytes, by stage "
               f"{json.dumps(r['stage_peaks'])}; own slab bytes {r['rank_resident_bytes']} "

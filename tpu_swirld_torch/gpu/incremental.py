@@ -1316,10 +1316,32 @@ class IncrementalConsensus:
             )
             self._sees_d = self._anc_d
 
-    def _rebase_block_fn(self):
-        """The strongly-sees block a batch rebase runs over the whole DAG's
-        slab."""
-        return self._ssm_block_fn
+    def _batch_shards(self):
+        """The batch pass's row shards (``parallel.BatchShards``): ``None``,
+        every row in this process."""
+        return None
+
+    def _lift_slabs(self, aux, lo: int, n: int, w_pad: int, pos, forked: bool) -> None:
+        """The carried window slabs from a batch pass's (``aux``): rows and
+        columns ``[lo, n)`` of ``anc`` (and of ``sees`` when ``forked``;
+        else ``sees`` aliases ``anc``), and rows ``[lo, n)`` of the column
+        store's kept columns ``pos`` (``None`` for none), sliced on the
+        device and pushed through the ``slab_put`` seam."""
+        dev = self.device
+        w_used = n - lo
+        ssm_w = torch.zeros((w_pad, self._wcol_cap), dtype=torch.bool, device=dev)
+        if pos is not None:
+            ssm_w[:w_used, : pos.shape[0]] = aux["ssm_c"][lo:n][:, pos]
+        anc_w = torch.zeros((w_pad, w_pad), dtype=torch.bool, device=dev)
+        anc_w[:w_used, :w_used] = aux["anc"][lo:n, lo:n]
+        self._anc_d = self._put(anc_w)
+        if forked:
+            sees_w = torch.zeros((w_pad, w_pad), dtype=torch.bool, device=dev)
+            sees_w[:w_used, :w_used] = aux["sees"][lo:n, lo:n]
+            self._sees_d = self._put(sees_w)
+        else:
+            self._sees_d = self._anc_d
+        self._ssm_d = self._put(ssm_w)
 
     def _rebase(self) -> List[int]:
         """Full-recompute fallback: run the batch columns pipeline over the
@@ -1347,7 +1369,8 @@ class IncrementalConsensus:
             arrays["member_table"],
             n=n, tot=self._tot, block=self._block, r_rounds=r_rounds,
             s_max=self._s_cap, chain=chain, device=dev, stages=self.stages,
-            ssm_block_fn=self._rebase_block_fn(), block_stage=self._block_stage,
+            ssm_block_fn=self._ssm_block_fn, block_stage=self._block_stage,
+            shards=self._batch_shards(),
         )
         # adopt any self-healed capacities (the carried window table must
         # match the batch table's slot shape)
@@ -1457,26 +1480,15 @@ class IncrementalConsensus:
         n_cols = len(kept)
         self._wcol_cap = max(self._wcol_cap, _bucket(n_cols + 128, 256))
         self._col_events = np.full((self._wcol_cap,), -1, np.int32)
-        ssm_w = torch.zeros((w_pad, self._wcol_cap), dtype=torch.bool, device=dev)
+        pos = None
         if kept:
             pos = torch.as_tensor([p_ for _e, p_ in kept], device=dev)
-            ssm_w[:w_used, :n_cols] = aux["ssm_c"][lo:n][:, pos]
             for j, (e, _pos) in enumerate(kept):
                 self._col_events[j] = e - lo
                 self._colpos_w[e - lo] = j
         self._n_cols = n_cols
-        # visibility slabs, window-sliced on the device (sees aliases anc
-        # while fork-free)
-        anc_w = torch.zeros((w_pad, w_pad), dtype=torch.bool, device=dev)
-        anc_w[:w_used, :w_used] = aux["anc"][lo:n, lo:n]
-        self._anc_d = self._put(anc_w)
-        if packed.fork_pairs.shape[0]:
-            sees_w = torch.zeros((w_pad, w_pad), dtype=torch.bool, device=dev)
-            sees_w[:w_used, :w_used] = aux["sees"][lo:n, lo:n]
-            self._sees_d = self._put(sees_w)
-        else:
-            self._sees_d = self._anc_d
-        self._ssm_d = self._put(ssm_w)
+        # the window slabs (sees aliases anc while fork-free)
+        self._lift_slabs(aux, lo, n, w_pad, pos, bool(packed.fork_pairs.shape[0]))
         self._rows_hi = w_used
         self._initialized = True
         return self._order[prev_ordered:]

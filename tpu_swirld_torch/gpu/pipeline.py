@@ -123,24 +123,41 @@ def ancestry(parents: torch.Tensor, *, block: int) -> torch.Tensor:
         n % block == 0,
         f"ancestry: N={n} must be padded to a multiple of block={block}",
     )
-    dev = parents.device
-    n_sq = max(1, math.ceil(math.log2(block)))
-    eye = torch.eye(block, dtype=torch.bool, device=dev)
-    jj = torch.arange(block, dtype=torch.int64, device=dev)
-    anc = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    closure = BlockClosure(block, parents.device)
+    anc = torch.zeros((n, n), dtype=torch.bool, device=parents.device)
     for s in range(0, n, block):
-        pb = parents[s : s + block]                              # B,2
+        anc[s : s + block] = closure.rows(parents[s : s + block], s, n,
+                                          lambda idx: anc[idx])
+    return anc
+
+
+class BlockClosure:
+    """The per-block step of :func:`ancestry`: the ancestry rows of the
+    ``block`` events from row ``s``, given the rows of their external
+    parents (every parent below ``s``)."""
+
+    def __init__(self, block: int, device):
+        self.block = block
+        self.n_sq = max(1, math.ceil(math.log2(block)))
+        self.eye = torch.eye(block, dtype=torch.bool, device=device)
+        self.jj = torch.arange(block, dtype=torch.int64, device=device)
+
+    def rows(self, pb, s: int, n: int, read) -> torch.Tensor:
+        """bool ``(block, n)``: the rows of events ``[s, s + block)``, whose
+        parents are ``pb`` (int32 ``(block, 2)``); ``read(idx)`` gives the
+        ancestry rows ``idx`` (parent indices clipped to ``[0, n)``; only the rows
+        of parents below ``s`` are used)."""
+        jj = self.jj
         local = pb - s                                           # in-block offset
-        lc = (local[:, 0:1] == jj[None, :]) | (local[:, 1:2] == jj[None, :]) | eye
-        for _ in range(n_sq):
+        lc = (local[:, 0:1] == jj[None, :]) | (local[:, 1:2] == jj[None, :]) | self.eye
+        for _ in range(self.n_sq):
             lc = lc | kernels.bmm_or(lc, lc)
         pc = pb.clamp(0, n - 1)
         ext = (pb >= 0) & (pb < s)                               # external iff < s
-        g = (anc[pc[:, 0]] & ext[:, 0:1]) | (anc[pc[:, 1]] & ext[:, 1:2])   # B,N
+        g = (read(pc[:, 0]) & ext[:, 0:1]) | (read(pc[:, 1]) & ext[:, 1:2])  # B,N
         rows = kernels.bmm_or(lc, g)                             # B,N
-        rows[:, s : s + block] |= lc
-        anc[s : s + block] = rows
-    return anc
+        rows[:, s : s + self.block] |= lc
+        return rows
 
 
 # --------------------------------------------------------------- phase 2
@@ -149,10 +166,11 @@ def ancestry(parents: torch.Tensor, *, block: int) -> torch.Tensor:
 def forkseen_matrix(anc: torch.Tensor, fork_pairs: torch.Tensor,
                     n_members: int) -> torch.Tensor:
     """bool[N, M]: does x have a fork pair by member m among its ancestors?
-    ``fork_pairs`` int32[G, 3] rows (member, idx_a, idx_b)."""
-    n = anc.shape[0]
+    ``fork_pairs`` int32[G, 3] rows (member, idx_a, idx_b).  ``anc`` may be
+    some rows of the slab, every column (a group rank's row shard)."""
+    rows, n = anc.shape
     if fork_pairs.shape[0] == 0:
-        return torch.zeros((n, n_members), dtype=torch.bool, device=anc.device)
+        return torch.zeros((rows, n_members), dtype=torch.bool, device=anc.device)
     mcol = fork_pairs[:, 0]
     a = fork_pairs[:, 1].clamp(0, n - 1)
     b = fork_pairs[:, 2].clamp(0, n - 1)
@@ -878,6 +896,7 @@ def _columns_pass(
     packed, config, parents, creator, t_rank, coin, stake, member_table,
     *, n, tot, block, r_rounds, s_max, chain, device, stages,
     r_cap=None, ssm_block_fn=None, block_stage="pipeline.ssm_block_stage",
+    shards=None,
 ):
     """Column-restricted strongly-sees execution core.
 
@@ -903,7 +922,19 @@ def _columns_pass(
     ``col_pos`` and the pass's capacities and counters, which
     :class:`~tpu_swirld_torch.gpu.incremental.IncrementalConsensus` lifts
     into its window on a rebase.
+
+    ``shards`` (``parallel.BatchShards``) runs the pass on a group rank
+    over its own rows: the events are padded to its multiple (parentless
+    rows), visibility is its sharded stage, ``anc``, ``sees`` and ``ssm_c``
+    are the rank's row shards (``aux`` holds them), ``ssm_block_fn`` takes
+    the rank's ``sees`` shard, and every stage reads and writes rows by
+    global index through its row views (``parallel.RowGather``).
     """
+    if shards is not None:
+        parents, creator, t_rank, coin = shards.pad(block, parents, creator, t_rank, coin)
+        alloc, view = shards.zeros, shards.view
+    else:
+        alloc, view = _whole_zeros(device), _whole
     n_pad = parents.shape[0]
     has_forks = bool(len(packed.fork_pairs))
     if ssm_block_fn is None:
@@ -915,10 +946,17 @@ def _columns_pass(
     creator_d = _to_device(creator, device)
     stake_d = _to_device(stake, device, torch.int32)
     mt_d = _to_device(member_table, device, torch.int32)
-    anc, sees = _visibility(
-        stages, parents_d, creator_d, _to_device(packed.fork_pairs, device),
-        n_members=int(stake.shape[0]), block=block,
-    )
+    fork_pairs_d = _to_device(packed.fork_pairs, device)
+    if shards is None:
+        anc, sees = _visibility(
+            stages, parents_d, creator_d, fork_pairs_d,
+            n_members=int(stake.shape[0]), block=block,
+        )
+    else:
+        anc, sees = shards.visibility(
+            stages, parents, parents_d, creator_d, fork_pairs_d,
+            n_members=int(stake.shape[0]), block=block,
+        )
 
     # incremental column store: a preallocated (N, W_CAP) buffer written in
     # place (JAX donated it), positions tracked host-side.  Every column is
@@ -927,7 +965,7 @@ def _columns_pass(
     col_pos_d = _to_device(col_pos, device)
     n_cols = 0
     w_cap = min(_bucket(max(s_max * 8, 256), 256), n_pad)
-    ssm_c = torch.zeros((n_pad, w_cap), dtype=torch.bool, device=device)
+    ssm_c = alloc(n_pad, w_cap)
     n_scans = 0
 
     def add_columns(events):
@@ -935,7 +973,7 @@ def _columns_pass(
         batch = _bucket(len(events), 64)
         if n_cols + batch > w_cap:
             w_cap = _bucket(max(n_cols + batch, min(w_cap * 2, n_pad)), 256)
-            grown = torch.zeros((n_pad, w_cap), dtype=torch.bool, device=device)
+            grown = alloc(n_pad, w_cap)
             grown[:, : ssm_c.shape[1]] = ssm_c
             ssm_c = grown
         cols_arr = np.full((batch,), -1, dtype=np.int32)
@@ -949,7 +987,7 @@ def _columns_pass(
         for j, e in enumerate(events):
             col_pos[e] = n_cols + j
         col_pos_d = _to_device(col_pos, device)
-        ssm_c[row0 : row0 + rows_eff, n_cols : n_cols + batch] = part
+        view(ssm_c)[row0 : row0 + rows_eff, n_cols : n_cols + batch] = part
         n_cols += len(events)
 
     add_columns([int(i) for i in np.where(packed.parents[:, 0] < 0)[0]])
@@ -982,8 +1020,8 @@ def _columns_pass(
             for _attempt in range(chunk_size + 1):
                 out = stages.stage_call(
                     "pipeline.rounds_chunk_stage", rounds_chunk_stage,
-                    parents, ssm_c, col_pos_d, creator_d, stake_d, n, *state,
-                    start, tot_stake=tot, r_max=r_rounds, s_max=s_max,
+                    parents, view(ssm_c, (start, start + chunk_size)), col_pos_d,
+                    creator_d, stake_d, n, *state, start, tot_stake=tot, r_max=r_rounds, s_max=s_max,
                     has_forks=has_forks, chunk=chunk_size, check=check_d,
                 )
                 n_scans += 1
@@ -1015,7 +1053,7 @@ def _columns_pass(
     tab_b = tab_a[:r_tight, :s_used].contiguous()
     stage_b = stages.stage_call(
         "pipeline.fame_order_cols_stage", fame_order_cols_stage,
-        anc, sees, ssm_c, col_pos_d, tab_b, cnt_a, creator_d,
+        view(anc), view(sees), view(ssm_c), col_pos_d, tab_b, cnt_a, creator_d,
         _to_device(coin, device), stake_d, _to_device(parents[:, 0], device),
         _to_device(t_rank, device), max_round, n,
         tot_stake=tot, coin_period=config.coin_period, r_max=r_tight,
@@ -1038,6 +1076,16 @@ def _columns_pass(
         "overflow_retries": overflow_retries,
     }
     return out, aux
+
+
+def _whole(slab, prefetch=None):
+    """A one-process slab as the columns pass reads it by row: itself."""
+    return slab
+
+
+def _whole_zeros(device):
+    """The columns pass's slab allocation in one process: every row."""
+    return lambda rows, cols: torch.zeros((rows, cols), dtype=torch.bool, device=device)
 
 
 def _unique_famous(fam_events, creators) -> List[int]:

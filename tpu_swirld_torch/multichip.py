@@ -371,6 +371,30 @@ def row_block_rank(mesh, inputs_path: str, row0s, rows: int) -> dict:
             "shard_rows": (mesh.rank * n_loc, (mesh.rank + 1) * n_loc)}
 
 
+def visibility_rank(mesh, parents, creator, fork_pairs, n_members: int, block: int) -> dict:
+    """The sharded visibility of a batch rebase
+    (:func:`~tpu_swirld_torch.parallel.group_visibility_stage`) over
+    ``parents`` (int32 ``(N, 2)``, ``N`` a multiple of ``D * block``),
+    ``creator`` and ``fork_pairs`` (host arrays): this rank's rows of
+    ``anc`` and ``sees`` (bool numpy), the bytes and collectives it handed,
+    and the most rows of any slab it allocated."""
+    from tpu_swirld_torch.parallel import CrossingPlan, group_visibility_stage
+
+    dev = mesh.device
+    rows = []
+    calls, sent = mesh.traffic.calls, mesh.traffic.bytes
+    anc, sees = group_visibility_stage(
+        mesh, CrossingPlan.of(parents, mesh.size, mesh.rank),
+        torch.as_tensor(parents).to(dev), torch.as_tensor(creator).to(dev),
+        torch.as_tensor(fork_pairs).to(dev), n_members=n_members, block=block,
+        record=rows.append)
+    calls, sent = mesh.traffic.calls - calls, mesh.traffic.bytes - sent
+    # the rows differ by rank; what every rank handed does not
+    return {"digest": f"{calls} collectives, {sent} bytes", "anc": anc.cpu().numpy(),
+            "sees": sees.cpu().numpy(), "aliased": sees is anc, "calls": calls,
+            "bytes": sent, "slab_rows": max(rows)}
+
+
 def assert_row_sharded(inc, mesh) -> None:
     """Every carried slab of a group streaming driver is this rank's ``W /
     D`` rows of the window, on its device (the reference's
@@ -433,7 +457,8 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     rows after each ingest (:func:`assert_row_sharded`).  Returns the
     result, each pass's stats, the driver's counters, the store's stats,
     the archive's digest and counters, the ingests' wall seconds (the
-    row checks included), the driver's stage calls, and this rank's peak
+    row checks included), the driver's stage calls, each full rebase's
+    shapes and most rows of a slab (``rebase_slabs``), and this rank's peak
     device bytes
     above what it held before, in all and by stage (:func:`stage_peaks`;
     ``None`` on the CPU)."""
@@ -475,7 +500,7 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     return {"digest": result_digest(packed, result) + archive["digest"],
             "result": result, "passes": passes, "counters": counters, "store": store,
             "archive": archive, "wall": wall, "stage_calls": stage_calls,
-            "stage_peaks": peaks,
+            "stage_peaks": peaks, "rebase_slabs": inc.rebase_slabs,
             "peak_bytes": max(peaks.values()) if cuda else None}
 
 

@@ -46,7 +46,9 @@ reference's ``lax.psum``).  The batch paths, the row-sharded block and
 streaming driver is :class:`GroupStreamingConsensus`, whose stages read
 and write the rows another rank owns through a :class:`RowGather` view
 (:func:`gather_rows`, :func:`owner_write`) and move rows across shards
-with :func:`reshard_rows`.
+with :func:`reshard_rows`; its full rebase runs the batch pass over the
+rank's own rows of the DAG's slabs (:class:`BatchShards`,
+:func:`group_visibility_stage`).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_swirld_torch import obs
-from tpu_swirld_torch.device import resolve_device
+from tpu_swirld_torch.device import resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
 from tpu_swirld_torch.store.slab import SlabStore
 from tpu_swirld_torch.store.streaming import StreamingConsensus
@@ -374,24 +376,36 @@ def gather_cells(mesh: GroupMesh, shard, rows, cols):
     return _psum(mesh, [part.to(torch.int8)]) > 0
 
 
-def exchange_columns(mesh: GroupMesh, shard):
+def exchange_columns(mesh: GroupMesh, shard, pieces: int = 1):
     """This rank's columns of every row of a row-sharded square bool slab
     of ``W = D n_loc`` rows, bool ``(W, n_loc)``: rank ``r`` gets columns
     ``[r n_loc, (r + 1) n_loc)``, the events it owns.  One all-to-all of
     ``(n_loc, n_loc)`` blocks: each rank sends every other rank that
     rank's columns of its own rows, ``(D - 1) n_loc^2`` bytes, and keeps
-    its own block."""
+    its own block.  ``pieces > 1`` sends the blocks' columns in that many
+    all-to-alls (the same bytes), so that the buffers beside the output
+    are ``2 W n_loc / pieces`` bytes, not ``2 W n_loc``."""
     n_loc, w = shard.shape
     d = mesh.size
     if w != d * n_loc:
         raise ValueError(f"a column exchange of a ({n_loc}, {w}) row shard over "
                          f"{d} ranks: the slab must be square")
-    send = shard.reshape(n_loc, d, n_loc).transpose(0, 1).contiguous()
-    recv = torch.empty_like(send)
-    mesh.traffic.add(send, nbytes=(d - 1) * n_loc * n_loc)
-    dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8),
-                           group=mesh.group)
-    return recv.reshape(w, n_loc)
+    blocks = shard.reshape(n_loc, d, n_loc)
+    step = -(-n_loc // max(1, pieces))
+    out = None
+    for c in range(0, n_loc, step):
+        send = blocks[:, :, c : c + step].transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)
+        mesh.traffic.add(send, nbytes=(d - 1) * n_loc * send.shape[2])
+        dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8),
+                               group=mesh.group)
+        if step == n_loc:           # one piece: it is the output
+            return recv.reshape(w, n_loc)
+        if out is None:
+            out = torch.empty((d, n_loc, n_loc), dtype=torch.bool, device=shard.device)
+        out[:, :, c : c + step] = recv
+        del send, recv
+    return out.reshape(w, n_loc)
 
 
 def join_columns(mesh: GroupMesh, part):
@@ -416,15 +430,24 @@ def owner_write(mesh: GroupMesh, shard, row0: int, block, col0: int = 0):
     return shard
 
 
-def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int = 0):
+def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int = 0,
+                 *, cols: Optional[int] = None, piece_rows: Optional[int] = None,
+                 record=None):
     """This rank's ``n_loc_new`` rows of the slab whose global row ``i`` is
     row ``i + shift`` of the ``n_rows``-row slab sharded as ``shard`` (zero
-    past its end): a prune's shift, a growth's new shard size.  A rank keeps
-    the rows it already owns; only the rows that change owner cross, all in
-    one sum (every rank lists the same crossings, from the shapes alone),
-    so a prune of ``d`` rows moves about ``d`` rows a shard boundary."""
-    n_loc, cols = shard.shape
+    past its end): a prune's shift, a growth's new shard size, a rebase's
+    lift of a batch shard into the window.  A rank keeps the rows it
+    already owns; only the rows that change owner cross, all in one sum
+    (every rank lists the same crossings, from the shapes alone), so a
+    prune of ``d`` rows moves about ``d`` rows a shard boundary.
+    ``cols`` widens the rows returned past the shard's columns (zeros);
+    ``piece_rows`` splits the sum so that none carries more rows; ``record``,
+    if given, is called with the row count of every slab allocated here.
+    ``shard`` may be a view (some columns of a shard)."""
+    n_loc, width = shard.shape
+    cols = width if cols is None else cols
     lo = mesh.rank * n_loc
+    record = record or (lambda rows: None)
 
     def span(t):
         # destination t's rows, as rows of the old slab
@@ -439,25 +462,39 @@ def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int
                 crossing.append((t, a, b))
     g0, g1 = span(mesh.rank)
     mine = torch.zeros((n_loc_new, cols), dtype=torch.bool, device=shard.device)
+    record(n_loc_new)
     a, b = max(g0, lo), min(g1, lo + n_loc)
     if a < b:
-        mine[a - g0 : b - g0] = shard[a - lo : b - lo]
-    if not crossing:
-        return mine
-    buf = torch.zeros((sum(b - a for _, a, b in crossing), cols), dtype=torch.int8,
-                      device=shard.device)
-    off = 0
-    for _t, a, b in crossing:
-        x, y = max(a, lo), min(b, lo + n_loc)
-        if x < y:       # rows of this crossing that this rank owns
-            buf[off + x - a : off + y - a] = shard[x - lo : y - lo]
-        off += b - a
-    got = _psum(mesh, [buf]) > 0
-    off = 0
-    for t, a, b in crossing:
-        if t == mesh.rank:
-            mine[a - g0 : b - g0] = got[off : off + b - a]
-        off += b - a
+        mine[a - g0 : b - g0, :width] = shard[a - lo : b - lo]
+    if piece_rows is not None:      # no crossing longer than a piece
+        crossing = [(t, x, min(x + piece_rows, b)) for t, a, b in crossing
+                    for x in range(a, b, piece_rows)]
+    sums, rows = [[]], 0
+    for c in crossing:
+        if sums[-1] and piece_rows is not None and rows + c[2] - c[1] > piece_rows:
+            sums.append([])
+            rows = 0
+        sums[-1].append(c)
+        rows += c[2] - c[1]
+    for part in sums:
+        if not part:
+            continue
+        buf = torch.zeros((sum(b - a for _, a, b in part), width), dtype=torch.int8,
+                          device=shard.device)
+        record(buf.shape[0])
+        off = 0
+        for _t, a, b in part:
+            x, y = max(a, lo), min(b, lo + n_loc)
+            if x < y:       # rows of this crossing that this rank owns
+                buf[off + x - a : off + y - a] = shard[x - lo : y - lo]
+            off += b - a
+        _psum(mesh, [buf])
+        off = 0
+        for t, a, b in part:
+            if t == mesh.rank:
+                mine[a - g0 : b - g0, :width] = buf[off : off + b - a] > 0
+            off += b - a
+        del buf
     return mine
 
 
@@ -472,7 +509,8 @@ class RowGather:
     gathered at once when they hold them, else one gather;
     ``g.cells(rows, cols)`` gathers single cells (:func:`gather_cells`);
     ``g.own_columns()`` exchanges columns, so that a rank holds its own
-    events' columns of every row (:func:`exchange_columns`), and
+    events' columns of every row (:func:`exchange_columns`, in ``pieces``
+    all-to-alls), and
     ``g.join_columns(part)`` puts every rank's values of its events
     together (:func:`join_columns`).  A write ``g[a:b] = block`` or
     ``g[a:b, c:d] = block`` (every rank's same values) lands in the rows
@@ -480,8 +518,9 @@ class RowGather:
     (:func:`owner_write`).  Every rank must read and write the same rows in
     the same order, as every rank runs the same stage."""
 
-    def __init__(self, mesh: GroupMesh, shard, n_rows: int, prefetch=None):
-        self.mesh, self.shard = mesh, shard
+    def __init__(self, mesh: GroupMesh, shard, n_rows: int, prefetch=None,
+                 pieces: int = 1):
+        self.mesh, self.shard, self.pieces = mesh, shard, pieces
         self.shape = (n_rows, shard.shape[1])
         self.device = shard.device
         self._lo, self._rows = 0, None
@@ -522,10 +561,12 @@ class RowGather:
     def own_columns(self):
         """``(slab, (x0, x1))``: the columns of this rank's own events
         ``[x0, x1)`` of every row, bool ``(W, x1 - x0)``
-        (:func:`exchange_columns`; the slab must be square)."""
+        (:func:`exchange_columns` in the view's ``pieces``; the slab must be
+        square)."""
         n_loc = self.shard.shape[0]
         x0 = self.mesh.rank * n_loc
-        return exchange_columns(self.mesh, self.shard), (x0, x0 + n_loc)
+        return (exchange_columns(self.mesh, self.shard, self.pieces),
+                (x0, x0 + n_loc))
 
     def join_columns(self, part):
         """The int32 ``(k, x1 - x0)`` values of every rank's own events,
@@ -563,6 +604,209 @@ def group_prune_stage(mesh, anc, sees, ssm_c, d, n_used, keep_cols, *, n, has_fo
                          shift=d) & live_rows[:, None]
     anc = shift(anc)
     return anc, (shift(sees) if has_forks else anc), ssm_c
+
+
+# ------------------------------------------- a group rank's batch rebase
+#
+# A full rebase runs the batch columns pass over the whole DAG.  On a group
+# rank it computes only its own rows of the DAG's slabs (its N / D rows of
+# ancestry and sees, of the column store), the stages reading other ranks'
+# rows through RowGather views, and the lift and the spill move rows by
+# owner: no rank allocates a slab of the DAG's N rows or the window's W.
+
+
+def crossing_rows(parents: np.ndarray, d: int):
+    """``[X_0, ..., X_{d-1}]``: ``X_t`` the rows (ascending int64) of rank
+    ``t``'s range, of ``N / d`` rows each, that are parents of events of
+    later ranks, for the ``(N, 2)`` host ``parents`` (-1 none) in
+    topological order.  Every rank lists the same rows from ``parents``."""
+    n = parents.shape[0]
+    n_loc = n // d
+    par = np.asarray(parents, dtype=np.int64)
+    child = (np.arange(n, dtype=np.int64) // n_loc)[:, None]
+    cross = (par >= 0) & (par // n_loc < child)
+    rows = np.unique(par[cross])
+    return [rows[(rows >= t * n_loc) & (rows < (t + 1) * n_loc)] for t in range(d)]
+
+
+def _global_rank(mesh: GroupMesh, t: int) -> int:
+    return t if mesh.group is None else dist.get_global_rank(mesh.group, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossingPlan:
+    """What a group rank's sharded visibility hands and reads, listed on
+    the host from ``parents`` alone (every rank lists the same):
+    ``sizes[t]`` is ``|X_t|`` (:func:`crossing_rows`); ``send`` this
+    rank's crossing rows as local rows (int64); ``keep[t]``, for each
+    earlier rank ``t``, the rows of ``X_t`` that this rank's events name as
+    parents, ``(positions in X_t, rows of ext)``, and ``ext_pos`` each
+    global row's row of ``ext`` (0, a zero row, for none)."""
+
+    sizes: Tuple[int, ...]
+    send: np.ndarray
+    keep: Dict[int, Tuple[np.ndarray, np.ndarray]]
+    ext_pos: np.ndarray
+    n_ext: int
+
+    @classmethod
+    def of(cls, parents: np.ndarray, d: int, rank: int) -> "CrossingPlan":
+        n = parents.shape[0]
+        n_loc = n // d
+        lo = rank * n_loc
+        xs = crossing_rows(parents, d)
+        own = np.asarray(parents[lo : lo + n_loc], dtype=np.int64)
+        need = np.unique(own[(own >= 0) & (own < lo)])
+        ext_pos = np.zeros((n,), np.int64)
+        ext_pos[need] = np.arange(1, need.shape[0] + 1, dtype=np.int64)
+        keep = {}
+        for t in range(rank):
+            hit = np.flatnonzero(np.isin(xs[t], need))
+            if hit.size:
+                keep[t] = (hit, ext_pos[xs[t][hit]])
+        return cls(tuple(int(x.shape[0]) for x in xs), xs[rank] - lo, keep, ext_pos,
+                   int(need.shape[0]))
+
+    @property
+    def crossing(self) -> int:
+        """``sum_t |X_t|``."""
+        return sum(self.sizes)
+
+
+def group_visibility_stage(mesh: GroupMesh, plan: CrossingPlan, parents, creator,
+                           fork_pairs, *, n_members: int, block: int, record=None):
+    """This rank's rows of ``(anc, sees)`` over the whole packed DAG, bool
+    ``(N / D, N)`` each (``sees`` is ``anc`` itself with no fork pair): the
+    rows of :func:`~tpu_swirld_torch.gpu.pipeline.visibility_stage`.
+
+    ``N`` is a multiple of ``D * block``.  Rows are in topological order,
+    so a rank's events have parents in its own range or in earlier ranks'.
+    In rank order, rank ``t`` computes its blocks with ``ancestry``'s
+    per-block closure (:class:`~tpu_swirld_torch.gpu.pipeline.
+    BlockClosure`), reading external parents from its own rows or from the
+    crossing rows it was handed, then one broadcast hands its crossing rows
+    ``X_t`` to the other ranks (``plan``, :class:`CrossingPlan`): a rank
+    hands the stage ``sum_t |X_t| N`` bytes.  The fork hop and the
+    fork-aware sees run on the rank's rows alone.  ``record``, if given, is
+    called with the row count of every slab allocated here."""
+    from tpu_swirld_torch.gpu.pipeline import BlockClosure, forkseen_matrix
+
+    record = record or (lambda rows: None)
+    n = parents.shape[0]
+    d = mesh.size
+    n_loc = n // d
+    if n_loc * d != n or n_loc % block:
+        raise ValueError(f"{n} events do not split into {d} shards of whole "
+                         f"{block}-event blocks")
+    dev = parents.device
+    lo = mesh.rank * n_loc
+    # the crossing rows this rank reads, at 1..; row 0 of ext is zeros
+    ext_pos = torch.as_tensor(plan.ext_pos, device=dev)
+    ext = torch.zeros((plan.n_ext + 1, n), dtype=torch.bool, device=dev)
+    anc = torch.zeros((n_loc, n), dtype=torch.bool, device=dev)
+    record(ext.shape[0])
+    record(n_loc)
+    closure = BlockClosure(block, dev)
+
+    def read(idx):
+        own = (idx >= lo)[:, None]
+        return torch.where(own, anc[(idx - lo).clamp(0, n_loc - 1)], ext[ext_pos[idx]])
+
+    for t in range(d):
+        if t == mesh.rank:
+            for s in range(lo, lo + n_loc, block):
+                anc[s - lo : s - lo + block] = closure.rows(parents[s : s + block], s, n, read)
+        if not plan.sizes[t]:
+            continue
+        if t == mesh.rank:
+            rows = anc[torch.as_tensor(plan.send, device=dev)]
+        else:
+            rows = torch.empty((plan.sizes[t], n), dtype=torch.bool, device=dev)
+        record(rows.shape[0])
+        mesh.traffic.add(rows)
+        dist.broadcast(rows.view(torch.uint8), src=_global_rank(mesh, t), group=mesh.group)
+        if t in plan.keep:
+            at, to = (torch.as_tensor(a, device=dev) for a in plan.keep[t])
+            ext[to] = rows[at]
+        del rows
+    del ext
+    if fork_pairs.shape[0] == 0:
+        return anc, anc
+    # sees = anc & ~forkseen[:, creator], in place on the rank's rows
+    sees = forkseen_matrix(anc, fork_pairs, n_members)[:, creator]
+    record(sees.shape[0])
+    torch.logical_not(sees, out=sees)
+    sees &= anc
+    return anc, sees
+
+
+class BatchShards:
+    """A group rank's seam of the batch columns pass
+    (:func:`~tpu_swirld_torch.gpu.pipeline._columns_pass`'s ``shards``):
+    the events padded to a multiple of ``D * block`` (parentless rows, which
+    change no output), the rank's ``N / D`` rows of each slab
+    (:meth:`zeros`), the sharded visibility stage (:meth:`visibility`, as
+    ``pipeline.visibility_stage``) and row views of the shards
+    (:meth:`view`; order's column exchange in :attr:`EXCHANGE_PIECES`
+    all-to-alls).  :attr:`record` keeps the pass's ``n_pad``, the sum of
+    its crossing rows ``crossing_rows``, ``batch_rows``, the most rows of
+    any slab the pass allocates, and ``ssm_cols``, the column store's
+    widest capacity, beside ``resident_bytes`` (given: the rank's slab
+    bytes when the pass began); the driver's lift adds ``w_pad``,
+    ``window_rows`` and ``forked``."""
+
+    #: the order stage's column exchange, in this many all-to-alls
+    EXCHANGE_PIECES = 8
+
+    def __init__(self, mesh: GroupMesh, resident_bytes: int = 0):
+        self.mesh = mesh
+        self.record = {"n_pad": 0, "crossing_rows": 0, "batch_rows": 0, "ssm_cols": 0,
+                       "w_pad": 0, "window_rows": 0, "forked": False,
+                       "resident_bytes": int(resident_bytes)}
+
+    def seen(self, rows: int) -> None:
+        """A slab of ``rows`` rows was allocated."""
+        self.record["batch_rows"] = max(self.record["batch_rows"], int(rows))
+
+    def pad(self, block: int, parents, *rest):
+        """``parents`` (-1) and ``rest`` (0) padded to a multiple of ``D *
+        block`` rows."""
+        m = block * self.mesh.size
+        n = parents.shape[0]
+        extra = -n % m
+        self.record["n_pad"] = n + extra
+        if not extra:
+            return (parents, *rest)
+
+        def padded(a, fill):
+            return np.concatenate([a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
+
+        return (padded(parents, -1), *(padded(a, 0) for a in rest))
+
+    def zeros(self, n_rows: int, cols: int):
+        """This rank's rows of an ``(n_rows, cols)`` bool slab (the column
+        store), zeros."""
+        rows = n_rows // self.mesh.size
+        self.seen(rows)
+        self.record["ssm_cols"] = max(self.record["ssm_cols"], int(cols))
+        return torch.zeros((rows, cols), dtype=torch.bool, device=self.mesh.device)
+
+    def view(self, shard, prefetch=None):
+        """A row view of this rank's shard (:class:`RowGather`)."""
+        return RowGather(self.mesh, shard, shard.shape[0] * self.mesh.size,
+                         prefetch=prefetch, pieces=self.EXCHANGE_PIECES)
+
+    def visibility(self, stages, parents_np, parents, creator, fork_pairs, *,
+                   n_members: int, block: int):
+        """:func:`group_visibility_stage` as the ``pipeline.visibility_stage``
+        stage."""
+        plan = CrossingPlan.of(parents_np, self.mesh.size, self.mesh.rank)
+        self.record["crossing_rows"] = plan.crossing
+        return stages.stage_call(
+            "pipeline.visibility_stage", group_visibility_stage, self.mesh, plan,
+            parents, creator, fork_pairs, n_members=n_members, block=block,
+            record=self.seen,
+        )
 
 
 def _member_shards(member_table, stake, d: int):
@@ -879,11 +1123,15 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
     of every row (one all-to-all, ``(D - 1) W^2 / D^2`` bytes), then joins
     the outputs (``8 W`` bytes); every strongly-sees block is the
     row-sharded block over the rank's shard; a prune or a growth moves the
-    rows that change owner (:func:`reshard_rows`).  Three steps assemble
-    whole slabs: a batch rebase computes the whole DAG's slabs on every
-    rank (then keeps its rows, through ``slab_put``), a widening pulls the
-    whole window to the host, as the one-process driver does, and the
-    rebase spill reads its rows from the batch slab.  In a pass's stats
+    rows that change owner (:func:`reshard_rows`).  A full rebase runs the
+    batch pass over the rank's own ``N / D`` rows of the DAG's slabs
+    (:class:`BatchShards`, the visibility handing each rank's crossing rows
+    on), lifts them into its window rows (:func:`reshard_rows`) and spills
+    the decided rows in gathered pieces; ``rebase_slabs`` records each
+    one's shapes and the most rows of any slab it allocated.  Two steps
+    stay whole: a widening pulls the whole window to the host, as the
+    one-process driver does (then keeps its rows, through ``slab_put``),
+    and a growth moves most rows, every shard's range changing.  In a pass's stats
     ``group_calls`` and ``group_bytes`` are the collectives this rank
     joined during it and the bytes it handed them (``GroupMesh.traffic``),
     ``group_stages`` the same by stage (``Traffic.by_stage``) and
@@ -891,9 +1139,19 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
 
     #: fame votes over the table's used slots: its cells are gathered
     _fame_on_used_slots = True
+    #: a rebase spills a batch shard's worth of rows in this many gathers,
+    #: and lifts a window shard's worth of crossing rows in this many sums
+    REBASE_PIECES = 4
 
     def __init__(self, mesh: GroupMesh, members, stake=None, config=None, **kw):
         self.mesh = mesh
+        #: each full rebase's shapes and the most rows of any slab it
+        #: allocated: ``n_pad``, ``batch_rows`` (at most ``n_pad / D``),
+        #: ``w_pad``, ``window_rows`` (at most ``w_pad / D``), the
+        #: visibility stage's ``crossing_rows`` (``sum_t |X_t|``), the
+        #: column store's ``ssm_cols``, ``forked``, and the rank's slab
+        #: bytes when it began (``resident_bytes``)
+        self.rebase_slabs = []
         kw.setdefault("slab_put", self._own_rows)
         super().__init__(mesh, members, stake, config, **kw)
         self.stages.scope = mesh.traffic.during
@@ -998,15 +1256,59 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
             n=self._w_pad, has_forks=has_forks,
         )
 
-    def _rebase_block_fn(self):
-        fn, mesh = self._ssm_block_fn, self.mesh
+    def _batch_shards(self):
+        shards = BatchShards(self.mesh, self.rank_resident_bytes)
+        self.rebase_slabs.append(shards.record)
+        return shards
 
-        def own_block(sees, *args, **kw):
-            # the batch pass's whole slab: this rank's rows go to the block
-            n_loc = sees.shape[0] // mesh.size
-            return fn(sees[mesh.rank * n_loc : (mesh.rank + 1) * n_loc], *args, **kw)
+    def _lift_slabs(self, aux, lo, n, w_pad, pos, forked):
+        """The window's row shards from the batch pass's: of each slab the
+        rank's batch rows over columns ``[lo, n)`` (a view), or the column
+        store's kept columns ``pos``, move to their window owners
+        (:func:`reshard_rows` with ``shift=lo``, rows past ``n`` zero) in
+        sums of at most ``W / D`` rows (:attr:`REBASE_PIECES` to a window
+        shard); each batch shard is let go once lifted."""
+        rec = self.rebase_slabs[-1]
+        rec["w_pad"], rec["forked"] = w_pad, forked
+        w_loc = w_pad // self.mesh.size
 
-        return own_block
+        def window_seen(rows):
+            rec["window_rows"] = max(rec["window_rows"], int(rows))
+
+        def lift(local, cols):
+            return reshard_rows(self.mesh, local, n, w_loc, shift=lo, cols=cols,
+                                piece_rows=-(-w_loc // self.REBASE_PIECES),
+                                record=window_seen)
+
+        anc = aux.pop("anc")
+        sees = aux.pop("sees")
+        self._anc_d = lift(anc[:, lo:n], w_pad)
+        del anc
+        self._sees_d = lift(sees[:, lo:n], w_pad) if forked else self._anc_d
+        del sees
+        ssm = aux.pop("ssm_c")
+        if pos is None:
+            window_seen(w_loc)
+            self._ssm_d = torch.zeros((w_loc, self._wcol_cap), dtype=torch.bool,
+                                      device=self.device)
+        else:
+            kept = ssm[:, pos]
+            del ssm
+            self._ssm_d = lift(kept, self._wcol_cap)
+
+    def _spill_batch_rows(self, start, stop, anc):
+        """The decided rows ``[start, stop)`` of the batch pass's ancestry
+        shards, gathered (:func:`gather_rows`) in pieces of at most ``N /
+        D`` rows (:attr:`REBASE_PIECES` to a shard), each pulled to the
+        host and archived as it arrives, as one spill."""
+        rec = self.rebase_slabs[-1]
+        step = -(-anc.shape[0] // self.REBASE_PIECES)
+        for a in range(start, stop, step):
+            rows = gather_rows(self.mesh, anc, torch.arange(
+                a, min(a + step, stop), dtype=torch.int64, device=self.device))
+            rec["batch_rows"] = max(rec["batch_rows"], rows.shape[0])
+            self.store.spill_full(a, to_host(rows), continues=a > start)
+            del rows
 
     def _host_window(self, has_forks: bool):
         n_loc = self._w_pad // self.mesh.size

@@ -333,9 +333,11 @@ class SlabArchive:
             full[lo : e + 1] = rows[i, : e - lo + 1]
             self._append_bool(full)
 
-    def spill_full(self, start: int, rows) -> int:
+    def spill_full(self, start: int, rows, *, continues: bool = False) -> int:
         """Archive full-width rows for global events ``[start, start + d)``
-        from a batch slab (bool[d, n] over global columns ``[0, n)``)."""
+        from a batch slab (bool[d, n] over global columns ``[0, n)``).
+        ``continues``: the rows go on the previous call's spill (a spill
+        handed over in pieces counts once in ``spills``)."""
         d = int(rows.shape[0])
         if start + d <= self.n_rows or d == 0:
             self.skipped_rows += d
@@ -352,9 +354,9 @@ class SlabArchive:
             self._enqueue(("spill_full", (start, rows)))
         else:
             self._pack_full_rows(start, rows)
-        self.spills += 1
+        self.spills += not continues
         self.spilled_rows += added
-        self._record_gauges()
+        self._record_gauges(new_spill=not continues)
         return added
 
     def _pack_full_rows(self, start: int, rows) -> None:
@@ -531,10 +533,11 @@ class SlabArchive:
 
     # ---------------------------------------------------------------- obs
 
-    def _record_gauges(self) -> None:
+    def _record_gauges(self, new_spill: bool = True) -> None:
         o = obs.current()
         if o is None:
             return
         g = o.registry
         g.gauge("store_archived_rows").set(self.n_rows)
-        g.counter("store_spills_total").inc()
+        if new_spill:
+            g.counter("store_spills_total").inc()

@@ -203,8 +203,10 @@ class SlabStore:
         (see :meth:`SlabArchive.spill`)."""
         return self._spilled(self.archive.spill(lo, parents, rows))
 
-    def spill_full(self, start: int, rows) -> int:
-        return self._spilled(self.archive.spill_full(start, rows))
+    def spill_full(self, start: int, rows, *, continues: bool = False) -> int:
+        """Retire full-width batch rows (see :meth:`SlabArchive.spill_full`;
+        ``continues``: these rows go on the previous spill)."""
+        return self._spilled(self.archive.spill_full(start, rows, continues=continues))
 
     @staticmethod
     def _spilled(added: int) -> int:

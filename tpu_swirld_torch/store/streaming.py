@@ -310,9 +310,7 @@ class StreamingConsensus(IncrementalConsensus):
         arch = self.store.archive
         lo = self._lo
         if lo > arch.n_rows:
-            # only the newly decided rows leave the card, as an owned copy
-            rows = aux["anc"][arch.n_rows : lo].clone()
-            self.store.spill_full(arch.n_rows, rows)
+            self._spill_batch_rows(arch.n_rows, lo, aux["anc"])
         tabf = out["wit_table"]
         famf = out["famous"].reshape(tabf.shape)
         decf = out["fame_decided_at"].reshape(tabf.shape)
@@ -327,6 +325,12 @@ class StreamingConsensus(IncrementalConsensus):
                 dec.append(int(decf[r, s]))
             arch.retire_round(r, evs, fam, dec)
         self._round_hi = max(self._round_hi, self._r_base)
+
+    def _spill_batch_rows(self, start: int, stop: int, anc) -> None:
+        """Archive rows ``[start, stop)`` of the batch pass's ancestry slab
+        ``anc``, full width: only the newly decided rows leave the card, as
+        an owned copy."""
+        self.store.spill_full(start, anc[start:stop].clone())
 
     # ---------------------------------------------------- rebase routing
 
