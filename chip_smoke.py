@@ -747,15 +747,20 @@ FLOW_EDGE = {"members": 4, "stake": 178_956_970, "n": 256, "k": 64, "cols": 64,
              "seeing_rows": 8, "density": 0.05}
 # Meshes over several processes (phase 19): the groups, (backend, ranks),
 # and what each runs; every rank on this one card
-GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke", "straggler"),
-              ("gloo", 4): ("dryrun", "forks", "straggler"), ("nccl", 1): ("dryrun", "block")}
+GROUP_RUNS = {("gloo", 2): ("dryrun", "batch", "block", "forks", "smoke", "straggler",
+                            "widening", "widening_forks"),
+              ("gloo", 4): ("dryrun", "forks", "straggler", "widening", "widening_forks"),
+              ("nccl", 1): ("dryrun", "block")}
 GROUP_BATCH_CONFIG = "config3"
 GROUP_BLOCK = {"row0": 4096, "rows": 1024, "cols": 256}   # phase 9's extension block
 # (d) tests/test_mesh_stream.py:170's forked window, :61's smoke (its
 # prunes move rows across the shards) and :141's straggler witness forged at
 # round 1 after a 5-node simulation's 260 turns (a full rebase on every
 # rank, over its own rows of the DAG's slabs; the straggler forks its
-# creator's chain), on the ssm_tally route
+# creator's chain), on the ssm_tally route; and two stale-view syncs, each
+# answered by a widening over the rank's own rows ("stale": the member whose
+# head it extends, the long-pruned event its other parent names, payload),
+# tests/test_store.py's fork-free one and a forked one
 GROUP_STREAMS = {
     "forks": {"members": 12, "events": 1000, "seed": 4, "forkers": 4, "ingest": 250,
               "driver": {"chunk": 64, "window_bucket": 512, "prune_min": 128,
@@ -766,6 +771,14 @@ GROUP_STREAMS = {
     "straggler": {"simulation": (5, 23, 260), "forkers": 1, "ingest": 50,
                   "driver": {"block": 64, "chunk": 32, "window_bucket": 256,
                              "prune_min": 64}},
+    "widening": {"members": 8, "events": 1000, "seed": 11, "forkers": 0, "ingest": 200,
+                 "stale": (3, 100, b"stale-sync"),
+                 "driver": {"chunk": 64, "window_bucket": 256, "prune_min": 64,
+                            "ingest_chunk": 256}},
+    "widening_forks": {"members": 8, "events": 900, "seed": 5, "forkers": 1, "ingest": 150,
+                       "stale": (0, 80, b"stale-forks"),
+                       "driver": {"chunk": 64, "window_bucket": 256, "prune_min": 64,
+                                  "ingest_chunk": 256}},
 }
 # a full rebase's own stages on a group rank, whose peaks rebase_peak_bound
 # holds (as PERF.md states it)
@@ -4871,7 +4884,8 @@ def check_group_block(tag, reports, out_i, single, plain, failures):
 
 def group_stream_schedule(name):
     """Phase 19(d)'s schedule ``name``: ``(members, stake, chunks,
-    config)``; the straggler's ends with its forged witness."""
+    config)``; the straggler's ends with its forged witness, a widening
+    schedule's with its stale sync."""
     g = GROUP_STREAMS[name]
     if "simulation" in g:
         n_nodes, seed, turns = g["simulation"]
@@ -4882,17 +4896,24 @@ def group_stream_schedule(name):
         chunks = [events[i : i + g["ingest"]] for i in range(0, len(events), g["ingest"])]
         chunks.append([make_straggler_event(node, lag.pk, lag.sk, at_round=1)])
         return node.members, [node.stake[m] for m in node.members], chunks, node.config
-    members, stake, events, _keys = generate_gossip_dag(
+    members, stake, events, keys = generate_gossip_dag(
         g["members"], g["events"], seed=g["seed"], n_forkers=g["forkers"])
-    return members, stake, [events[i : i + g["ingest"]]
-                            for i in range(0, len(events), g["ingest"])], \
-        SwirldConfig(n_members=g["members"])
+    chunks = [events[i : i + g["ingest"]] for i in range(0, len(events), g["ingest"])]
+    if "stale" in g:
+        member, old, payload = g["stale"]
+        pk, sk = keys[member]
+        head = [ev for ev in events if ev.c == pk][-1]
+        chunks.append([Event(d=payload, p=(head.id, events[old].id), t=events[-1].t + 1,
+                             c=pk).signed(sk)])
+    return members, stake, chunks, SwirldConfig(n_members=g["members"])
 
 
 def group_stream_reference(name, schedule):
     """The one-process streaming driver's run of schedule ``name`` on the
-    card: its digests, archive digest, and peak device bytes above what
-    was held, in all and by stage (``multichip.stage_peaks``)."""
+    card: its digests, archive digest, peak device bytes above what was
+    held, in all and by stage (``multichip.stage_peaks``), and the host
+    peak of each ingest of :func:`group_traced` (``host_peaks``) with the
+    window before a widening schedule's stale sync (``widening``)."""
     members, stake, chunks, cfg = schedule
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4900,18 +4921,32 @@ def group_stream_reference(name, schedule):
     single = StreamingConsensus(members, stake, cfg, device="cuda",
                                 **GROUP_STREAMS[name]["driver"])
     monitor = multichip.watch_stage_peaks(single)
+    host_peaks, widening = {}, None
     try:
-        for chunk in chunks:
-            single.ingest(chunk)
+        for i, chunk in enumerate(chunks):
+            if i in group_traced(name, chunks):
+                w_pad, lo = single._w_pad, single.pruned_prefix
+                _st, host_peaks[i] = multichip.host_peak(single.ingest, chunk)
+                widening = {"w_pad": w_pad, "pruned_prefix": lo,
+                            "widen_rebases": single.widen_rebases}
+            else:
+                single.ingest(chunk)
         torch.cuda.synchronize()
         events = [e for c in chunks for e in c]
         peaks = multichip.stage_peaks(monitor, base)
         return {"digests": result_digests(pack_events(events, members, stake),
                                           single.result()),
                 "archive": single.store.archive.digest(),
-                "stage_peaks": peaks, "peak_bytes": max(peaks.values())}
+                "stage_peaks": peaks, "peak_bytes": max(peaks.values()),
+                "host_peaks": host_peaks, "widening": widening}
     finally:
         single.store.close()
+
+
+def group_traced(name, chunks):
+    """The ingests of stream ``name`` whose host peak phase 19 measures:
+    a widening schedule's stale sync, its last."""
+    return (len(chunks) - 1,) if "stale" in GROUP_STREAMS[name] else ()
 
 
 def order_bytes_bound(w, d):
@@ -4998,12 +5033,54 @@ def group_rebase_checks(tag, name, out, want, world, failures):
                         f"{bound}, one process {one}")
 
 
+def group_widening_checks(tag, name, out, want, rank, world, failures):
+    """A rank's widening in stream ``name`` (a stale sync, its last
+    ingest): exactly one; its record (``widen_slabs``) within its bounds,
+    as ``PERF.md`` states them: no slab over ``new_pad / D`` rows on the
+    card or the host, at most its own archived rows of ``[0, delta)`` and
+    the ``parent_rows`` decompressed, and the widening pass's bytes
+    between stages at most ``moved_rows x (s W + cap)`` (``s`` square
+    slabs, 2 when forked; ``cap`` the column store's width).  Prints the
+    record, the rank's device peaks of the widening and between stages and
+    its host peak over the stale sync's ingest beside the one process's."""
+    c = out["counters"]
+    recs = out["widen_slabs"]
+    last = len(out["passes"]) - 1
+    between = out["passes"][-1]["group_stages"].get(parallel.BETWEEN_STAGES, {})
+    print(f"{tag} stream {name}: widening {json.dumps(recs)}; between stages of its "
+          f"pass {json.dumps(between)}; device peak of the widening "
+          f"{out['stage_peaks'].get('widening')}, between stages "
+          f"{out['stage_peaks'].get('between stages')} (one process "
+          f"{want['stage_peaks'].get('widening')}, "
+          f"{want['stage_peaks'].get('between stages')}); host peak over the stale "
+          f"sync's ingest {out['host_peaks'].get(last)} (one process "
+          f"{want['host_peaks'].get(last)}, before it {json.dumps(want['widening'])})",
+          flush=True)
+    if c["widen_rebases"] != 1 or len(recs) != 1:
+        failures.append(f"{tag} stream {name}: {c['widen_rebases']} widenings, "
+                        f"{len(recs)} records")
+        return
+    rec = recs[0]
+    n_loc = rec["new_pad"] // world
+    own = max(0, min(rec["delta"], (rank + 1) * n_loc) - min(rec["delta"], rank * n_loc))
+    s = 2 if rec["forked"] else 1
+    bound = rec["moved_rows"] * (s * rec["w_pad"] + rec["ssm_cols"])
+    if not (0 < rec["window_rows"] <= n_loc
+            and rec["decompressed_rows"] <= own + rec["parent_rows"]):
+        failures.append(f"{tag} stream {name}: a widening over new_pad / D rows or "
+                        f"decompressing more than its own and P's: {rec}")
+    if between.get("bytes", 0) > bound:
+        failures.append(f"{tag} stream {name}: the widening pass handed {between} "
+                        f"between stages, over moved_rows x (s W + cap) = {bound}")
+
+
 def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
     """Phase 19(d): every rank's streaming run of schedule ``name`` against
     the one-process driver's (each rank checked its slabs' rows after
     every ingest), its order stage's collectives within their bound
-    (:func:`group_order_traffic`) and its full rebases' rows, bytes and
-    peaks (:func:`group_rebase_checks`)."""
+    (:func:`group_order_traffic`), its full rebases' rows, bytes and
+    peaks (:func:`group_rebase_checks`) and its widening's
+    (:func:`group_widening_checks`)."""
     members, stake, chunks, _cfg = schedule
     packed = pack_events([e for c in chunks for e in c], members, stake)
     for rank, rep in enumerate(reports):
@@ -5028,6 +5105,9 @@ def check_group_stream(tag, reports, out_i, name, schedule, want, failures):
             failures.append(f"{tag} rank {rank}: the streaming run's digests != the "
                             "one-process driver's")
         group_rebase_checks(f"{tag} rank {rank}", name, out, want, len(reports), failures)
+        if "stale" in GROUP_STREAMS[name]:
+            group_widening_checks(f"{tag} rank {rank}", name, out, want, rank,
+                                  len(reports), failures)
         c = out["counters"]
         if c["repins"] or c["forked"] != (GROUP_STREAMS[name]["forkers"] > 0) or (
                 name == "smoke" and not c["pruned_prefix"]) or (
@@ -5064,7 +5144,8 @@ def run_multichip_phase(packs, failures):
                                                       GROUP_BLOCK["rows"])),
                  **{name: (multichip.streaming_rank, (
                      members, stake, cfg_s, chunks,
-                     {**GROUP_STREAMS[name]["driver"], "pallas": True}))
+                     {**GROUP_STREAMS[name]["driver"], "pallas": True},
+                     group_traced(name, chunks)))
                     for name, (members, stake, chunks, cfg_s) in schedules.items()}}
         groups = {}
         for (backend, world), legs in GROUP_RUNS.items():

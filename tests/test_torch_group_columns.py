@@ -3,12 +3,17 @@ join of its events' outputs (``parallel.join_columns``), over gloo groups
 of 2, 3 and 4 CPU ranks: each rank holds its ``W / D`` rows of a seeded
 square slab and ends with its own events' columns of every row, equal to
 that slice of the whole slab, having handed the collective only the
-``(D - 1)`` blocks of ``(W / D)^2`` bytes that the other ranks take.
-Tolerance: exact equality.
+``(D - 1)`` blocks of ``(W / D)^2`` bytes that the other ranks take;
+and ``reshard_rows`` with a negative shift (a widening's move of the
+retained rows down a new shard size) against the whole-slab arithmetic,
+its sums carrying exactly the rows that change owner.  Tolerance: exact
+equality.
 
 The module imports no JAX: its rank tasks run in spawned processes, which
 import the module that holds them.  ``tests/test_torch_mesh_group.py``
 runs :func:`window_stages_rank` and holds it to the JAX reference."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -65,6 +70,57 @@ def pieces_rank(mesh, w, seed, pieces, n_rows, n_loc_new, shift, piece_rows) -> 
         out[name] = fn().numpy()
         handed[name] = (mesh.traffic.calls - calls, mesh.traffic.bytes - sent)
     return {"digest": repr(handed), "out": out, "handed": handed, "rows": max(rows)}
+
+
+def shift_down_rank(mesh, w, seed, cases) -> dict:
+    """This rank's rows of the seeded ``(w, w)`` slab through
+    ``reshard_rows(n_rows, n_loc_new, shift, cols=, col0=, piece_rows=)``
+    for each case: the outputs, the bytes each handed and the rows of every
+    slab it allocated."""
+    from tpu_swirld_torch.parallel import reshard_rows
+
+    whole = _slab(w, seed)
+    n_loc = w // mesh.size
+    shard = torch.from_numpy(whole[mesh.rank * n_loc : (mesh.rank + 1) * n_loc]).clone()
+    outs = []
+    for n_rows, n_loc_new, shift, cols, col0, piece_rows in cases:
+        rows, sent = [], mesh.traffic.bytes
+        got = reshard_rows(mesh, shard, n_rows, n_loc_new, shift=shift, cols=cols,
+                           col0=col0, piece_rows=piece_rows, record=rows.append)
+        outs.append({"out": got.numpy(), "bytes": mesh.traffic.bytes - sent, "rows": rows})
+    return {"digest": repr([o["bytes"] for o in outs]), "outs": outs}
+
+
+@contextlib.contextmanager
+def widened_slabs(cls):
+    """Patch ``cls._widen_slabs`` so that each widening appends host copies
+    of the driver's slabs just after it, ``(anc, sees or None while
+    fork-free, ssm)``, to the list yielded."""
+    shots = []
+    widen = cls._widen_slabs
+
+    def capture(self, *args):
+        widen(self, *args)
+        sees = None if self._sees_d is self._anc_d else self._sees_d.cpu().numpy().copy()
+        shots.append((self._anc_d.cpu().numpy().copy(), sees,
+                      self._ssm_d.cpu().numpy().copy()))
+
+    cls._widen_slabs = capture
+    try:
+        yield shots
+    finally:
+        cls._widen_slabs = widen
+
+
+def widening_rank(mesh, *args) -> dict:
+    """``multichip.streaming_rank`` with the rank's rows of the slabs
+    after each widening (:func:`widened_slabs`) under ``"widened"``."""
+    from tpu_swirld_torch.parallel import GroupStreamingConsensus
+
+    with widened_slabs(GroupStreamingConsensus) as shots:
+        out = multichip.streaming_rank(mesh, *args)
+    out["widened"] = shots
+    return out
 
 
 def window_stages_rank(mesh, path) -> dict:
@@ -174,3 +230,37 @@ def test_traffic_by_stage():
     assert total["pipeline.inc_order"] == {"calls": 5, "bytes": 66, "stage_calls": 3,
                                            "peak_call_bytes": 30}
     assert total[BETWEEN_STAGES] == taken[BETWEEN_STAGES]
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_reshard_rows_shift_down(d):
+    """``reshard_rows`` with a negative shift, as a widening moves the
+    retained rows down: old row ``i`` of the first ``n_rows`` becomes row
+    ``i - shift`` of a slab of ``n_loc_new`` rows a rank (wider, then
+    narrower, than the old shard), its columns placed from ``col0``, in
+    one sum and in sums of at most 7 rows.  Each rank's rows equal the
+    whole-slab arithmetic, and the sums carry exactly the rows that change
+    owner: none before the old slab's start, none past ``n_rows``."""
+    cases = [(70, 144 // d, -40, 144, 40, None), (70, 144 // d, -40, 144, 40, 7),
+             (90, 48 // d, -10, 100, 0, None), (30, 120 // d, -1, W, 0, 7)]
+    reports = multichip.launch(shift_down_rank, d, args=(W, d, cases), device="cpu",
+                               backend="gloo", timeout=120)
+    whole = _slab(W, d)
+    n_loc, total = W // d, 0
+    for rank, rep in enumerate(reports):
+        for (n_rows, n_loc_new, shift, cols, col0, piece_rows), got in zip(
+                cases, rep["result"]["outs"]):
+            big = np.zeros((d * n_loc_new - shift + W, cols), bool)
+            big[-shift : n_rows - shift, col0 : col0 + W] = whole[:n_rows]
+            want = big[rank * n_loc_new : (rank + 1) * n_loc_new]
+            assert np.array_equal(got["out"], want)
+            i = np.arange(n_rows)
+            dest = i - shift
+            moved = int(((dest < d * n_loc_new) & (i // n_loc != dest // n_loc_new)).sum())
+            assert got["bytes"] == moved * W
+            assert got["rows"][0] == n_loc_new
+            assert sum(got["rows"][1:]) == moved
+            if piece_rows is not None:
+                assert max(got["rows"][1:], default=0) <= piece_rows
+            total += moved
+    assert total > 0

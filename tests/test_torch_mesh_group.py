@@ -7,10 +7,15 @@ host platform of ``tests/conftest.py``.  Tolerance: exact equality.
 The schedules are ``tests/test_mesh_stream.py``'s: the smoke (:61), the
 forked window (:170), the straggler witness below the frozen vote horizon
 (:141, a full rebase on every rank) and the widening rebase (as
-``tests/test_torch_mesh.py`` runs it).  Every rank holds only its ``W / D``
-rows of each slab after every ingest (``multichip.assert_row_sharded``,
-checked in the rank), and no full rebase allocates a slab of more than
-``N / D`` rows of the DAG's ``N`` or ``W / D`` of the window's; every pass's
+``tests/test_torch_mesh.py`` runs it), and a forked widening (the forked
+history of ``tests/test_torch_store.py`` and a stale sync naming its
+``events[80]``: the window shifts and its shard size changes).  Every rank
+holds only its ``W / D`` rows of each slab after every ingest
+(``multichip.assert_row_sharded``, checked in the rank), no full rebase
+allocates a slab of more than ``N / D`` rows of the DAG's ``N`` or ``W /
+D`` of the window's, and no widening one of more than the widened
+window's ``new_pad / D``, on the card or the host, nor hands more than the
+retained rows that change owner; every pass's
 stats, the result, the archive and the store's accounting equal the
 reference's on every rank.  A pass's collectives by stage
 (``group_stages``) add up to its ``group_calls`` and ``group_bytes``; each
@@ -30,11 +35,13 @@ from tpu_swirld.tpu import pipeline as ref_pipeline
 from tpu_swirld_torch import multichip
 from tpu_swirld_torch.gpu import incremental as inc
 from tpu_swirld_torch.parallel import BETWEEN_STAGES
-from tests.test_torch_group_columns import window_stages_rank
+from tpu_swirld_torch.store import StreamingConsensus
+from tests.test_torch_group_columns import widened_slabs, widening_rank, window_stages_rank
 from tests.test_torch_incremental import port_events
 from tests.test_torch_pipeline import assert_same
 from tests.test_torch_store import (
-    STORE_VOLATILE, VOLATILE, assert_batch_parity, fixed_chunks, port_config, stale_event,
+    KW, STORE_VOLATILE, VOLATILE, assert_batch_parity, fixed_chunks, port_config,
+    stale_event,
 )
 
 # name -> (generate_gossip_dag args, or the straggler's (simulation members,
@@ -46,10 +53,17 @@ SCHEDULES = {
                                      ingest_chunk=256), 250, True),
     "widening": ((8, 1000, 11, 0), dict(chunk=64, window_bucket=256, prune_min=64,
                                         ingest_chunk=256), 200, True),
+    "widening_forks": ((8, 900, 5, 1), dict(KW), 150, False),
     "straggler": ((5, 23, 260), dict(block=64, chunk=32, window_bucket=256,
                                      prune_min=64), 50, False),
 }
-RANKS = {2: ("smoke", "forks", "widening", "straggler"), 4: ("smoke", "forks", "straggler")}
+RANKS = {2: ("smoke", "forks", "widening", "widening_forks", "straggler"),
+         4: ("smoke", "forks", "widening", "widening_forks", "straggler")}
+#: each widening schedule's stale sync: (member, the pruned event its
+#: other parent names, payload), and the widening the port's one-process
+#: driver makes of it: (w_pad before, after, delta)
+WIDENINGS = {"widening": ((3, 100, b"stale-sync"), (512, 1280, 778)),
+             "widening_forks": ((0, 80, b"stale-forks"), (768, 1024, 197))}
 
 
 def _schedule(name):
@@ -71,8 +85,8 @@ def _schedule(name):
     m, n, seed, forkers = args
     members, stake, events, keys = generate_gossip_dag(m, n, seed=seed, n_forkers=forkers)
     chunks = fixed_chunks(events, size)
-    if name == "widening":
-        chunks.append([stale_event(events, keys, 3, 100, b"stale-sync")])
+    if name in WIDENINGS:
+        chunks.append([stale_event(events, keys, *WIDENINGS[name][0])])
     return members, stake, chunks, RefConfig(n_members=m), kw, pallas
 
 
@@ -87,7 +101,8 @@ def groups():
             tasks = []
             for name in RANKS[d]:
                 members, stake, chunks, cfg, kw, pallas = _schedule(name)
-                tasks.append((multichip.streaming_rank, (
+                task = widening_rank if name in WIDENINGS else multichip.streaming_rank
+                tasks.append((task, (
                     members, stake, port_config(cfg), [port_events(c) for c in chunks],
                     {**kw, "pallas": pallas},
                 )))
@@ -167,7 +182,7 @@ def _lockstep(d, outs, name):
 
 
 @pytest.mark.parametrize("d,name", [(d, n) for d in sorted(RANKS) for n in RANKS[d]
-                                    if n != "widening"])
+                                    if (d, n) != (2, "widening")])
 def test_group_streaming_lockstep_with_reference(groups, d, name):
     outs = groups(d)[name]
     members, stake, chunks, cfg = _lockstep(d, outs, name)
@@ -177,7 +192,7 @@ def test_group_streaming_lockstep_with_reference(groups, d, name):
         assert_batch_parity(_Result(out["result"]), events, members, stake, cfg)
     if name == "smoke":
         assert outs[0]["counters"]["pruned_prefix"] > 0
-    else:
+    elif name != "widening":
         assert outs[0]["counters"]["forked"]
 
 
@@ -212,6 +227,98 @@ def test_group_streaming_widening_rebase(groups):
         assert out["counters"]["full_rebases"] == 1          # the cold start
         assert out["archive"]["fetched_rows"] > 0
         assert (out["result"].round_received >= 0).any()
+
+
+def moved_rows(w_pad, new_pad, w_used, delta, d):
+    """The retained rows whose owner changes when old row ``i`` becomes row
+    ``i + delta`` and a shard goes from ``w_pad / d`` to ``new_pad / d``
+    rows: the whole-slab arithmetic."""
+    i = np.arange(w_used)
+    return int(((i // (w_pad // d)) != ((i + delta) // (new_pad // d))).sum())
+
+
+@pytest.mark.parametrize("d,name", [(d, n) for d in sorted(RANKS) for n in WIDENINGS])
+def test_group_widening_rank_rows(groups, d, name):
+    """A group rank's widening builds only its own ``new_pad / D`` rows: no
+    slab it allocated, on the card or the host, had more rows; it read its
+    own archived rows of ``[0, delta)`` and the archived parents of
+    retained events alone; it handed only the retained rows that change
+    owner, ``moved_rows x (s w_used + cap)`` bytes (``s`` square slabs,
+    2 when forked; ``cap`` the column store's width), and the widening
+    pass's bytes between stages are at most ``moved_rows x (s W + cap)``,
+    itself at most the ``s W^2 + W cap`` of pulling the whole window.  The
+    archive counts the reference's one fetch of ``delta`` rows (held in
+    lockstep by the tests above)."""
+    w_before, w_after, delta = WIDENINGS[name][1]
+    for rank, out in enumerate(groups(d)[name]):
+        c = out["counters"]
+        assert c["widen_rebases"] == 1 and c["repins"] == 0
+        assert c["forked"] == (name == "widening_forks")
+        assert c["full_rebases"] == (3 if name == "widening_forks" else 1)
+        (rec,) = out["widen_slabs"]
+        assert (rec["w_pad"], rec["new_pad"], rec["delta"]) == (w_before, w_after, delta)
+        assert rec["forked"] == c["forked"]
+        n_loc = w_after // d
+        own = max(0, min(delta, (rank + 1) * n_loc) - min(delta, rank * n_loc))
+        assert 0 < rec["window_rows"] <= n_loc
+        assert 0 < rec["parent_rows"]
+        assert own <= rec["decompressed_rows"] <= own + rec["parent_rows"]
+        moved = moved_rows(w_before, w_after, rec["w_used"], delta, d)
+        assert rec["moved_rows"] == moved > 0
+        s = 2 if rec["forked"] else 1
+        assert rec["bytes"] == moved * (s * rec["w_used"] + rec["ssm_cols"])
+        between = out["passes"][-1]["group_stages"][BETWEEN_STAGES]["bytes"]
+        assert rec["bytes"] <= between <= moved * (s * w_before + rec["ssm_cols"])
+        assert moved * (s * w_before + rec["ssm_cols"]) <= (
+            s * w_before ** 2 + w_before * rec["ssm_cols"])
+
+
+def one_process_widening(name):
+    """The port's one-process driver through schedule ``name`` on the CPU:
+    its slabs just after its one widening (:func:`widened_slabs`), and the
+    packed events."""
+    members, stake, chunks, cfg, kw, _pallas = _schedule(name)
+    single = StreamingConsensus(members, stake, port_config(cfg), device="cpu", **kw)
+    try:
+        with widened_slabs(StreamingConsensus) as shots:
+            for chunk in chunks:
+                single.ingest(port_events(chunk))
+    finally:
+        single.store.close()
+    (slabs,) = shots
+    return slabs, single.packer
+
+
+@pytest.mark.parametrize("d,name", [(d, n) for d in sorted(RANKS) for n in WIDENINGS])
+def test_group_widening_builds_the_one_process_rows(groups, d, name):
+    """Just after its widening each rank holds exactly its ``new_pad / D``
+    rows of the one-process driver's widened ``anc``, ``sees`` and ``ssm``
+    (re-admitted rows, their sees, the retained rows' rebuilt prefix
+    columns and the moved column store), and that ``anc`` is the DAG's
+    ancestry over the widened window, by a host closure of the parents."""
+    (anc, sees, ssm), packer = one_process_widening(name)
+    _before, w_after, delta = WIDENINGS[name][1]
+    assert anc.shape == (w_after, w_after) and (sees is None) == (name == "widening")
+    n_loc = w_after // d
+    for rank, out in enumerate(groups(d)[name]):
+        (got,) = out["widened"]
+        rows = slice(rank * n_loc, (rank + 1) * n_loc)
+        for g, want in zip(got, (anc, sees, ssm)):
+            assert (g is None) == (want is None)
+            if want is not None:
+                assert np.array_equal(g, want[rows])
+    par = np.asarray(packer.window_view(0, len(packer))[0], dtype=np.int64)
+    hi = len(packer) - 1                # the stale sync is the widening's pending delta
+    lo2 = WIDENINGS[name][0][1]         # the pruned event it names
+    closure = np.zeros((hi, hi), bool)
+    for e in range(hi):
+        closure[e, e] = True
+        for p in par[e]:
+            if p >= 0:
+                closure[e] |= closure[p]
+    w2 = hi - lo2
+    assert np.array_equal(anc[:w2, :w2], closure[lo2:, lo2:])
+    assert not anc[w2:].any() and anc[delta:w2, :delta].any()
 
 
 class _Result:

@@ -412,10 +412,11 @@ def assert_row_sharded(inc, mesh) -> None:
 def watch_stage_peaks(driver):
     """Break a driver's device peak down by stage: each stage it runs
     through its ``StageClock`` is a phase of a
-    :class:`~tpu_swirld_torch.obs.MemoryMonitor` on the card, and the peak
-    reached between two stages (growth, prune moves, spills, a rebase's
-    host steps) is kept as ``"between stages"``.  Returns the monitor;
-    :func:`stage_peaks` reads it.  CUDA only."""
+    :class:`~tpu_swirld_torch.obs.MemoryMonitor` on the card, a streaming
+    driver's widening (``_widen_slabs``) is the phase ``"widening"``, and
+    the peak reached between two stages otherwise (growth, prune moves,
+    spills, a rebase's host steps) is kept as ``"between stages"``.
+    Returns the monitor; :func:`stage_peaks` reads it.  CUDA only."""
     from tpu_swirld_torch.obs import MemoryMonitor
 
     clock = driver.stages
@@ -438,6 +439,15 @@ def watch_stage_peaks(driver):
 
     clock._call = watched
     monitor.between = between
+    widen = getattr(driver, "_widen_slabs", None)
+    if widen is not None:
+        def widening(*args):
+            between()
+            with monitor.phase("widening"):
+                widen(*args)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        driver._widen_slabs = widening
     return monitor
 
 
@@ -450,7 +460,26 @@ def stage_peaks(monitor, base: int) -> dict:
             for name, rec in sorted(monitor.phases.items())}
 
 
-def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
+def host_peak(fn, *args):
+    """``(fn(*args), the peak host bytes tracemalloc saw during the call
+    above what it held at the start)``."""
+    import tracemalloc
+
+    started = not tracemalloc.is_tracing()
+    if started:
+        tracemalloc.start()
+    tracemalloc.reset_peak()
+    base = tracemalloc.get_traced_memory()[0]
+    try:
+        out = fn(*args)
+        return out, tracemalloc.get_traced_memory()[1] - base
+    finally:
+        if started:
+            tracemalloc.stop()
+
+
+def streaming_rank(mesh, members, stake, config, chunks, driver: dict,
+                   traced=()) -> dict:
     """The streaming driver with its window row-sharded over the group
     (:class:`~tpu_swirld_torch.parallel.GroupStreamingConsensus`), fed the
     event lists ``chunks`` one ingest each; every slab held to this rank's
@@ -458,10 +487,11 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     result, each pass's stats, the driver's counters, the store's stats,
     the archive's digest and counters, the ingests' wall seconds (the
     row checks included), the driver's stage calls, each full rebase's
-    shapes and most rows of a slab (``rebase_slabs``), and this rank's peak
-    device bytes
-    above what it held before, in all and by stage (:func:`stage_peaks`;
-    ``None`` on the CPU)."""
+    shapes and most rows of a slab (``rebase_slabs``), each widening's
+    record (``widen_slabs``), this rank's peak device bytes above what it
+    held before, in all and by stage (:func:`stage_peaks`; ``None`` on the
+    CPU), and ``host_peaks``: for each ingest of ``traced`` (indices into
+    ``chunks``), the peak host bytes ``tracemalloc`` saw during it."""
     from tpu_swirld_torch.packing import pack_events
     from tpu_swirld_torch.parallel import MeshStreamingConsensus
 
@@ -473,11 +503,15 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
     inc = MeshStreamingConsensus(mesh, members, stake, config, device=mesh.device,
                                  **driver)
     monitor = watch_stage_peaks(inc) if cuda else None
-    passes = []
+    passes, host_peaks = [], {}
     t0 = time.perf_counter()
     try:
-        for chunk in chunks:
-            passes.append(inc.ingest(chunk))
+        for i, chunk in enumerate(chunks):
+            if i in traced:
+                st, host_peaks[i] = host_peak(inc.ingest, chunk)
+            else:
+                st = inc.ingest(chunk)
+            passes.append(st)
             assert_row_sharded(inc, mesh)
         wall = time.perf_counter() - t0
         result, _timings = _strip(inc.result())
@@ -501,6 +535,7 @@ def streaming_rank(mesh, members, stake, config, chunks, driver: dict) -> dict:
             "result": result, "passes": passes, "counters": counters, "store": store,
             "archive": archive, "wall": wall, "stage_calls": stage_calls,
             "stage_peaks": peaks, "rebase_slabs": inc.rebase_slabs,
+            "widen_slabs": inc.widen_slabs, "host_peaks": host_peaks,
             "peak_bytes": max(peaks.values()) if cuda else None}
 
 

@@ -67,6 +67,7 @@ import torch.distributed as dist
 from tpu_swirld_torch import obs
 from tpu_swirld_torch.device import resolve_device, to_host
 from tpu_swirld_torch.gpu import kernels
+from tpu_swirld_torch.store.archive import SlabArchive
 from tpu_swirld_torch.store.slab import SlabStore
 from tpu_swirld_torch.store.streaming import StreamingConsensus
 
@@ -430,42 +431,55 @@ def owner_write(mesh: GroupMesh, shard, row0: int, block, col0: int = 0):
     return shard
 
 
-def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int = 0,
-                 *, cols: Optional[int] = None, piece_rows: Optional[int] = None,
-                 record=None):
-    """This rank's ``n_loc_new`` rows of the slab whose global row ``i`` is
-    row ``i + shift`` of the ``n_rows``-row slab sharded as ``shard`` (zero
-    past its end): a prune's shift, a growth's new shard size, a rebase's
-    lift of a batch shard into the window.  A rank keeps the rows it
-    already owns; only the rows that change owner cross, all in one sum
-    (every rank lists the same crossings, from the shapes alone), so a
-    prune of ``d`` rows moves about ``d`` rows a shard boundary.
-    ``cols`` widens the rows returned past the shard's columns (zeros);
-    ``piece_rows`` splits the sum so that none carries more rows; ``record``,
-    if given, is called with the row count of every slab allocated here.
-    ``shard`` may be a view (some columns of a shard)."""
-    n_loc, width = shard.shape
-    cols = width if cols is None else cols
-    lo = mesh.rank * n_loc
-    record = record or (lambda rows: None)
-
-    def span(t):
-        # destination t's rows, as rows of the old slab
+def row_crossings(d: int, n_loc: int, n_rows: int, n_loc_new: int, shift: int = 0):
+    """The rows that change owner when the ``n_rows``-row slab sharded in
+    ``n_loc`` rows a rank over ``d`` ranks is resharded in ``n_loc_new``
+    rows a rank, new row ``i`` being old row ``i + shift``
+    (:func:`reshard_rows`): ``[(t, a, b)]``, old rows ``[a, b)`` that rank
+    ``t`` takes from another rank.  Only rows of the old slab, ``[0,
+    n_rows)``, are listed; every rank lists the same from the shapes."""
+    out = []
+    for t in range(d):
         g0 = t * n_loc_new + shift
-        return g0, max(g0, min(g0 + n_loc_new, n_rows))
-
-    crossing = []       # (destination, first, last + 1), old slab rows
-    for t in range(mesh.size):
-        g0, g1 = span(t)
+        g1 = max(g0, min(g0 + n_loc_new, n_rows))
+        g0 = max(g0, 0)
         for a, b in ((g0, min(g1, t * n_loc)), (max(g0, (t + 1) * n_loc), g1)):
             if a < b:
-                crossing.append((t, a, b))
-    g0, g1 = span(mesh.rank)
+                out.append((t, a, b))
+    return out
+
+
+def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int = 0,
+                 *, cols: Optional[int] = None, col0: int = 0,
+                 piece_rows: Optional[int] = None, record=None):
+    """This rank's ``n_loc_new`` rows of the slab whose global row ``i`` is
+    row ``i + shift`` of the ``n_rows``-row slab sharded as ``shard`` (zero
+    past its end, and before its start): a prune's shift, a growth's new
+    shard size, a rebase's lift of a batch shard into the window, a
+    widening's move of the retained rows ``-shift`` rows down (a negative
+    shift: the first ``-shift`` rows come out zero, and no sum carries
+    them).  A rank keeps the rows it already owns; only the rows that
+    change owner cross (:func:`row_crossings`), all in one sum (every rank
+    lists the same crossings, from the shapes alone), so a prune of ``d``
+    rows moves about ``d`` rows a shard boundary.  The shard's columns
+    land at ``[col0, col0 + width)`` of ``cols`` columns (default ``col0 +
+    width``; the rest zeros); ``piece_rows`` splits the sum so that none
+    carries more rows; ``record``, if given, is called with the row count
+    of every slab allocated here.  ``shard`` may be a view (some columns
+    of a shard)."""
+    n_loc, width = shard.shape
+    cols = col0 + width if cols is None else cols
+    c1 = col0 + width
+    lo = mesh.rank * n_loc
+    record = record or (lambda rows: None)
+    crossing = row_crossings(mesh.size, n_loc, n_rows, n_loc_new, shift)
+    g0 = mesh.rank * n_loc_new + shift      # this rank's first row, in old rows
+    g1 = max(g0, min(g0 + n_loc_new, n_rows))
     mine = torch.zeros((n_loc_new, cols), dtype=torch.bool, device=shard.device)
     record(n_loc_new)
     a, b = max(g0, lo), min(g1, lo + n_loc)
     if a < b:
-        mine[a - g0 : b - g0, :width] = shard[a - lo : b - lo]
+        mine[a - g0 : b - g0, col0:c1] = shard[a - lo : b - lo]
     if piece_rows is not None:      # no crossing longer than a piece
         crossing = [(t, x, min(x + piece_rows, b)) for t, a, b in crossing
                     for x in range(a, b, piece_rows)]
@@ -492,7 +506,7 @@ def reshard_rows(mesh: GroupMesh, shard, n_rows: int, n_loc_new: int, shift: int
         off = 0
         for t, a, b in part:
             if t == mesh.rank:
-                mine[a - g0 : b - g0, :width] = buf[off : off + b - a] > 0
+                mine[a - g0 : b - g0, col0:c1] = buf[off : off + b - a] > 0
             off += b - a
         del buf
     return mine
@@ -1128,10 +1142,13 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
     (:class:`BatchShards`, the visibility handing each rank's crossing rows
     on), lifts them into its window rows (:func:`reshard_rows`) and spills
     the decided rows in gathered pieces; ``rebase_slabs`` records each
-    one's shapes and the most rows of any slab it allocated.  Two steps
-    stay whole: a widening pulls the whole window to the host, as the
-    one-process driver does (then keeps its rows, through ``slab_put``),
-    and a growth moves most rows, every shard's range changing.  In a pass's stats
+    one's shapes and the most rows of any slab it allocated.  A widening
+    builds the rank's own rows of the widened window: the retained rows
+    move by owner, the rank decompresses its own archived rows and the
+    archived parents of retained events, and one ``bmm_or`` rebuilds its
+    retained rows' prefix columns (:meth:`_widen_slabs`; ``widen_slabs``
+    records each).  One step stays whole: a growth moves most rows, every
+    shard's range changing.  In a pass's stats
     ``group_calls`` and ``group_bytes`` are the collectives this rank
     joined during it and the bytes it handed them (``GroupMesh.traffic``),
     ``group_stages`` the same by stage (``Traffic.by_stage``) and
@@ -1152,7 +1169,16 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
         #: column store's ``ssm_cols``, ``forked``, and the rank's slab
         #: bytes when it began (``resident_bytes``)
         self.rebase_slabs = []
-        kw.setdefault("slab_put", self._own_rows)
+        #: each widening's shapes and what it allocated, read and moved:
+        #: ``w_pad`` before and ``new_pad`` after, ``delta``, the retained
+        #: rows ``w_used``, the column store's ``ssm_cols``, ``forked``,
+        #: ``window_rows`` (the most rows of any slab it allocated, on the
+        #: card or the host: at most ``new_pad / D``), ``parent_rows``
+        #: (``|P|``, the archived parents of retained events),
+        #: ``decompressed_rows`` (its own archived rows and ``P``),
+        #: ``moved_rows`` (retained rows that changed owner) and ``bytes``
+        #: (handed to its collectives)
+        self.widen_slabs = []
         super().__init__(mesh, members, stake, config, **kw)
         self.stages.scope = mesh.traffic.during
         self.flightrec_label = "streaming-group"
@@ -1160,8 +1186,8 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
     # ---------------------------------------------------------- placement
 
     def _own_rows(self, a):
-        """``slab_put``: this rank's rows of a whole slab (a host array or a
-        tensor), as an owned tensor on the rank's device."""
+        """This rank's rows of a whole slab (a host array or a tensor), as
+        an owned tensor on the rank's device."""
         t = torch.as_tensor(a)
         n_loc = t.shape[0] // self.mesh.size
         lo = self.mesh.rank * n_loc
@@ -1310,20 +1336,121 @@ class GroupStreamingConsensus(MeshStreamingConsensus):
             self.store.spill_full(a, to_host(rows), continues=a > start)
             del rows
 
-    def _host_window(self, has_forks: bool):
-        n_loc = self._w_pad // self.mesh.size
+    def _widen_slabs(self, lo2, delta, w_used, new_pad, has_forks):
+        """A widening over the rank's own rows: of the widened window's
+        ``new_pad / D`` rows a rank, the retained rows move by owner
+        (:func:`reshard_rows`, ``shift=-delta``, in sums of at most a
+        quarter shard), their columns placed at ``[delta, delta +
+        w_used)``; the archived rows ``[0, delta)`` this rank owns are
+        decompressed into a host buffer of its rows and put in place (with
+        their derived sees when ``has_forks``); the retained rows' prefix
+        columns are ``anc[:, delta + A] (x) B`` (``kernels.bmm_or``), ``A``
+        the retained events with a parent in ``[lo2, lo)`` and ``B[a]`` the
+        OR of those parents' archived rows, the archived rows read beyond
+        the rank's own; their sees prefix comes from the rank's rows alone
+        (``forkseen_matrix``).  The archive counts the reference's one
+        fetch of ``delta`` rows.  ``widen_slabs`` records it."""
+        from tpu_swirld_torch.gpu.pipeline import forkseen_matrix
 
-        def whole(shard):
-            # a shard at a time through the card, the whole window on the host
-            return np.concatenate([
-                gather_rows(self.mesh, shard, torch.arange(
-                    t * n_loc, (t + 1) * n_loc, dtype=torch.int64, device=self.device,
-                )).cpu().numpy()
-                for t in range(self.mesh.size)
-            ])
+        mesh, dev = self.mesh, self.device
+        lo, hi = self._lo, self._n_done
+        w2 = w_used + delta
+        n_loc = new_pad // mesh.size
+        r0 = mesh.rank * n_loc              # the rank's first widened row
+        arch = self.store.archive
+        sent = mesh.traffic.bytes
+        rec = {"w_pad": self._w_pad, "new_pad": new_pad, "delta": delta,
+               "w_used": w_used, "ssm_cols": self._wcol_cap, "forked": has_forks,
+               "window_rows": 0, "parent_rows": 0, "decompressed_rows": 0,
+               "moved_rows": 0, "bytes": 0}
+        self.widen_slabs.append(rec)
 
-        anc = whole(self._anc_d)
-        return anc, (whole(self._sees_d) if has_forks else anc), whole(self._ssm_d)
+        def seen(rows):
+            rec["window_rows"] = max(rec["window_rows"], int(rows))
+
+        a, b = min(r0, delta), min(r0 + n_loc, delta)   # its archived rows
+        arch.prefetch(lo2 + a, lo2 + b)
+        piece = -(-n_loc // self.REBASE_PIECES)
+        # ---- the retained rows, moved by owner: old row i is row i + delta
+        rec["moved_rows"] = sum(y - x for _t, x, y in row_crossings(
+            mesh.size, self._w_pad // mesh.size, w_used, n_loc, -delta))
+
+        def move(shard, cols, col0):
+            return reshard_rows(mesh, shard, w_used, n_loc, shift=-delta, cols=cols,
+                                col0=col0, piece_rows=piece, record=seen)
+
+        def put(slab, rows):
+            # host rows [a, b) into columns [0, w2), a piece at a time: each
+            # piece crosses to the card through a buffer of its own size
+            for x in range(0, b - a, piece):
+                seen(min(piece, b - a - x))
+                slab[a - r0 + x : min(b, a + x + piece) - r0, :w2] = (
+                    torch.from_numpy(rows[x : x + piece]))
+
+        # each old shard is let go once moved
+        old_sees, self._sees_d = self._sees_d, None
+        anc, self._anc_d = move(self._anc_d[:, :w_used], new_pad, delta), None
+        sees = move(old_sees[:, :w_used], new_pad, delta) if has_forks else anc
+        del old_sees
+        self._ssm_d = move(self._ssm_d, self._wcol_cap, 0)
+        # ---- the archived rows this rank owns, over columns [lo2, hi)
+        creators_g = self.packer.window_view(0, hi)[1]
+        fp_g = self.packer.fork_pairs_view(0)
+        if a < b:
+            seen(b - a)
+            anc_pre = arch.read(range(lo2 + a, lo2 + b), lo2, hi)
+            put(anc, anc_pre)
+            if has_forks:
+                put(sees, SlabArchive.derive_sees(anc_pre, lo2, creators_g[lo2:hi],
+                                                  fp_g, self._m))
+            rec["decompressed_rows"] += b - a
+            del anc_pre
+        arch.count_fetch(delta)             # the reference's one fetch
+        # ---- the retained rows' prefix columns [0, delta): a path from a
+        # retained event down to y in [lo2, lo) leaves the retained rows at
+        # some x in A, through a parent p of x in [lo2, lo), and y is in
+        # anc(p)
+        par = np.asarray(self.packer.window_view(lo, hi)[0], dtype=np.int64)
+        pre = (par >= lo2) & (par < lo)
+        a_ev = np.flatnonzero(pre.any(axis=1))          # A, as retained rows
+        x0, x1 = max(delta, r0), min(w2, r0 + n_loc)    # its retained rows
+        if a_ev.size:
+            p_ev = np.unique(par[pre])                  # P, global
+            rec["parent_rows"] = int(p_ev.shape[0])
+            seen(p_ev.shape[0])
+            seen(a_ev.shape[0])
+            p_rows = arch.read(p_ev, lo2, lo)
+            rec["decompressed_rows"] += int(p_ev.shape[0])
+            at = np.searchsorted(p_ev, np.where(pre, par, p_ev[0]))
+            b_or = np.zeros((a_ev.shape[0], delta), dtype=bool)
+            for j, i in enumerate(a_ev):
+                for k in (0, 1):
+                    if pre[i, k]:
+                        b_or[j] |= p_rows[at[i, k]]
+            del p_rows
+            if x0 < x1:
+                hop = anc[x0 - r0 : x1 - r0, delta + torch.as_tensor(a_ev, device=dev)]
+                anc[x0 - r0 : x1 - r0, :delta] = kernels.bmm_or(
+                    hop, torch.from_numpy(b_or).to(dev))
+                del hop
+            del b_or
+        if has_forks and x0 < x1:
+            # fork poisoning of the rebuilt prefix columns, from the rank's
+            # own rows; the retained columns keep the card's values
+            fp = np.asarray(fp_g, dtype=np.int64).reshape(-1, 3)
+            span = ((fp[:, 1:] >= lo2) & (fp[:, 1:] < hi)).all(axis=1)
+            pairs = torch.as_tensor(np.stack(
+                [fp[span, 0], fp[span, 1] - lo2, fp[span, 2] - lo2], axis=1,
+            ).astype(np.int32), device=dev)
+            rows = anc[x0 - r0 : x1 - r0]
+            fseen = forkseen_matrix(rows, pairs, self._m)
+            creator = torch.as_tensor(np.asarray(creators_g[lo2:lo], dtype=np.int64),
+                                      device=dev)
+            sees[x0 - r0 : x1 - r0, :delta] = rows[:, :delta] & ~fseen[:, creator]
+            del rows, fseen
+        self._anc_d = anc
+        self._sees_d = sees
+        rec["bytes"] = mesh.traffic.bytes - sent
 
 
 def streaming_consensus_for_mesh(mesh: Mesh, members, stake=None, config=None, **kw):

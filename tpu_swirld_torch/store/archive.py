@@ -390,34 +390,55 @@ class SlabArchive:
     ) -> np.ndarray:
         """Re-admit archived ancestry rows ``[lo, hi)`` over columns
         ``[col_lo, col_hi)`` as a dense bool matrix (zero beyond each row's
-        own index).  Drains the spill queue first.  ``out`` decompresses
-        straight into a caller buffer: bool, ``(hi - lo, col_hi -
-        col_lo)``, zero-filled."""
+        own index), counted as one fetch.  Drains the spill queue first.
+        ``out`` decompresses straight into a caller buffer: bool, ``(hi -
+        lo, col_hi - col_lo)``, zero-filled."""
         if hi > self.n_rows:
             raise ValueError(
                 f"fetch [{lo}, {hi}) exceeds archived prefix {self.n_rows}"
+            )
+        out = self.read(range(lo, hi), col_lo, col_hi, out)
+        self.count_fetch(hi - lo)
+        return out
+
+    def read(
+        self, rows, col_lo: int, col_hi: int,
+        out: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Archived ancestry rows ``rows`` (ints below ``n_rows``) over
+        columns ``[col_lo, col_hi)``, as :meth:`fetch` decompresses them,
+        counted as no fetch.  Drains the spill queue first."""
+        rows = list(rows)
+        if rows and max(rows) >= self.n_rows:
+            raise ValueError(
+                f"read of row {max(rows)} past archived prefix {self.n_rows}"
             )
         self._drain()
         o = obs.current()
         with (o.tracer.span("store.archive_fetch") if o is not None
               else contextlib.nullcontext()):
             if out is None:
-                out = np.zeros((hi - lo, col_hi - col_lo), dtype=bool)
-            elif out.shape != (hi - lo, col_hi - col_lo):
+                out = np.zeros((len(rows), col_hi - col_lo), dtype=bool)
+            elif out.shape != (len(rows), col_hi - col_lo):
                 raise ValueError(
-                    f"out shape {out.shape} != {(hi - lo, col_hi - col_lo)}"
+                    f"out shape {out.shape} != {(len(rows), col_hi - col_lo)}"
                 )
-            for i, e in enumerate(range(lo, hi)):
+            for i, e in enumerate(rows):
                 row = self._row_bool(e)
                 a = min(col_hi, e + 1)
                 if a > col_lo:
                     out[i, : a - col_lo] = row[col_lo:a]
+        return out
+
+    def count_fetch(self, rows: int) -> None:
+        """Count one fetch of ``rows`` rows (a group rank's share of a
+        widening counts as the whole window's one fetch)."""
         self.fetches += 1
-        self.fetched_rows += hi - lo
+        self.fetched_rows += rows
+        o = obs.current()
         if o is not None:
             o.registry.counter("store_fetches_total").inc()
-            o.registry.counter("store_fetched_rows_total").inc(hi - lo)
-        return out
+            o.registry.counter("store_fetched_rows_total").inc(rows)
 
     @staticmethod
     def derive_sees(

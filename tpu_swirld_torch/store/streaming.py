@@ -397,26 +397,19 @@ class StreamingConsensus(IncrementalConsensus):
         sees_cur = to_host(self._sees_d, copy=True) if has_forks else anc_cur
         return anc_cur, sees_cur, to_host(self._ssm_d, copy=True)
 
-    def _try_widen(self, lo2: int) -> bool:
-        """Rebuild the carried window at the lower boundary ``lo2``:
-        re-fetch archived ancestry / sees rows and rebuild the retained
-        rows' pruned-prefix columns.  Exact: every value is a pure DAG
-        function of the history the card first computed it from."""
+    def _widen_slabs(self, lo2: int, delta: int, w_used: int, new_pad: int,
+                     has_forks: bool) -> None:
+        """The carried slabs widened to ``new_pad`` rows at the lower
+        boundary ``lo2``: archived rows ``[lo2, lo)`` re-fetched as rows
+        ``[0, delta)`` (their sees derived when ``has_forks``), the
+        ``w_used`` retained rows shifted down by ``delta`` with their
+        pruned-prefix columns rebuilt from their parents' rows, pushed
+        through the ``slab_put`` seam.  Every value is a pure DAG function
+        of the history the card first computed it from."""
         lo, hi = self._lo, self._n_done
-        delta = lo - lo2
-        arch = self.store.archive
-        if lo > arch.n_rows:
-            return False                     # archive gap: full rebase
-        w_used = hi - lo
         w2 = w_used + delta
-        new_pad = max(
-            self._w_pad,
-            _bucket(w2 + 2 * self._chunk, self._window_bucket),
-        )
-        self._check_budget(new_pad)          # strict mode raises here
-        has_forks = self._fork_np.shape[0] > 0
         # warm the archive's row cache while the pulls below run
-        arch.prefetch(lo2, lo)
+        self.store.archive.prefetch(lo2, lo)
         # ---- owned host copies of the live window
         anc_cur, sees_cur, ssm_cur = self._host_window(has_forks)
         # ---- archived rows over global columns [lo2, hi), decompressed
@@ -467,6 +460,30 @@ class StreamingConsensus(IncrementalConsensus):
         # queried (scans read only scanned rows and witness rows)
         ssm_w = np.zeros((new_pad, self._wcol_cap), dtype=bool)
         ssm_w[delta : delta + w_used] = ssm_cur[:w_used]
+        # ---- push to the card (sees stays the ancestry slab while
+        # fork-free) through the slab_put seam
+        self._anc_d = self._put(anc_w)
+        self._sees_d = self._put(sees_w) if has_forks else self._anc_d
+        self._ssm_d = self._put(ssm_w)
+
+    def _try_widen(self, lo2: int) -> bool:
+        """Rebuild the carried window at the lower boundary ``lo2``: the
+        slabs (:meth:`_widen_slabs`), then the host mirrors, the fork
+        ledger, the witness table and the column store's bookkeeping."""
+        lo, hi = self._lo, self._n_done
+        delta = lo - lo2
+        arch = self.store.archive
+        if lo > arch.n_rows:
+            return False                     # archive gap: full rebase
+        w_used = hi - lo
+        w2 = w_used + delta
+        new_pad = max(
+            self._w_pad,
+            _bucket(w2 + 2 * self._chunk, self._window_bucket),
+        )
+        self._check_budget(new_pad)          # strict mode raises here
+        has_forks = self._fork_np.shape[0] > 0
+        self._widen_slabs(lo2, delta, w_used, new_pad, has_forks)
         # ---- host mirrors at the widened boundary
         self._w_pad = new_pad
         self._alloc_mirrors(new_pad)
@@ -484,7 +501,9 @@ class StreamingConsensus(IncrementalConsensus):
         # vetted fork pairs remapped to lo2 (the pending delta's pairs are
         # admitted by the extension pass)
         if self._g_done > 0:
-            fp = np.asarray(fp_g[: self._g_done], dtype=np.int64)
+            fp = np.asarray(
+                self.packer.fork_pairs_view(0)[: self._g_done], dtype=np.int64
+            )
             self._fork_np = np.stack(
                 [fp[:, 0], fp[:, 1] - lo2, fp[:, 2] - lo2], axis=1
             ).astype(np.int32)
@@ -501,11 +520,6 @@ class StreamingConsensus(IncrementalConsensus):
         for pos in range(self._n_cols):
             if ce[pos] >= 0:
                 self._colpos_w[ce[pos]] = pos
-        # ---- push to the card (sees stays the ancestry slab while
-        # fork-free) through the slab_put seam
-        self._anc_d = self._put(anc_w)
-        self._sees_d = self._put(sees_w) if has_forks else self._anc_d
-        self._ssm_d = self._put(ssm_w)
         self._lo = lo2
         self._rows_hi = w2
         self._account()
